@@ -1,0 +1,224 @@
+// Shared FLiMS routines for the Hopper kernels: key bounds, XLA's max/min,
+// the compound (key, rank) order, the butterfly, the cooperative co-rank
+// search and one windowed FLiMS dataflow (selector, butterfly, two-row
+// window advance).
+//
+// Counterpart of what the JAX package shares between `_merge_kernel` /
+// `_merge_kv_kernel` (kernels/flims_merge.py) and `tree_dataflow`
+// (kernels/merge_tree.py). One CTA runs one dataflow: lane i < w owns head
+// i of A and head w-1-i of B, so the MAX selector pairs a_i with b_{w-1-i}
+// without a reversal. Every control value (rotations, row pointers, the
+// count k taken from A) is uniform across the CTA.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace flims {
+
+constexpr int32_t kInvalidRank = 0x7fffffff;       // INVALID_RANK
+constexpr int32_t kRankLo = -0x7fffffff - 1;       // _RANK_LO
+
+template <typename T> struct Bounds;
+template <> struct Bounds<int32_t> {
+  __device__ static int32_t lo() { return -0x7fffffff - 1; }
+  __device__ static int32_t hi() { return 0x7fffffff; }
+};
+template <> struct Bounds<float> {
+  __device__ static float lo() { return -__int_as_float(0x7f800000); }
+  __device__ static float hi() { return __int_as_float(0x7f800000); }
+};
+
+// (first, last): keys sorting before / after everything real.
+template <typename T, bool DESC> __device__ __forceinline__ T first_key() {
+  return DESC ? Bounds<T>::hi() : Bounds<T>::lo();
+}
+template <typename T, bool DESC> __device__ __forceinline__ T last_key() {
+  return DESC ? Bounds<T>::lo() : Bounds<T>::hi();
+}
+
+// XLA's maximum/minimum, which the key-only JAX kernels use: a NaN operand
+// wins, and of a +0/-0 pair max gives +0 and min gives -0 whatever the
+// order. fmaxf promises neither, so the rule is spelled out.
+__device__ __forceinline__ int32_t xmax(int32_t a, int32_t b) { return a > b ? a : b; }
+__device__ __forceinline__ int32_t xmin(int32_t a, int32_t b) { return a < b ? a : b; }
+__device__ __forceinline__ float xmax(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a > b) return a;
+  if (b > a) return b;
+  return __int_as_float(__float_as_int(a) & __float_as_int(b));
+}
+__device__ __forceinline__ float xmin(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  if (a < b) return a;
+  if (b < a) return b;
+  return __int_as_float(__float_as_int(a) | __float_as_int(b));
+}
+
+// One lane: a key and, on KV lanes, its int32 rank.
+template <typename T> struct Lane {
+  T k;
+  int32_t r;
+};
+
+// "x goes first": key-only lanes use the strict descending key order
+// (ties dequeue from B, algorithm 1); KV lanes the compound order (key in
+// the call's direction, rank ascending: algorithm 3).
+template <typename T, bool KV, bool DESC>
+__device__ __forceinline__ bool wins(const Lane<T>& x, const Lane<T>& y) {
+  if (!KV) return x.k > y.k;
+  if (DESC) return x.k > y.k || (x.k == y.k && x.r < y.r);
+  return x.k < y.k || (x.k == y.k && x.r < y.r);
+}
+
+template <typename T, bool DESC>
+__device__ __forceinline__ Lane<T> guard(Lane<T> v, long long i, long long len) {
+  if (i < 0) { v.k = first_key<T, DESC>(); v.r = kRankLo; }
+  if (i >= len) { v.k = last_key<T, DESC>(); v.r = kInvalidRank; }
+  return v;
+}
+
+// Largest m in [lo, hi] with pred(m) (pred monotone: true up to the answer,
+// lo feasible). All threads of the CTA call it; each round every thread
+// tests one of blockDim.x evenly spaced candidates and __syncthreads_count
+// narrows the range, so a range of 2^21 takes three rounds at 128 threads.
+// Gives the same answer as the JAX kernels' fixed-step binary search.
+template <class Pred>
+__device__ int coop_search(int lo, int hi, Pred pred) {
+  const long long T = blockDim.x, t = threadIdx.x;
+  while (lo < hi) {
+    const long long span = hi - lo;
+    auto cand = [&](long long j) { return (int)(lo + 1 + (j * span) / T); };
+    const int cnt = __syncthreads_count(pred(cand(t)));
+    if (cnt == 0) break;
+    const int nlo = cand(cnt - 1);
+    hi = cnt < T ? cand(cnt) - 1 : hi;
+    lo = nlo;
+  }
+  return lo;
+}
+
+// Exchange with lane i ^ d: warp shuffles below 32, shared memory above.
+// Lanes >= w (a CTA of 32 threads with w < 32) do not take part.
+template <typename T, bool KV>
+__device__ __forceinline__ Lane<T> partner(const Lane<T>& v, int d, int w,
+                                           T* xk, int32_t* xr) {
+  Lane<T> p;
+  if (d >= 32) {
+    __syncthreads();
+    xk[threadIdx.x] = v.k;
+    if (KV) xr[threadIdx.x] = v.r;
+    __syncthreads();
+    p.k = xk[threadIdx.x ^ d];
+    p.r = KV ? xr[threadIdx.x ^ d] : 0;
+  } else if ((int)threadIdx.x < w) {
+    const unsigned mask = w >= 32 ? 0xffffffffu : ((1u << w) - 1u);
+    p.k = __shfl_xor_sync(mask, v.k, d);
+    p.r = KV ? __shfl_xor_sync(mask, v.r, d) : 0;
+  } else {
+    p = v;
+  }
+  return p;
+}
+
+// Butterfly CAS network over the w live lanes: stages at w/2 .. 1. Key-only
+// lanes take XLA's max (top) / min (bottom), as `_butterfly_desc` does; KV
+// lanes the compound order, as `_butterfly_kv` does.
+template <typename T, bool KV, bool DESC>
+__device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* xr) {
+  for (int d = w >> 1; d >= 1; d >>= 1) {
+    const Lane<T> p = partner<T, KV>(v, d, w, xk, xr);
+    const bool top = (threadIdx.x & d) == 0;
+    if (KV) {
+      const bool keep = top ? wins<T, KV, DESC>(v, p) : wins<T, KV, DESC>(p, v);
+      if (!keep) v = p;
+    } else {
+      v.k = top ? xmax(v.k, p.k) : xmin(p.k, v.k);
+    }
+  }
+  return v;
+}
+
+// One windowed FLiMS dataflow producing `cycles` w-wide chunks.
+//   read_a(r, c) / read_b(r, c): element c of relative row r of a side
+//     (the reader masks past the end);
+//   write(t, c, v): element c of chunk t.
+// SEL_MAX picks the key-only selector of `_merge_kernel` (jnp.maximum of
+// the heads); otherwise the heads are selected by `wins`, as
+// `tree_dataflow` and the KV kernels do.
+template <typename T, bool KV, bool DESC, bool SEL_MAX, class RA, class RB, class W>
+__device__ void merge_stream(RA read_a, RB read_b, int lA, int lB, int cycles,
+                             W write, int w, T* xk, int32_t* xr) {
+  const int i = threadIdx.x;
+  const bool live = i < w;
+  const int j = w - 1 - i;  // this lane's B column
+  Lane<T> a0{}, a1{}, b0{}, b1{};
+  if (live) {
+    a0 = read_a(0, i); a1 = read_a(1, i);
+    b0 = read_b(0, j); b1 = read_b(1, j);
+  }
+  int rA = 2, rB = 2;
+  for (int t = 0; t < cycles; ++t) {
+    Lane<T> na{}, nb{};
+    if (live) { na = read_a(rA, i); nb = read_b(rB, j); }
+    const Lane<T> ca = i < lA ? a1 : a0;
+    const Lane<T> cb = j < lB ? b1 : b0;
+    const bool take = live && wins<T, KV, DESC>(ca, cb);
+    Lane<T> v = take ? ca : cb;
+    if (SEL_MAX) v.k = xmax(ca.k, cb.k);
+    v = butterfly<T, KV, DESC>(v, w, xk, xr);
+    if (live) write(t, i, v);
+    const int k = __syncthreads_count(take);
+    int l2 = lA + k;
+    if (l2 >= w) { a0 = a1; a1 = na; lA = l2 - w; ++rA; } else { lA = l2; }
+    l2 = lB + (w - k);
+    if (l2 >= w) { b0 = b1; b1 = nb; lB = l2 - w; ++rB; } else { lB = l2; }
+  }
+}
+
+// A run read in place: element p of the run is buf[start + p] for p < len
+// and the last key (with INVALID_RANK) past the end. `base` is the aligned
+// run offset of relative row 0.
+template <typename T, bool KV, bool DESC> struct RunReader {
+  const T* k;
+  const int32_t* r;
+  long long start, len, base;
+  int w;
+  __device__ Lane<T> operator()(int row, int c) const {
+    const long long p = base + (long long)row * w + c;
+    Lane<T> v;
+    if (p < len) {
+      v.k = k[start + p];
+      v.r = KV ? r[start + p] : 0;
+    } else {
+      v.k = last_key<T, DESC>();
+      v.r = kInvalidRank;
+    }
+    return v;
+  }
+  // element i of the run, with the co-rank guards before 0 and past the end
+  __device__ Lane<T> at(long long i) const {
+    Lane<T> v{};
+    if (i >= 0 && i < len) {
+      v.k = k[start + i];
+      v.r = KV ? r[start + i] : 0;
+    }
+    return guard<T, DESC>(v, i, len);
+  }
+};
+
+// Segment of flat CTA index g: the largest s with blk0[s] <= g.
+__device__ __forceinline__ int find_segment(const int32_t* blk0, int n, int g) {
+  int lo = 0, hi = n - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (blk0[mid] <= g) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+enum DType : int { kInt32 = 0, kFloat32 = 1 };
+
+}  // namespace flims

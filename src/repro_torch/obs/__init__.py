@@ -1,0 +1,120 @@
+"""``repro_torch.obs`` — the port's flight recorder.
+
+Counterpart of ``repro.obs``: counters, gauges, timers and a bounded event
+ring, **disabled by default and free when disabled** (every site checks one
+module-level flag first).
+
+    from repro_torch import obs
+    obs.enable()
+    engine.sort(x)
+    snap = obs.snapshot()
+    obs.disable()
+
+Events this slice records: ``plan.resolve`` (cache hit or heuristic, with
+the variant), ``schedule.pass`` (one per fused merge-tree pass: levels,
+runs, block size) and ``schedule.reduce`` (passes against tree levels).
+``span`` times host wall clock into a histogram and, when a profiler runs,
+opens a ``torch.profiler.record_function`` range; ``scoped("kernels.*")``
+labels every kernel entry point the same way, enabled or not.
+"""
+from __future__ import annotations
+
+import contextlib
+import functools
+import time
+from typing import Optional
+
+from repro_torch.obs.metrics import Registry, percentile, plain
+
+__all__ = [
+    "enable", "disable", "enabled", "blocking", "configure", "inc", "event",
+    "span", "kernel_scope", "scoped", "snapshot", "reset", "registry",
+    "percentile", "plain",
+]
+
+#: the process-wide registry every instrumentation site writes to
+registry = Registry()
+
+_enabled = False
+_block = False
+
+
+def configure(*, block: Optional[bool] = None) -> None:
+    """``block=True`` makes engine spans wait for the device
+    (``torch.cuda.synchronize``) so they time execution, not enqueueing."""
+    global _block
+    if block is not None:
+        _block = bool(block)
+
+
+def enable(*, block: Optional[bool] = None) -> None:
+    global _enabled
+    _enabled = True
+    configure(block=block)
+
+
+def disable() -> None:
+    global _enabled, _block
+    _enabled = False
+    _block = False
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def blocking() -> bool:
+    return _enabled and _block
+
+
+def inc(name: str, n: int = 1) -> None:
+    if _enabled:
+        registry.inc(name, n)
+
+
+def event(kind: str, **data) -> None:
+    if _enabled:
+        registry.event(kind, **data)
+
+
+def kernel_scope(name: str):
+    """A ``torch.profiler.record_function`` range named ``repro.<name>``."""
+    from torch.profiler import record_function
+    return record_function(f"repro.{name}")
+
+
+@contextlib.contextmanager
+def span(name: str):
+    """Host wall-time span into the ``name`` timer; no-op while disabled."""
+    if not _enabled:
+        yield
+        return
+    t0 = time.perf_counter()
+    try:
+        with kernel_scope(name):
+            yield
+    finally:
+        registry.observe(name, time.perf_counter() - t0)
+
+
+def scoped(name: str):
+    """Decorator form of ``kernel_scope``."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kw):
+            with kernel_scope(name):
+                return fn(*args, **kw)
+        return wrapper
+    return deco
+
+
+def snapshot(kinds: Optional[tuple] = None) -> dict:
+    """One JSON-clean dict of counters, gauges, timers and events."""
+    snap = registry.snapshot(kinds)
+    snap["enabled"] = _enabled
+    return snap
+
+
+def reset() -> None:
+    """Clear everything recorded (the enabled flag and hooks survive)."""
+    registry.reset()
