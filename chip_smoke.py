@@ -58,11 +58,21 @@ def bits(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
+def max_abs_err(g: torch.Tensor, e: torch.Tensor) -> float:
+    """Largest |g - e| over the elements, in float64 (equal infinities
+    count as 0)."""
+    if not g.numel():
+        return 0.0
+    d = (g.double() - e.double()).abs()
+    return float(torch.where(g == e, 0.0, d).max())
+
+
 def check_same(what: str, got, exp) -> float:
-    """Bit-for-bit equality of tensors (or tuples of tensors); returns the
-    max absolute difference (0.0 when equal) and raises on any mismatch."""
+    """Bit-for-bit equality of tensors (or tuples of tensors); raises on any
+    mismatch and returns the max absolute difference it measured."""
     got = got if isinstance(got, tuple) else (got,)
     exp = exp if isinstance(exp, tuple) else (exp,)
+    err = 0.0
     for g, e in zip(got, exp):
         if g.shape != e.shape or g.dtype != e.dtype:
             raise AssertionError(f"{what}: {g.shape}/{g.dtype} vs "
@@ -73,7 +83,13 @@ def check_same(what: str, got, exp) -> float:
             raise AssertionError(f"{what}: {int(bad.sum())} elements differ, "
                                  f"first at {i}: {g[i].item()} vs "
                                  f"{e[i].item()}")
-    return 0.0
+        err = max(err, max_abs_err(g, e))
+    return err
+
+
+def plain_of(fn):
+    """The plain PyTorch twin of a kernel wrapper (``<name>_plain``)."""
+    return getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
 
 
 def time_ms(fn, warmup: int = 2, reps: int = 7) -> float:
@@ -237,7 +253,7 @@ def phase_kernels_vs_plain(mods, gen):
     def both(fn, *args, **kw):
         name = fn.__name__
         err = check_same(f"{name} {kw}", fn(*args, **kw),
-                         fn(*args, plain=True, **kw))
+                         plain_of(fn)(*args, **kw))
         errs[name] = max(errs.get(name, 0.0), err)
 
     xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (8192, 512), generator=gen,
@@ -327,59 +343,52 @@ def phase_times(mods, launches, errs, data):
     merge_ops = n * (1 + math.log2(128) / 2)
     M = dict(w=128, block_out=4096)
     cases = [
-        (k1.sort_chunks, "bitonic_sort.cu", "bitonic_sort.py:93",
-         lambda p: k1.sort_chunks(rows, plain=p),
-         lambda: torch.sort(rows, dim=-1, descending=True),
+        (k1.sort_chunks, "bitonic_sort.cu", "bitonic_sort.py:93", (rows,),
+         {}, lambda: torch.sort(rows, dim=-1, descending=True),
          2 * n * 4, sort_ops),
         (k1.sort_chunks_kv, "bitonic_sort.cu", "bitonic_sort.py:123",
-         lambda p: k1.sort_chunks_kv(rows, rr, plain=p),
+         (rows, rr), {},
          lambda: torch.sort(rows, dim=-1, descending=True, stable=True),
          2 * n * 8, sort_ops),
-        (k2.flims_merge, "flims_merge.cu", "flims_merge.py:202",
-         lambda p: k2.flims_merge(ma, mb, plain=p, **M),
-         lambda: torch.sort(cat, descending=True),
-         2 * n * 4, merge_ops),
+        (k2.flims_merge, "flims_merge.cu", "flims_merge.py:202", (ma, mb), M,
+         lambda: torch.sort(cat, descending=True), 2 * n * 4, merge_ops),
         (k2.flims_merge_kv, "flims_merge.cu", "flims_merge.py:391",
-         lambda p: k2.flims_merge_kv(ma, ra, mb, rb, plain=p, **M),
+         (ma, ra, mb, rb), M,
          lambda: torch.sort(cat, descending=True, stable=True),
          2 * n * 8, merge_ops),
-        (k3.segmented_merge_runs, "flims_merge.cu",
-         "segmented_merge.py:208",
-         lambda p: k3.segmented_merge_runs(cat, cat, *pair, n_out=n,
-                                           plain=p, **M),
-         lambda: torch.sort(cat, descending=True),
-         2 * n * 4, merge_ops),
+        (k3.segmented_merge_runs, "flims_merge.cu", "segmented_merge.py:208",
+         (cat, cat, *pair), dict(M, n_out=n),
+         lambda: torch.sort(cat, descending=True), 2 * n * 4, merge_ops),
         (k3.segmented_merge_runs_kv, "flims_merge.cu",
-         "segmented_merge.py:375",
-         lambda p: k3.segmented_merge_runs_kv(cat, rcat, cat, rcat, *pair,
-                                              n_out=n, plain=p, **M),
+         "segmented_merge.py:375", (cat, rcat, cat, rcat, *pair),
+         dict(M, n_out=n),
          lambda: torch.sort(cat, descending=True, stable=True),
          2 * n * 8, merge_ops),
         (k4.merge_tree_runs, "merge_tree.cu", "merge_tree.py:393",
-         lambda p: k4.merge_tree_runs(runs4, st4, ln4, group=4, n_out=n,
-                                      plain=p, **M),
-         lambda: torch.sort(runs4, descending=True),
-         2 * n * 4, 2 * merge_ops),
+         (runs4, st4, ln4), dict(M, group=4, n_out=n),
+         lambda: torch.sort(runs4, descending=True), 2 * n * 4,
+         2 * merge_ops),
         (k4.merge_tree_runs_kv, "merge_tree.cu", "merge_tree.py:393",
-         lambda p: k4.merge_tree_runs_kv(runs4, rcat, st4, ln4, group=4,
-                                         n_out=n, plain=p, **M),
+         (runs4, rcat, st4, ln4), dict(M, group=4, n_out=n),
          lambda: torch.sort(runs4, descending=True, stable=True),
          2 * n * 8, 2 * merge_ops),
     ]
     table = []
-    for fn, source, replaces, call, lib, nbytes, ops in cases:
+    for fn, source, replaces, args, kw, lib, nbytes, ops in cases:
         name = fn.__name__
-        check_same(f"{name} at the main path's shape", call(False),
-                   call(True))
+        plain = plain_of(fn)
+        err = check_same(f"{name} at the main path's shape", fn(*args, **kw),
+                         plain(*args, **kw))
         bound_ms, bound_by = _bound(nbytes, ops)
         table.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + source,
             "replaces": "src/repro/kernels/" + replaces,
             "launches": int(launches.get(name, 0)),
-            "max_abs_err": errs.get(name, 0.0),
-            "ms": time_ms(lambda: call(False)),
-            "plain_ms": time_ms(lambda: call(True), warmup=1, reps=5),
+            "max_abs_err": max(errs[name], err),
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(lambda: plain(*args, **kw), warmup=1,
+                                reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": time_ms(lib)})
         print(f"time {name}: " + json.dumps(table[-1]), flush=True)

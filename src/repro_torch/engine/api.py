@@ -151,7 +151,8 @@ def merge(a, b, *, descending: bool = True, values=None,
     values)``; with ``stable=True`` (or any payload) ties order A-first,
     then by position (algorithm 3), through rank lanes in the ``cuda``
     variant. ``tie='skew'`` is algorithm 2 on the key-only ``ref`` /
-    ``banked`` variants. ``nan="sort_last"`` merges the monotone int32
+    ``banked`` variants; the ``cuda`` kernel's key output is tie-invariant,
+    so it ignores the policy. ``nan="sort_last"`` merges the monotone int32
     transforms with the float keys riding the payload (each input ordered
     under the same policy).
     """
@@ -217,9 +218,9 @@ def _merge_kv(a, b, values, descending, plan, variant):
 
 
 def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
-               stable: bool = False, tie: Optional[str] = None,
-               nan: Optional[str] = None, plan: Optional[Plan] = None,
-               variant: Optional[str] = None, device=None):
+               stable: bool = False, nan: Optional[str] = None,
+               plan: Optional[Plan] = None, variant: Optional[str] = None,
+               device=None):
     """Merge K sorted runs into one (the paper's §2.1 merge tree as an op).
 
     ``keys`` is the flat concatenation of K runs, each sorted in the call's
@@ -234,10 +235,6 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     _validate.check_lane_width(keys.shape[0], "merge_runs")
     ik = _nan_keys("merge_runs", keys, nan)
     if ik is not None:
-        if tie == "skew":
-            raise _validate.EngineInputError(
-                "merge_runs", 'tie="skew" is key-only and cannot combine '
-                'with nan="sort_last"', tie="skew", nan="sort_last")
         pay = {"k": keys} if values is None else {"k": keys, "v": values}
         _, pv = merge_runs(ik, run_offsets, descending=descending,
                            values=pay, plan=plan, variant=variant)
@@ -246,19 +243,12 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     segments.validate_offsets(run_offsets, keys.shape[0])
     run_offsets = _tensor(run_offsets, keys.device).to(torch.int32)
     plan = _resolve("merge_runs", plan, variant, keys, run_offsets)
-    if tie is not None and tie != plan.tie:
-        plan = plan.replace(tie=tie)
     if values is None and not stable:
         return registry.call("merge_runs", plan.variant, keys, run_offsets,
                              plan=plan, descending=descending)
-    if tie == "skew":
-        raise _validate.EngineInputError(
-            "merge_runs", "tie='skew' is key-only (stable order has no ties)",
-            tie="skew")
     ranks = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
     mk, mr = registry.call("merge_runs", plan.variant, keys, run_offsets,
-                           plan=plan.replace(tie="b"), descending=descending,
-                           ranks=ranks)
+                           plan=plan, descending=descending, ranks=ranks)
     return mk if values is None else (mk, _gather(mr, values))
 
 

@@ -35,7 +35,6 @@ class Plan:
     w: int = 32
     block_out: int = 1024
     chunk: int = 256
-    cap: int = 0           # per-segment capacity; 0 = derive from shape
     levels: int = 1        # tree levels fused per pass (MergeSchedule)
     tie: str = "b"         # selector tie policy: 'b' (alg. 1) | 'skew' (alg. 2)
 

@@ -95,11 +95,8 @@ def _sort_torch(x, *, plan):
 @register("argsort", "cuda")
 def _argsort_cuda(keys, *, plan, descending):
     from repro_torch.kernels.ops import kernel_argsort
-    fn = lambda k: kernel_argsort(k, chunk=plan.chunk, w=plan.w,
-                                  descending=descending)
-    if keys.ndim == 2:
-        return torch.stack([fn(row) for row in keys])
-    return fn(keys)
+    return kernel_argsort(keys, chunk=plan.chunk, w=plan.w,
+                          descending=descending)
 
 
 @register("argsort", "torch")

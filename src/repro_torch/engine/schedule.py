@@ -43,12 +43,11 @@ class MergeSchedule:
     levels_per_pass: int = 1
     w: int = 32
     block_out: int = 1024
-    tie: str = "b"
 
     def __post_init__(self):
         if self.variant not in _VARIANTS:
             raise ValueError(f"executor {self.variant!r} not in {_VARIANTS}")
-        if self.levels_per_pass < 1 or self.tie not in ("b", "skew"):
+        if self.levels_per_pass < 1:
             raise ValueError(f"bad schedule {self}")
 
     def to_dict(self) -> dict:
@@ -61,7 +60,7 @@ class MergeSchedule:
         if v not in _VARIANTS:
             v = "torch"
         return cls(variant=v, levels_per_pass=plan.levels, w=plan.w,
-                   block_out=plan.block_out, tie=plan.tie)
+                   block_out=plan.block_out)
 
 
 def _mirror(keys, offsets, ranks):

@@ -8,7 +8,8 @@
     ref.py              torch oracles
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
-version for a CPU tensor; ``launch_counts()`` reads the launches per wrapper.
+version for a CPU tensor; its ``*_plain`` twin runs the plain version on any
+device. ``launch_counts()`` reads the launches per wrapper.
 """
 from repro_torch.kernels._build import (KernelError, launch_counts,
                                         reset_launches)

@@ -5,8 +5,9 @@ tile, c a power of two, goes through the full static bitonic network:
 key-only rows descending with XLA's max/min, (key, rank) rows by the
 compound order in either direction. ``sort_chunks`` / ``sort_chunks_kv``
 launch ``csrc/bitonic_sort.cu`` for a CUDA tensor and run the plain version
-(the same network, vectorised over rows) for a CPU tensor, or on any device
-with ``plain=True`` (how ``chip_smoke.py`` holds the kernel against it).
+(the same network, vectorised over rows) for a CPU tensor.
+``sort_chunks_plain`` / ``sort_chunks_kv_plain`` run the plain version on any
+device (how ``chip_smoke.py`` holds the kernel against it).
 """
 from __future__ import annotations
 
@@ -90,29 +91,47 @@ def _launch(name, k, r, descending):
     return ok, orr
 
 
-@obs.scoped("kernels.sort_chunks")
-def sort_chunks(x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
-    """Sort each row of an (m, c) tensor descending (counterpart of
-    ``sort_chunks_pallas``). ``plain=True`` runs the plain version on any
-    device."""
+def _sort_chunks(x, cuda: bool):
     _check("sort_chunks", x)
     if x.shape[0] == 0:
         return x.clone()
-    if x.is_cuda and not plain:
+    if cuda:
         return _launch("sort_chunks", x, None, True)[0]
     return _bitonic_rows_desc(x)
 
 
-@obs.scoped("kernels.sort_chunks_kv")
-def sort_chunks_kv(k: torch.Tensor, r: torch.Tensor, *,
-                   descending: bool = True, plain: bool = False):
-    """Stable row-wise sort of (key, int32 rank) rows (counterpart of
-    ``sort_chunks_kv_pallas``). Returns ``(keys, ranks)``."""
+def _sort_chunks_kv(k, r, descending: bool, cuda: bool):
     _check("sort_chunks_kv", k)
     if r.shape != k.shape or r.dtype != torch.int32:
         raise ValueError("sort_chunks_kv: int32 ranks shaped like the keys")
     if k.shape[0] == 0:
         return k.clone(), r.clone()
-    if k.is_cuda and not plain:
+    if cuda:
         return _launch("sort_chunks_kv", k, r, descending)
     return _bitonic_rows_kv(k, r, descending)
+
+
+@obs.scoped("kernels.sort_chunks")
+def sort_chunks(x: torch.Tensor) -> torch.Tensor:
+    """Sort each row of an (m, c) tensor descending (counterpart of
+    ``sort_chunks_pallas``)."""
+    return _sort_chunks(x, x.is_cuda)
+
+
+def sort_chunks_plain(x: torch.Tensor) -> torch.Tensor:
+    """``sort_chunks``' plain version, on any device."""
+    return _sort_chunks(x, False)
+
+
+@obs.scoped("kernels.sort_chunks_kv")
+def sort_chunks_kv(k: torch.Tensor, r: torch.Tensor, *,
+                   descending: bool = True):
+    """Stable row-wise sort of (key, int32 rank) rows (counterpart of
+    ``sort_chunks_kv_pallas``). Returns ``(keys, ranks)``."""
+    return _sort_chunks_kv(k, r, descending, k.is_cuda)
+
+
+def sort_chunks_kv_plain(k: torch.Tensor, r: torch.Tensor, *,
+                         descending: bool = True):
+    """``sort_chunks_kv``' plain version, on any device."""
+    return _sort_chunks_kv(k, r, descending, False)

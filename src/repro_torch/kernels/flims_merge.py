@@ -9,8 +9,8 @@ that advance by the selector count.
 
 ``flims_merge`` / ``flims_merge_kv`` launch the CUDA kernel
 ``csrc/flims_merge.cu`` (the K3 kernel with one run pair) for a CUDA tensor
-and run the plain version below for a CPU tensor (or on any device with
-``plain=True``). The plain version repeats
+and run the plain version below for a CPU tensor; ``flims_merge_plain`` /
+``flims_merge_kv_plain`` run it on any device. The plain version repeats
 the TPU kernel's arithmetic vectorised over blocks; the CPU tests hold it
 against the JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against
 it. Key-only lanes merge descending with XLA's max/min rule; KV lanes by
@@ -27,8 +27,9 @@ from repro_torch import obs
 from repro_torch.core.lanes import INVALID_RANK, plus_inf_for, sentinel_for
 from repro_torch.kernels import _build
 
-__all__ = ["flims_merge", "flims_merge_kv", "bound_keys", "plus_inf_for",
-           "lane_first", "xla_max", "xla_min"]
+__all__ = ["flims_merge", "flims_merge_kv", "flims_merge_plain",
+           "flims_merge_kv_plain", "bound_keys", "plus_inf_for", "lane_first",
+           "xla_max", "xla_min"]
 
 _INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64,
              torch.float16: torch.int16, torch.bfloat16: torch.int16}
@@ -318,7 +319,7 @@ def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
     return (out,) if not kv else (out, out_r)
 
 
-def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, plain):
+def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, cuda):
     if a.ndim != 1 or b.ndim != 1 or a.dtype != b.dtype:
         raise ValueError(f"{name}: two 1-D key tensors of one dtype")
     if w & (w - 1):
@@ -327,7 +328,7 @@ def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, plain):
     C = block_size(n_out, w, block_out)
     G = -(-n_out // C)
     dev = a.device
-    if a.is_cuda and not plain:
+    if cuda:
         run = torch.tensor([0, a.shape[0], 0, b.shape[0]], dtype=torch.int32,
                            device=dev)
         return merge_blocks_cuda(name, a, ra, b, rb, run[0:1], run[1:2],
@@ -339,12 +340,7 @@ def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, plain):
                               descending=descending)
 
 
-@obs.scoped("kernels.flims_merge")
-def flims_merge(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
-                block_out: int = 4096, plain: bool = False) -> torch.Tensor:
-    """Merge two descending 1-D tensors with the partitioned FLiMS kernel
-    (counterpart of ``flims_merge_pallas``). ``plain=True`` runs the plain
-    version on any device."""
+def _flims_merge(a, b, w, block_out, cuda):
     if a.shape[0] + b.shape[0] == 0:
         return a.new_zeros((0,))
     if a.shape[0] == 0:
@@ -352,15 +348,10 @@ def flims_merge(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
     if b.shape[0] == 0:
         return a
     return _merge_one("flims_merge", a, None, b, None, w=w,
-                      block_out=block_out, descending=True, plain=plain)[0]
+                      block_out=block_out, descending=True, cuda=cuda)[0]
 
 
-@obs.scoped("kernels.flims_merge_kv")
-def flims_merge_kv(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,
-                   descending: bool = True,
-                   plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stable partitioned FLiMS merge of (key, int32 rank) lanes (counterpart
-    of ``flims_merge_kv_pallas``). Returns ``(keys, ranks)``."""
+def _flims_merge_kv(a, ra, b, rb, w, block_out, descending, cuda):
     if ra.shape != a.shape or rb.shape != b.shape:
         raise ValueError("flims_merge_kv: rank lanes shaped like the keys")
     if a.shape[0] + b.shape[0] == 0:
@@ -372,4 +363,33 @@ def flims_merge_kv(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,
         return a, ra
     return _merge_one("flims_merge_kv", a, ra.to(torch.int32), b,
                       rb.to(torch.int32), w=w, block_out=block_out,
-                      descending=descending, plain=plain)
+                      descending=descending, cuda=cuda)
+
+
+@obs.scoped("kernels.flims_merge")
+def flims_merge(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
+                block_out: int = 4096) -> torch.Tensor:
+    """Merge two descending 1-D tensors with the partitioned FLiMS kernel
+    (counterpart of ``flims_merge_pallas``)."""
+    return _flims_merge(a, b, w, block_out, a.is_cuda)
+
+
+def flims_merge_plain(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
+                      block_out: int = 4096) -> torch.Tensor:
+    """``flims_merge``' plain version, on any device."""
+    return _flims_merge(a, b, w, block_out, False)
+
+
+@obs.scoped("kernels.flims_merge_kv")
+def flims_merge_kv(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,
+                   descending: bool = True) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """Stable partitioned FLiMS merge of (key, int32 rank) lanes (counterpart
+    of ``flims_merge_kv_pallas``). Returns ``(keys, ranks)``."""
+    return _flims_merge_kv(a, ra, b, rb, w, block_out, descending, a.is_cuda)
+
+
+def flims_merge_kv_plain(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,
+                         descending: bool = True):
+    """``flims_merge_kv``' plain version, on any device."""
+    return _flims_merge_kv(a, ra, b, rb, w, block_out, descending, False)

@@ -11,10 +11,9 @@ inner nodes stream through scratch and only the root writes.
 for a CUDA tensor. There the kernel computes the nested partition itself,
 keeps the inner nodes in shared memory and reads the leaves in place; the
 wrapper raises when the shared-memory footprint passes the card's 227 KB.
-For a CPU tensor (or with ``plain=True``) they run the plain version below:
-the nested co-rank
-partition (``_tree_fns`` / ``_tree_meta``) and the post-order dataflow,
-vectorised over grid steps.
+For a CPU tensor they run the plain version below (the ``*_plain`` twins run
+it on any device): the nested co-rank partition (``_tree_fns`` /
+``_tree_meta``) and the post-order dataflow, vectorised over grid steps.
 """
 from __future__ import annotations
 
@@ -211,8 +210,10 @@ def _merge_tree_cuda(name, buf, rbuf, starts, lens, *, group, n_out, C, w, G,
 
 
 def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
-                     block_out, descending, plain):
+                     block_out, descending, cuda):
     kv = ranks is not None
+    if kv:
+        ranks = ranks.to(torch.int32)
     R = starts.shape[0]
     if group < 2 or group & (group - 1):
         raise ValueError(f"{name}: group must be 2^L >= 2, got {group}")
@@ -226,7 +227,7 @@ def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
                                    device=buf.device)) if kv else (empty,)
     C = block_size(n_out, w, block_out)
     G = n_out // C + R // group
-    if buf.is_cuda and not plain:
+    if cuda:
         return _merge_tree_cuda(name, buf, ranks, starts, lens, group=group,
                                 n_out=n_out, C=C, w=w, G=G,
                                 descending=descending)
@@ -237,25 +238,43 @@ def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
 
 @obs.scoped("kernels.merge_tree")
 def merge_tree_runs(buf, starts, lens, *, group: int, n_out: int, w: int = 32,
-                    block_out: int = 1024, plain: bool = False):
+                    block_out: int = 1024):
     """Merge consecutive groups of ``group = 2^L`` descending runs (run r is
     ``buf[starts[r] : starts[r] + lens[r]]``) through ``L`` fused levels in
-    one launch. Returns the (n_out,) merged groups in group order.
-    ``plain=True`` runs the plain version on any device."""
+    one launch. Returns the (n_out,) merged groups in group order."""
     return _merge_tree_call("merge_tree_runs", buf, None, starts, lens,
                             group=group, n_out=n_out, w=w,
                             block_out=block_out, descending=True,
-                            plain=plain)[0]
+                            cuda=buf.is_cuda)[0]
+
+
+def merge_tree_runs_plain(buf, starts, lens, *, group: int, n_out: int,
+                          w: int = 32, block_out: int = 1024):
+    """``merge_tree_runs``' plain version, on any device."""
+    return _merge_tree_call("merge_tree_runs", buf, None, starts, lens,
+                            group=group, n_out=n_out, w=w,
+                            block_out=block_out, descending=True,
+                            cuda=False)[0]
 
 
 @obs.scoped("kernels.merge_tree_kv")
 def merge_tree_runs_kv(buf, ranks, starts, lens, *, group: int, n_out: int,
                        w: int = 32, block_out: int = 1024,
-                       descending: bool = True, plain: bool = False):
+                       descending: bool = True):
     """Stable KV form of ``merge_tree_runs``: (key, int32 rank) lanes under
     the compound order, either direction natively. Returns ``(keys,
     ranks)``."""
-    return _merge_tree_call("merge_tree_runs_kv", buf,
-                            ranks.to(torch.int32), starts, lens, group=group,
-                            n_out=n_out, w=w, block_out=block_out,
-                            descending=descending, plain=plain)
+    return _merge_tree_call("merge_tree_runs_kv", buf, ranks, starts, lens,
+                            group=group, n_out=n_out, w=w,
+                            block_out=block_out, descending=descending,
+                            cuda=buf.is_cuda)
+
+
+def merge_tree_runs_kv_plain(buf, ranks, starts, lens, *, group: int,
+                             n_out: int, w: int = 32, block_out: int = 1024,
+                             descending: bool = True):
+    """``merge_tree_runs_kv``' plain version, on any device."""
+    return _merge_tree_call("merge_tree_runs_kv", buf, ranks, starts, lens,
+                            group=group, n_out=n_out, w=w,
+                            block_out=block_out, descending=descending,
+                            cuda=False)

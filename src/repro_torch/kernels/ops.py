@@ -60,23 +60,27 @@ def kernel_sort(x: torch.Tensor, *, chunk: int = 512, w: int = 128,
 @obs.scoped("kernels.kernel_argsort")
 def kernel_argsort(keys: torch.Tensor, *, chunk: int = 256, w: int = 32,
                    descending: bool = True, levels: int = 2) -> torch.Tensor:
-    """Stable argsort of a 1-D tensor over (key, int32 rank) lanes: K1kv,
-    then fused KV merge-tree passes in the call's direction. Equals
-    ``torch.argsort(stable=True)`` bit-for-bit in either direction."""
+    """Stable argsort of 1-D keys, or row-wise of a (B, n) batch, over (key,
+    int32 rank) lanes: one K1kv launch sorts every chunk of every row, then
+    fused KV merge-tree passes reduce each row's chunks, one launch per pass
+    for the whole batch. Equals ``torch.argsort(stable=True)`` bit-for-bit
+    in either direction."""
     from repro_torch.engine.schedule import MergeSchedule, reduce_rows
-    n = keys.shape[0]
+    rows = keys.reshape(-1, keys.shape[-1])
+    B, n = rows.shape
     if n <= 1:
-        return torch.zeros(n, dtype=torch.int32, device=keys.device)
+        return torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
     c, n_pad = _geometry(n, chunk)
     _, last = bound_keys(keys.dtype, descending)
-    kp = torch.cat([keys, keys.new_full((n_pad - n,), last)])
+    kp = torch.cat([rows, rows.new_full((B, n_pad - n), last)], dim=1)
     rp = torch.arange(n_pad, dtype=torch.int32, device=keys.device)
     rp[n:] = INVALID_RANK
-    k2, r2 = sort_chunks_kv(kp.reshape(-1, c), rp.reshape(-1, c),
+    k2, r2 = sort_chunks_kv(kp.reshape(-1, c),
+                            rp.expand(B, n_pad).reshape(-1, c),
                             descending=descending)
     ww = min(w, c)
     sched = MergeSchedule("tree_cuda", levels_per_pass=levels, w=ww,
                           block_out=max(ww, 4096))
     _, perm = reduce_rows(k2, ranks=r2, schedule=sched,
-                          descending=descending)
-    return perm[:n]
+                          runs_per_group=n_pad // c, descending=descending)
+    return perm.reshape(B, n_pad)[:, :n].reshape(keys.shape).contiguous()

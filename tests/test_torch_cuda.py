@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
 Each wrapper of ``repro_torch.kernels`` launches its CUDA kernel for a CUDA
-tensor and runs its plain PyTorch version with ``plain=True``; these tests
+tensor and its ``*_plain`` twin runs the plain PyTorch version; these tests
 hold the two equal on small inputs with heavy ties, +0.0/-0.0 and -inf,
 empty and one-sided runs. They need an NVIDIA GPU (the kernels have no CPU
 mode) and skip without one; this file imports neither JAX nor the JAX
@@ -11,6 +11,8 @@ package, so it runs on a machine that has only PyTorch:
 
 Tolerance: exact; float keys are compared as int32 bit patterns.
 """
+import sys
+
 import numpy as np
 import pytest
 
@@ -58,7 +60,8 @@ def _bits(t):
 
 
 def _same_on_card(fn, *args, **kw):
-    got, exp = fn(*args, **kw), fn(*args, plain=True, **kw)
+    plain = getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
+    got, exp = fn(*args, **kw), plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     exp = exp if isinstance(exp, tuple) else (exp,)
     for g, e in zip(got, exp):
@@ -131,6 +134,9 @@ def test_engine_on_card_matches_torch(card, descending):
                        torch.sort(x, descending=descending).values)
     assert torch.equal(engine.argsort(kt, descending=descending).long(),
                        torch.argsort(kt, descending=descending, stable=True))
+    kb = kt.reshape(5, 1000)
+    assert torch.equal(engine.argsort(kb, descending=descending).long(),
+                       torch.argsort(kb, descending=descending, stable=True))
     offs = torch.tensor([0, 700, 700, 2100, 5000], dtype=torch.int32,
                         device=card)
     runs = torch.cat([torch.sort(kt[a:b], descending=descending).values

@@ -84,6 +84,22 @@ def test_sort_values_and_argsort(descending):
          TE.sort(x, descending=descending, variant="cuda", device="cpu"))
 
 
+@pytest.mark.parametrize("descending", [True, False])
+def test_argsort_batched_rows(descending):
+    """A (B, n) argsort equals the JAX engine's vmapped one row for row, and
+    runs each merge pass once for the whole batch: ceil(log2 m / L) passes
+    for m chunks per row, not B times as many."""
+    x = ties(4 * 100).reshape(4, 100)
+    plan_j = JPlan("pallas", chunk=16, w=8)
+    plan_t = tplanner.Plan("cuda", chunk=16, w=8)
+    obs.enable()
+    got = TE.argsort(x, descending=descending, plan=plan_t, device="cpu")
+    passes = [e for e in obs.snapshot()["events"]
+              if e["kind"] == "schedule.pass"]
+    assert got.dtype == torch.int32 and len(passes) == math.ceil(3 / 2)
+    same(JE.argsort(jnp.array(x), descending=descending, plan=plan_j), got)
+
+
 @pytest.mark.parametrize("op", ["sort", "argsort"])
 def test_nan_sort_last(op):
     x = np.where(RNG.random(120) < 0.2, np.nan, ties(120)).astype(np.float32)
@@ -186,6 +202,7 @@ def test_plan_table_from_jax(tmp_path):
     ts = TSched.from_plan(plan).to_dict()
     assert js.pop("variant") == "tree_pallas"
     assert ts.pop("variant") == "tree_cuda"
+    js.pop("tie")          # read only by tree_vmapped, not in the port
     assert js == ts
     sort_plan = TE.default_planner.lookup(tplanner.plan_key(
         "sort", n=n, dtype=torch.float32, backend="cpu"))
