@@ -6,22 +6,39 @@ Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It
 
 1. builds the kernels of ``src/repro_torch/csrc`` with nvcc (``sm_90a``);
-2. drives the main path once at 2^24 keys through the engine
-   (``sort`` / ``argsort`` / ``merge`` / ``merge_runs``) with every kernel
-   launch count set to 0 just before and read just after, checks every
-   result bit-for-bit against ``torch.sort`` / ``torch.argsort(stable=True)``
-   and fails if a kernel of the path was not launched;
-3. holds every kernel bit-for-bit (floats compared as int32 bit patterns)
-   against its plain PyTorch version on the card, on inputs with heavy
-   duplicates, +0.0/-0.0 and -inf;
-4. times each kernel at the main path's shapes with CUDA events (warm-up,
-   then the median of at least 5 runs) beside its plain version, one
-   ``torch.sort`` call and its bound (bytes over the memory rate, or
-   compare-exchanges over the float32 rate, whichever is larger).
+2. drives each path of the port once, every kernel launch count set to 0
+   just before it and read just after, and fails if a kernel of the path
+   was not launched:
+   - the sorter at 2^24 keys through the engine (``sort`` / ``argsort`` /
+     ``merge`` / ``merge_runs``), every result bit-for-bit ``torch.sort`` /
+     ``torch.argsort(stable=True)`` (K1-K4);
+   - one MoE layer of Mixtral-8x22B at full width (d 6144, expert d_ff
+     16384, 8 experts, top-2, bf16, random weights from the seed) through
+     ``models.moe.moe_apply``, grouped at (4, 2048) and sorted at
+     (1, 4096), and the same layer of Moonlight-16B-A3B (d 2048, d_ff 1408,
+     64 experts, top-6) at (4, 2048) (K7). Every chunk's routing lanes are
+     held against the ``torch`` variant, the layer output of the fused route
+     against the ``torch`` route's, and, with a capacity that drops
+     nothing, the grouped output against ``moe_apply_dense``;
+   - the segmented ops over 2^22 keys in ragged segments (``segment_sort``
+     / ``segment_argsort`` fused and two-phase, both directions, float32 and
+     int32; ``segment_merge``), bit-for-bit the ``torch`` variants (K5, K6,
+     and K1/K3/K4 in the two-phase path);
+3. holds every kernel against its plain PyTorch version on the card (floats
+   compared as int32 bit patterns; K7's weights lane within
+   ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
+   -inf;
+4. times each kernel at its path's shapes with CUDA events (warm-up, then
+   the median of at least 5 runs) beside its plain version, one library
+   call and its bound (bytes over the memory rate, or the operations over
+   the float32 rate, whichever is larger), and splits the Mixtral layer's
+   time between the router, K7, the slab scatter, the expert products and
+   the combine.
 
-Any mismatch or error exits non-zero. The last three lines are the kernel
-table (JSON), the card's name and power limit from nvidia-smi, and
-``{"ok": true, "device": {...}}``. Inputs come from seeded generators.
+Each phase prints its seconds. Any mismatch or error exits non-zero. The
+last three lines are the kernel table (JSON), the card's name and power
+limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Inputs and
+weights come from seeded generators.
 """
 from __future__ import annotations
 
@@ -37,8 +54,20 @@ import torch
 
 SEED = 0
 N_MAIN = 1 << 24
+N_SEG = 1 << 22                # keys of the segmented-ops phase
+SEG_MAX = 16384                # longest segment there (K6's largest cap)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+# K7's weights against torch.softmax: exp(v - max) / sum on both sides,
+# CUDA's expf (within 2 ulps of exp) against torch's exp and its own order
+# of the k-term sum; a few ulps of float32 either way
+ROUTE_WEIGHT_ULPS = 8
+# grouped (nothing dropped) against dense, both bf16: the same products in
+# another order with bf16 roundings between them (per expert output, per
+# weighted contribution); measured on the CPU at reduced widths: relative
+# Frobenius 3.7e-3, largest element difference 6.8e-3 of the largest output
+BF16_REL_FROB = 2.0 ** -6
+BF16_REL_MAX = 2.0 ** -5
 
 
 def _import_port():
@@ -390,7 +419,9 @@ def phase_times(mods, launches, errs, data):
             "plain_ms": time_ms(lambda: plain(*args, **kw), warmup=1,
                                 reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lib)})
+            "library_ms": time_ms(lib),
+            "library_call": "torch.sort(stable=True)" if name.endswith("_kv")
+            else "torch.sort"})
         print(f"time {name}: " + json.dumps(table[-1]), flush=True)
     return table
 
@@ -414,6 +445,370 @@ def phase_e2e_times(engine, data):
     print(json.dumps({"e2e": rows}), flush=True)
 
 
+# --------------------------------------------------------------------------
+# slice 2: the segmented ops (K5, K6) and the MoE layer (K7)
+# --------------------------------------------------------------------------
+
+def _import_slice2():
+    from repro_torch import obs
+    from repro_torch.configs import get_config
+    from repro_torch.engine import planner
+    from repro_torch.kernels import route_fuse as k7
+    from repro_torch.kernels import segmented_merge as k56
+    from repro_torch.models import moe
+    return obs, get_config, planner, k7, k56, moe
+
+
+def ulps(g: torch.Tensor, e: torch.Tensor) -> int:
+    """Largest distance in float32 units in the last place (the weights are
+    positive, so their int32 bit patterns are ordered)."""
+    if not g.numel():
+        return 0
+    return int((g.view(torch.int32).long() - e.view(torch.int32).long()
+                ).abs().max())
+
+
+def check_route(what: str, got, ref):
+    """Routing lanes: experts, tokens, perm, slabs and keep bit for bit, the
+    weights within ROUTE_WEIGHT_ULPS. Returns (max_abs_err, ulps) of the
+    weights."""
+    names = ("experts", "tokens", "perm", "weights", "slabs", "keep")
+    for name, g, e in zip(names, got, ref):
+        if name != "weights":
+            check_same(f"{what} {name}", g, e)
+    u = ulps(got[3], ref[3])
+    if u > ROUTE_WEIGHT_ULPS:
+        raise AssertionError(f"{what} weights: {u} ulps > "
+                             f"{ROUTE_WEIGHT_ULPS}")
+    return max_abs_err(got[3], ref[3]), u
+
+
+def counted(kernels, fn):
+    """Run ``fn`` with every launch count set to 0 just before and read just
+    after (the device synchronised on both sides)."""
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernels.launch_counts()
+
+
+def seg_offsets(total: int, gen):
+    """Ragged segment lengths in [0, SEG_MAX] summing to ``total``, every
+    17th segment empty; returns the lengths and int32 offsets on the card."""
+    draws = torch.randint(0, SEG_MAX + 1, (4 * total // SEG_MAX + 64,),
+                          generator=gen, device="cuda").tolist()
+    lens, rem = [], total
+    for i, n in enumerate(draws):
+        if not rem:
+            break
+        n = 0 if i % 17 == 5 else min(n, rem)
+        lens.append(n)
+        rem -= n
+    while rem:
+        lens.append(min(rem, SEG_MAX))
+        rem -= lens[-1]
+    offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0)
+    return lens, offs.to(device="cuda", dtype=torch.int32)
+
+
+def phase_segments(engine, kernels, gen):
+    """The segmented ops over 2^22 keys in ragged segments, counted, each
+    cuda variant bit-for-bit its torch variant."""
+    lens, offs = seg_offsets(N_SEG, gen)
+    kf = tie_keys(N_SEG, gen)
+    ki = torch.randint(-2 ** 31, 2 ** 31 - 1, (N_SEG,), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    lens_b = lens[::-1]
+    offs_b = torch.tensor([0] + lens_b, dtype=torch.int64).cumsum(0).to(
+        device="cuda", dtype=torch.int32)
+    a = engine.segment_sort(kf, offs, variant="torch")
+    b = engine.segment_sort(tie_keys(N_SEG, gen), offs_b, variant="torch")
+    cases = [(nm, x, v, d) for nm, x in (("f32", kf), ("i32", ki))
+             for v in ("cuda_fused", "cuda_two_phase") for d in (True, False)]
+
+    def drive():
+        out = {}
+        for nm, x, v, d in cases:
+            out[(nm, v, d, "sort")] = engine.segment_sort(
+                x, offs, descending=d, variant=v)
+            out[(nm, v, d, "argsort")] = engine.segment_argsort(
+                x, offs, descending=d, variant=v)
+        out["merge"] = engine.segment_merge(a, offs, b, offs_b)
+        return out
+
+    out, launches = counted(kernels, drive)
+    for nm, x, v, d in cases:
+        check_same(f"segment_sort {nm} {v} desc={d}", out[(nm, v, d, "sort")],
+                   engine.segment_sort(x, offs, descending=d,
+                                       variant="torch"))
+        check_same(f"segment_argsort {nm} {v} desc={d}",
+                   out[(nm, v, d, "argsort")],
+                   engine.segment_argsort(x, offs, descending=d,
+                                          variant="torch"))
+    check_same("segment_merge", out["merge"],
+               engine.segment_merge(a, offs, b, offs_b, variant="torch"))
+    need = ("segment_sort", "segment_sort_kv", "sort_chunks",
+            "sort_chunks_kv", "segmented_merge_runs",
+            "segmented_merge_runs_kv")
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"segment path never launched {missing}: "
+                             f"{launches}")
+    print(f"segments: {N_SEG} keys in {len(lens)} segments "
+          f"({sum(1 for n in lens if not n)} empty, longest {max(lens)}), "
+          "every cuda variant bit-for-bit torch; launches "
+          + json.dumps(launches), flush=True)
+    return launches, dict(kf=kf, ki=ki, offs=offs, lens=lens)
+
+
+def _chunk_logits(moe, p, x, mode: str):
+    """The router logits of every chunk the layer routes, (1, T, E)
+    each."""
+    B, S, d = x.shape
+    Sc = S if mode == "sorted" else moe._seq_chunk(S, (512, 256, 128))
+    return [x[:, i * Sc:(i + 1) * Sc].reshape(1, B * Sc, d).float()
+            @ p["router"] for i in range(S // Sc)]
+
+
+def phase_moe(engine, kernels, slice2, gen, cfg_name, runs, split=False):
+    """One MoE layer at full width: each (mode, B, S) of ``runs`` driven
+    once through ``moe_apply`` with the counts set to 0 before and read
+    after, then the route, fused-vs-torch and no-drop checks."""
+    obs, get_config, planner, k7, _, moe = slice2
+    cfg = get_config(cfg_name)
+    E, k, dev = cfg.n_experts, cfg.n_experts_active, "cuda"
+    t0 = time.perf_counter()
+    p = moe.moe_init(gen, cfg, device=dev)
+    xs = {(B, S): torch.randn((B, S, cfg.d_model), generator=gen,
+                              device=dev).to(torch.bfloat16)
+          for _, B, S in runs}
+    torch.cuda.synchronize()
+    gb = sum(v.numel() * v.element_size() for v in p.values()) / 1e9
+    print(f"{cfg_name}: d {cfg.d_model}, expert d_ff {cfg.moe_d_ff}, "
+          f"{E} experts top-{k}, {cfg.param_dtype}; {gb:.3f} GB of weights "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches_all, errs, logits0 = {}, [0.0, 0], None
+    for mode, B, S in runs:
+        x = xs[(B, S)]
+        obs.reset()
+        obs.enable()
+        y, launches = counted(kernels, lambda: moe.moe_apply(p, x, cfg,
+                                                             mode=mode))
+        dropped = obs.snapshot()["counters"].get("moe.dropped_tokens", 0)
+        obs.disable()
+        label = f"{cfg_name} {mode or cfg.moe_path} ({B}, {S})"
+        if not launches.get("moe_route"):
+            raise AssertionError(f"{label}: K7 never launched: {launches}")
+        if y.shape != x.shape or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"{label}: output {tuple(y.shape)} not "
+                                 "finite or misshapen")
+        for kname, n in launches.items():
+            launches_all[kname] = launches_all.get(kname, 0) + n
+        # every chunk's routing lanes against the torch variant
+        lgs = _chunk_logits(moe, p, x, mode or cfg.moe_path)
+        T = lgs[0].shape[1]
+        cap = moe.expert_capacity(1.25, T, k, E)
+        w_same = True
+        for i, lg in enumerate(lgs):
+            rf = engine.moe_route(lg, k, cap, variant="fused")
+            rt = engine.moe_route(lg, k, cap, variant="torch")
+            err, u = check_route(f"{label} chunk {i}", rf, rt)
+            errs = [max(errs[0], err), max(errs[1], u)]
+            w_same &= torch.equal(rf.weights.to(torch.bfloat16),
+                                  rt.weights.to(torch.bfloat16))
+        logits0 = logits0 if logits0 is not None else (lgs[0], k, cap)
+        # the layer on the torch route: equal where the bf16 weights are
+        key = planner.plan_key("moe_route", n=T * k, dtype=torch.float32,
+                               backend="cuda", segments=1)
+        engine.default_planner.put(key, engine.Plan("torch"))
+        yt = moe.moe_apply(p, x, cfg, mode=mode)
+        engine.clear_plans()
+        d_route = max_abs_err(y.float(), yt.float())
+        if w_same and not torch.equal(y, yt):
+            raise AssertionError(f"{label}: fused and torch routes gave "
+                                 f"equal weights but outputs differ by "
+                                 f"{d_route}")
+        if d_route > 2.0 ** -7 * float(yt.float().abs().max()):
+            raise AssertionError(f"{label}: fused vs torch route output "
+                                 f"differs by {d_route}")
+        line = {"run": label, "tokens_per_route": T, "capacity": cap,
+                "routes": len(lgs), "launches": launches,
+                "moe.dropped_tokens": dropped,
+                "route_weight_ulps": errs[1],
+                "bf16_weights_equal": bool(w_same),
+                "fused_vs_torch_route_max_abs": d_route}
+        if mode != "sorted":
+            ynd = moe.moe_apply_grouped(p, x, cfg, capacity_factor=E / k)
+            yd = moe.moe_apply_dense(p, x, cfg)
+            diff = (ynd.float() - yd.float())
+            rel_f = float(diff.norm() / yd.float().norm())
+            rel_m = float(diff.abs().max() / yd.float().abs().max())
+            if rel_f > BF16_REL_FROB or rel_m > BF16_REL_MAX:
+                raise AssertionError(
+                    f"{label}: grouped (nothing dropped) vs dense: relative "
+                    f"Frobenius {rel_f}, largest {rel_m}")
+            line.update(nodrop_vs_dense_rel_frob=rel_f,
+                        nodrop_vs_dense_rel_max=rel_m)
+        print("moe: " + json.dumps(line), flush=True)
+    split_line = moe_split(engine, k7, moe, p, xs[runs[0][1:]], cfg) \
+        if split else None
+    del p, xs
+    torch.cuda.empty_cache()
+    return launches_all, errs, logits0, split_line
+
+
+def moe_split(engine, k7, moe, p, x, cfg):
+    """Where the grouped layer's time goes, per chunk: router logits, the
+    routing op (K7 inside), the slab scatter, the expert products and the
+    combine; CUDA-event medians against the whole layer's."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_active
+    Sc = moe._seq_chunk(S, (512, 256, 128))
+    T = B * Sc
+    cap = moe.expert_capacity(1.25, T, k, E)
+    xc = x[:, :Sc].reshape(1, T, d)
+    lg = xc.float() @ p["router"]
+    r = engine.moe_route(lg, k, cap)
+    xin = moe._scatter_slabs(xc, r, E, cap)
+    y = moe._experts(p, xin)
+    parts = {"router_logits": time_ms(lambda: xc.float() @ p["router"]),
+             "moe_route": time_ms(lambda: engine.moe_route(lg, k, cap)),
+             "k7_kernel": time_ms(lambda: k7.moe_route(lg, k, cap)),
+             "slab_scatter": time_ms(lambda: moe._scatter_slabs(xc, r, E,
+                                                                cap)),
+             "expert_products": time_ms(lambda: moe._experts(p, xin)),
+             "combine": time_ms(lambda: moe._combine(y, r, T, k))}
+    layer = time_ms(lambda: moe.moe_apply(p, x, cfg, mode="grouped"),
+                    warmup=1, reps=5)
+    chunks = S // Sc
+    per_chunk = sum(v for n, v in parts.items() if n != "k7_kernel")
+    flops = 3 * 2 * E * cap * d * (cfg.moe_d_ff or cfg.d_ff)
+    line = {"layer": f"{cfg.name} grouped ({B}, {S})", "layer_ms": layer,
+            "chunks": chunks, "per_chunk_ms": parts,
+            "parts_ms": chunks * per_chunk,
+            "unaccounted_ms": layer - chunks * per_chunk,
+            "expert_tflops": flops / parts["expert_products"] / 1e9}
+    print("moe split: " + json.dumps(line), flush=True)
+    return line
+
+
+def phase_slice2_vs_plain(slice2, seg, route_logits, gen):
+    """K5, K6 and K7 against their plain versions on the card: the segment
+    phase's batch, a small batch dense with +0.0/-0.0, and the layers' first
+    routed chunks plus tied shapes with signed zeros."""
+    _, _, _, k7, k56, _ = slice2
+    errs = {"segment_sort": 0.0, "segment_sort_kv": 0.0, "moe_route": 0.0}
+
+    def both(fn, *args, **kw):
+        err = check_same(f"{fn.__name__} {kw}", fn(*args, **kw),
+                         plain_of(fn)(*args, **kw))
+        errs[fn.__name__] = max(errs[fn.__name__], err)
+
+    lens = [5, 0, 33, 7, 0, 0, 90, 4, 17, 1, 1024, 600]
+    small_offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0).to(
+        device="cuda", dtype=torch.int32)
+    small = dup_keys(sum(lens), gen)
+    for x, offs, cap in ((seg["kf"], seg["offs"], SEG_MAX),
+                         (seg["ki"], seg["offs"], SEG_MAX),
+                         (small, small_offs, 1024),
+                         (small, small_offs, 4096)):
+        both(k56.segment_sort, x, offs, cap=cap)
+        for d in (True, False):
+            both(k56.segment_sort_kv, x, offs, cap=cap, descending=d)
+    ulp_max = 0
+    tied = []
+    for G, T, E, k in ((1, 64, 8, 2), (3, 33, 5, 2), (2, 128, 16, 6),
+                       (1, 2048, 64, 6)):
+        lg = torch.round(torch.randn((G, T, E), generator=gen,
+                                     device="cuda") * 2) / 2
+        sign = torch.randint(0, 2, lg.shape, generator=gen, device="cuda")
+        tied.append((torch.where((lg == 0) & (sign == 1), -0.0, lg), k,
+                     max(1, T * k // (2 * E))))
+    for lg, k, cap in list(route_logits) + tied:
+        got = k7.moe_route(lg, k, cap)
+        err, u = check_route(f"moe_route {tuple(lg.shape)} k={k}", got,
+                             k7.moe_route_plain(lg, k, cap))
+        errs["moe_route"] = max(errs["moe_route"], err)
+        ulp_max = max(ulp_max, u)
+    torch.cuda.synchronize()
+    print("slice 2 kernels vs plain: K5/K6 bit-for-bit, K7 integer lanes "
+          f"bit-for-bit, weights within {ulp_max} ulps "
+          + json.dumps(errs), flush=True)
+    return errs
+
+
+def _network_ops(lens) -> float:
+    """Compare-exchanges of a bitonic network over next_pow2(len) lanes per
+    segment: what this data needs of the algorithm."""
+    ops = 0.0
+    for n in lens:
+        if n > 1:
+            lg = math.ceil(math.log2(n))
+            ops += (1 << lg) / 2 * lg * (lg + 1) / 2
+    return ops
+
+
+def phase_slice2_times(slice2, launches, errs, seg, route_logits):
+    """K5, K6 and K7 at their paths' shapes beside the plain versions, a
+    library call and the bound."""
+    _, _, _, k7, k56, _ = slice2
+    kf, offs, lens = seg["kf"], seg["offs"], seg["lens"]
+    n, S = kf.numel(), len(lens)
+    bank = k56.padded_bank(kf, offs, SEG_MAX)
+    net = _network_ops(lens)
+    lg, k, cap = route_logits[0]
+    G, T, E = lg.shape
+    Np = 1 << max(3, (T * k - 1).bit_length())
+    lnp = Np.bit_length() - 1
+    cases = [
+        (k56.segment_sort, "segment_sort.cu", "segmented_merge.py:422",
+         (kf, offs), dict(cap=SEG_MAX), lambda: torch.sort(bank, dim=-1),
+         "torch.sort over the padded (S, cap) bank",
+         2 * n * 4 + (S + 1) * 4, net),
+        (k56.segment_sort_kv, "segment_sort.cu", "segmented_merge.py:521",
+         (kf, offs), dict(cap=SEG_MAX),
+         lambda: torch.sort(bank, dim=-1, stable=True),
+         "torch.sort(stable=True) over the padded (S, cap) bank",
+         3 * n * 4 + (S + 1) * 4, net),
+        (k7.moe_route, "route_fuse.cu", "route_fuse.py:181", (lg, k, cap),
+         {}, lambda: k7.moe_route_torch(lg, k, cap),
+         "moe_route_torch, the torch variant: no single torch call routes",
+         G * T * E * 4 + 6 * G * T * k * 4,
+         G * (T * E * k + Np / 2 * lnp * (lnp + 1) / 2)),
+    ]
+    table = []
+    for fn, source, replaces, args, kw, lib, lib_call, nbytes, ops in cases:
+        name = fn.__name__
+        bound_ms, bound_by = _bound(nbytes, ops)
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/" + source,
+            "replaces": "src/repro/kernels/" + replaces,
+            "launches": int(launches.get(name, 0)),
+            "max_abs_err": errs[name],
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(lambda: plain_of(fn)(*args, **kw), warmup=1,
+                                reps=5),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lib), "library_call": lib_call})
+        print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+    for lg2, k2, cap2 in route_logits[1:]:
+        print(f"time moe_route {tuple(lg2.shape)} k={k2}: " + json.dumps({
+            "ms": time_ms(lambda: k7.moe_route(lg2, k2, cap2)),
+            "torch_variant_ms": time_ms(
+                lambda: k7.moe_route_torch(lg2, k2, cap2))}), flush=True)
+    return table
+
+
+def timed(name: str, fn, *args, **kw):
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    print(f"phase {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -429,12 +824,35 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"(cuda {torch.version.cuda}) nvcc '{nvcc[-1]}' driver {driver} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
-    phase_build(_build)
-    launches, data = phase_main_path(engine, kernels, gen)
+    timed("build", phase_build, _build)
+    launches, data = timed("main path", phase_main_path, engine, kernels,
+                           gen)
+    slice2 = _import_slice2()
+    seg_launches, seg = timed("segments", phase_segments, engine, kernels,
+                              gen)
+    mix_launches, mix_errs, mix_route, split = timed(
+        "moe mixtral_8x22b", phase_moe, engine, kernels, slice2, gen,
+        "mixtral_8x22b", [("grouped", 4, 2048), ("sorted", 1, 4096)],
+        split=True)
+    moon_launches, moon_errs, moon_route, _ = timed(
+        "moe moonshot_v1_16b_a3b", phase_moe, engine, kernels, slice2, gen,
+        "moonshot_v1_16b_a3b", [(None, 4, 2048)])
+    moe_k7 = mix_launches.get("moe_route", 0) + \
+        moon_launches.get("moe_route", 0)
+    print(f"K7 launches on the MoE path: {moe_k7} (mixtral "
+          f"{mix_launches.get('moe_route', 0)}, moonlight "
+          f"{moon_launches.get('moe_route', 0)})", flush=True)
     mods = (k1, k2, k3, k4)
-    errs = phase_kernels_vs_plain(mods, gen)
-    table = phase_times(mods, launches, errs, data)
-    phase_e2e_times(engine, data)
+    errs = timed("kernels vs plain", phase_kernels_vs_plain, mods, gen)
+    route_logits = [mix_route, moon_route]       # (logits, k, cap) each
+    errs2 = timed("slice 2 kernels vs plain", phase_slice2_vs_plain, slice2,
+                  seg, route_logits, gen)
+    errs2["moe_route"] = max(errs2["moe_route"], mix_errs[0], moon_errs[0])
+    table = timed("times", phase_times, mods, launches, errs, data)
+    launches2 = dict(seg_launches, moe_route=moe_k7)
+    table += timed("slice 2 times", phase_slice2_times, slice2, launches2,
+                   errs2, seg, route_logits)
+    timed("e2e times", phase_e2e_times, engine, data)
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

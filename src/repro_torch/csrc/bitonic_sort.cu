@@ -31,31 +31,7 @@ __global__ void bitonic_rows_kernel(const T* __restrict__ kin, const int32_t* __
     if (KV) sr[j] = rin[row + j];
   }
   __syncthreads();
-  for (int lk = 1; lk <= logc; ++lk) {
-    for (int ld = lk - 1; ld >= 0; --ld) {
-      const int d = 1 << ld;
-      for (int j = threadIdx.x; j < (c >> 1); j += blockDim.x) {
-        const int first = ((j >> ld) << (ld + 1)) + (j & (d - 1));
-        const int second = first + d;
-        const bool asc = (first >> lk) & 1;  // odd k-blocks reverse
-        const T kt = sk[first], kb = sk[second];
-        if (KV) {
-          const int32_t rt = sr[first], rb = sr[second];
-          const bool top_first = DESC ? (kt > kb || (kt == kb && rt < rb))
-                                      : (kt < kb || (kt == kb && rt < rb));
-          if (!(top_first ^ asc)) {
-            sk[first] = kb; sk[second] = kt;
-            sr[first] = rb; sr[second] = rt;
-          }
-        } else {
-          const T mx = xmax(kt, kb), mn = xmin(kt, kb);
-          sk[first] = asc ? mn : mx;
-          sk[second] = asc ? mx : mn;
-        }
-      }
-      __syncthreads();
-    }
-  }
+  bitonic_smem<T, KV, DESC>(sk, sr, logc);
   for (int j = threadIdx.x; j < c; j += blockDim.x) {
     kout[row + j] = sk[j];
     if (KV) rout[row + j] = sr[j];
@@ -70,11 +46,8 @@ static cudaError_t launch(const void* kin, const void* rin, void* kout, void* ro
   const int threads = c / 2 < 1 ? 1 : (c / 2 > 1024 ? 1024 : c / 2);
   const size_t smem = (size_t)c * (sizeof(T) + (KV ? sizeof(int32_t) : 0));
   auto kern = bitonic_rows_kernel<T, KV, DESC>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = allow_smem(kern, smem);
+  if (e != cudaSuccess) return e;
   kern<<<m, threads, smem, st>>>((const T*)kin, (const int32_t*)rin, (T*)kout, (int32_t*)rout,
                                  c, logc);
   return cudaGetLastError();

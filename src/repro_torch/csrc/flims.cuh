@@ -178,6 +178,50 @@ __device__ void merge_stream(RA read_a, RB read_b, int lA, int lB, int cycles,
   }
 }
 
+// The static bitonic network over the c = 2^logc lanes of shared memory
+// (K1's row sort, K5/K6's segment sort, K7's expert sort): every thread of
+// the CTA runs compare-exchanges j = threadIdx.x, += blockDim.x, with a
+// barrier after each stage. The direction rule (first // k) % 2 is the TPU
+// kernels' (`_stage_masks`). Key-only lanes sort descending with XLA's
+// max/min; KV lanes by the compound order (key in the call's direction,
+// rank ascending). The caller syncs before: the lanes must be in place.
+template <typename T, bool KV, bool DESC>
+__device__ void bitonic_smem(T* sk, int32_t* sr, int logc) {
+  const int half = (1 << logc) >> 1;
+  for (int lk = 1; lk <= logc; ++lk) {
+    for (int ld = lk - 1; ld >= 0; --ld) {
+      const int d = 1 << ld;
+      for (int j = threadIdx.x; j < half; j += blockDim.x) {
+        const int first = ((j >> ld) << (ld + 1)) + (j & (d - 1));
+        const int second = first + d;
+        const bool asc = (first >> lk) & 1;  // odd k-blocks reverse
+        const T kt = sk[first], kb = sk[second];
+        if (KV) {
+          const int32_t rt = sr[first], rb = sr[second];
+          const bool top_first = DESC ? (kt > kb || (kt == kb && rt < rb))
+                                      : (kt < kb || (kt == kb && rt < rb));
+          if (!(top_first ^ asc)) {
+            sk[first] = kb; sk[second] = kt;
+            sr[first] = rb; sr[second] = rt;
+          }
+        } else {
+          const T mx = xmax(kt, kb), mn = xmin(kt, kb);
+          sk[first] = asc ? mn : mx;
+          sk[second] = asc ? mx : mn;
+        }
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Opt in to more than 48 KB of dynamic shared memory where a launch needs it.
+template <class K>
+__host__ cudaError_t allow_smem(K kern, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 // A run read in place: element p of the run is buf[start + p] for p < len
 // and the last key (with INVALID_RANK) past the end. `base` is the aligned
 // run offset of relative row 0.

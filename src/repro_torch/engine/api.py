@@ -1,8 +1,10 @@
 """`repro_torch.engine` — the port's facade over the FLiMS stack.
 
-Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``, ``merge``
-and ``merge_runs``. Each call resolves a ``Plan`` (explicit, cache, table,
-heuristic) and dispatches straight to the registered variant.
+Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``,
+``merge``, ``merge_runs``, the ragged ``segment_sort`` / ``segment_argsort``
+/ ``segment_merge`` and the fused MoE routing op ``moe_route``. Each call
+resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches
+straight to the registered variant.
 
 Every op runs on its input's device. A tensor stays where it is (or moves to
 ``device=`` when given); anything else (numpy arrays, lists) becomes a
@@ -15,26 +17,32 @@ raises, it never falls back to the CPU.
     perm = engine.argsort(keys, descending=False)
     m    = engine.merge(a, b)
     m    = engine.merge_runs(keys, run_offsets)    # K sorted runs -> one
+    s    = engine.segment_sort(values, offsets)    # ragged batch
+    perm = engine.segment_argsort(keys, offsets)   # local stable perms
+    r    = engine.moe_route(logits, k=2, capacity=64)  # fused MoE routing
     engine.save_plans("plans.json")
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import obs
 from repro_torch.core.butterfly import tree_map
-from repro_torch.engine import registry
+from repro_torch.core.flims import next_pow2
+from repro_torch.engine import registry, segments
 from repro_torch.engine.planner import (Plan, _key_str, backend_of,
                                         default_planner, heuristic_plan,
                                         plan_key)
 from repro_torch.engine.schedule import MergeSchedule
 from repro_torch.guard import validate as _validate
 
-__all__ = ["sort", "argsort", "merge", "merge_runs", "save_plans",
-           "load_plans", "clear_plans", "Plan", "MergeSchedule"]
+__all__ = ["sort", "argsort", "merge", "merge_runs", "segment_sort",
+           "segment_argsort", "segment_merge", "moe_route", "RouteResult",
+           "save_plans", "load_plans", "clear_plans", "Plan",
+           "MergeSchedule"]
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -69,9 +77,15 @@ def infer_key(op: str, *args):
                         backend=backend)
     if op in ("sort", "argsort"):
         return plan_key(op, n=x.shape[-1], dtype=x.dtype, backend=backend)
-    if op == "merge_runs":
+    if op in ("merge_runs", "segment_sort", "segment_argsort"):
         return plan_key(op, n=x.shape[0], dtype=x.dtype, backend=backend,
                         segments=args[1].shape[0] - 1)
+    if op == "segment_merge":
+        return plan_key(op, n=x.shape[0] + args[2].shape[0], dtype=x.dtype,
+                        backend=backend, segments=args[1].shape[0] - 1)
+    if op == "moe_route":
+        return plan_key(op, n=x.shape[-2] * args[1], dtype=x.dtype,
+                        backend=backend, segments=x.shape[0])
     raise ValueError(f"unknown op {op!r}")
 
 
@@ -239,7 +253,6 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
         _, pv = merge_runs(ik, run_offsets, descending=descending,
                            values=pay, plan=plan, variant=variant)
         return pv["k"] if values is None else (pv["k"], pv["v"])
-    from repro_torch.engine import segments
     segments.validate_offsets(run_offsets, keys.shape[0])
     run_offsets = _tensor(run_offsets, keys.device).to(torch.int32)
     plan = _resolve("merge_runs", plan, variant, keys, run_offsets)
@@ -250,6 +263,177 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     mk, mr = registry.call("merge_runs", plan.variant, keys, run_offsets,
                            plan=plan, descending=descending, ranks=ranks)
     return mk if values is None else (mk, _gather(mr, values))
+
+
+def _segment_plan(op, plan, variant, keys, offsets, cap):
+    """Resolve a segment op's plan and fix its ``cap``: the caller's (rounded
+    up to a power of two), else the plan's, else the tight
+    ``next_pow2(longest segment)``; a cap below the longest segment is
+    refused."""
+    plan = _resolve(op, plan, variant, keys, offsets)
+    if cap or not plan.cap:
+        cap = (next_pow2(cap) if cap
+               else segments.static_cap(offsets, keys.shape[0]))
+        plan = plan.replace(cap=cap)
+    segments.validate_cap(offsets, plan.cap)
+    return plan
+
+
+def segment_sort(keys, offsets, *, descending: bool = True, values=None,
+                 stable: bool = False, cap: int = 0,
+                 nan: Optional[str] = None, plan: Optional[Plan] = None,
+                 variant: Optional[str] = None, device=None):
+    """Sort every segment of a ragged batch independently.
+
+    ``keys`` is the flat (N,) concatenation of S segments with boundaries
+    ``offsets`` ((S+1,), ``offsets[0] == 0``, ``offsets[-1] == N``; empty
+    segments allowed). ``cap`` bounds the longest segment (rounded up to a
+    power of two); by default it is the tight ``next_pow2`` of the longest
+    segment. ``values=`` carries a payload (a tensor or a dict/list/tuple of
+    (N,) tensors) and returns ``(sorted_keys, sorted_values)``; with
+    ``stable=True`` (or any payload) ties keep input order. Both route
+    through ``segment_argsort``. ``nan="sort_last"`` sorts each segment by
+    the monotone total-order transform.
+    """
+    keys = _tensor(keys, device)
+    values = _payload(values, keys)
+    _validate.check_lane_width(keys.shape[0], "segment_sort")
+    ik = _nan_keys("segment_sort", keys, nan)
+    if ik is not None:
+        pay = {"k": keys} if values is None else {"k": keys, "v": values}
+        _, pv = segment_sort(ik, offsets, descending=descending, values=pay,
+                             cap=cap, plan=plan, variant=variant)
+        return pv["k"] if values is None else (pv["k"], pv["v"])
+    if values is not None or stable:
+        offsets = _tensor(offsets, keys.device).to(torch.int32)
+        perm = segment_argsort(keys, offsets, descending=descending, cap=cap,
+                               plan=plan, variant=variant)
+        seg = segments.segment_ids(offsets, keys.shape[0])
+        src = offsets.long()[seg] + perm.long()
+        out = keys[src]
+        return out if values is None else (out, _gather(src, values))
+    segments.validate_offsets(offsets, keys.shape[0])
+    offsets = _tensor(offsets, keys.device).to(torch.int32)
+    plan = _segment_plan("segment_sort", plan, variant, keys, offsets, cap)
+    out = registry.call("segment_sort", plan.variant, keys, offsets,
+                        plan=plan)
+    if not descending:
+        out = segments.reverse_segments(out, offsets, keys.shape[0])
+    return out
+
+
+def segment_argsort(keys, offsets, *, descending: bool = True, cap: int = 0,
+                    nan: Optional[str] = None, plan: Optional[Plan] = None,
+                    variant: Optional[str] = None, device=None):
+    """Stable argsort of every segment of a ragged batch.
+
+    Returns a flat int32 tensor of segment-local source positions: for
+    segment ``s``, ``keys[offsets[s] + perm[offsets[s]:offsets[s+1]]]`` is
+    its sort, and equal keys keep their input order in every variant and
+    either direction. ``nan="sort_last"`` orders each segment by the
+    monotone total-order transform.
+    """
+    keys = _tensor(keys, device)
+    _validate.check_lane_width(keys.shape[0], "segment_argsort")
+    ik = _nan_keys("segment_argsort", keys, nan)
+    if ik is not None:
+        keys = ik
+    segments.validate_offsets(offsets, keys.shape[0])
+    offsets = _tensor(offsets, keys.device).to(torch.int32)
+    plan = _segment_plan("segment_argsort", plan, variant, keys, offsets,
+                         cap)
+    return registry.call("segment_argsort", plan.variant, keys, offsets,
+                         plan=plan, descending=descending)
+
+
+def segment_merge(a, a_offsets, b, b_offsets, *, descending: bool = True,
+                  plan: Optional[Plan] = None, variant: Optional[str] = None,
+                  device=None):
+    """Merge S segment pairs of two ragged batches: segment s of the result
+    is the sorted union of a-segment s and b-segment s, each sorted in the
+    call's direction; its offsets are ``a_offsets + b_offsets``."""
+    a = _tensor(a, device)
+    b = _tensor(b, a.device)
+    segments.validate_offsets(a_offsets, a.shape[0])
+    segments.validate_offsets(b_offsets, b.shape[0])
+    a_offsets = _tensor(a_offsets, a.device).to(torch.int32)
+    b_offsets = _tensor(b_offsets, a.device).to(torch.int32)
+    if not descending:
+        ar = segments.reverse_segments(a, a_offsets, a.shape[0])
+        br = segments.reverse_segments(b, b_offsets, b.shape[0])
+        out = segment_merge(ar, a_offsets, br, b_offsets, plan=plan,
+                            variant=variant)
+        return segments.reverse_segments(out, a_offsets + b_offsets,
+                                         a.shape[0] + b.shape[0])
+    plan = _resolve("segment_merge", plan, variant, a, a_offsets, b,
+                    b_offsets)
+    return registry.call("segment_merge", plan.variant, a, a_offsets, b,
+                         b_offsets, plan=plan)
+
+
+class RouteResult(NamedTuple):
+    """One routed token chunk, every lane in stable sorted pair order
+    (expert ascending, then the pair's position ``t*k + j``)."""
+    experts: torch.Tensor  # (..., T*k) int32 expert of each routed pair
+    tokens: torch.Tensor   # (..., T*k) int32 source token within the chunk
+    perm: torch.Tensor     # (..., T*k) int32 stable pair permutation t*k + j
+    weights: torch.Tensor  # (..., T*k) float32 combine weight (top-k softmax)
+    slabs: torch.Tensor    # (..., T*k) int32 e*cap + rank, E*cap if dropped
+    keep: torch.Tensor     # (..., T*k) bool, False = over capacity (dropped)
+
+
+def moe_route(logits, k: int, capacity: int, *, values=None,
+              plan: Optional[Plan] = None, variant: Optional[str] = None,
+              device=None):
+    """Route a chunk of tokens to expert capacity slabs in one planned op.
+
+    ``logits`` are (T, E), or (G, T, E) for G independent groups, router
+    logits (computed in float32); ``k`` experts activate per token and each
+    expert keeps its first ``capacity`` pairs in stable order (GShard drop
+    semantics). Returns a :class:`RouteResult` of (G, T*k) lanes in sorted
+    pair order: scattering ``x[tokens]`` to ``slabs`` builds the (E,
+    capacity, d) expert slabs, and ``weights * keep`` are the combine
+    coefficients. The ``fused`` variant is one K7 launch per call (one CTA
+    per group); ``torch`` is the unfused reference pipeline. ``values=``
+    (tensors shaped like one logit column, (G, T)) gathers a payload by
+    ``tokens`` and returns ``(RouteResult, routed_values)``.
+    """
+    logits = _tensor(logits, device)
+    if logits.ndim == 2:
+        vv = None if values is None else tree_map(lambda v: v[None], values)
+        out = moe_route(logits[None], k, capacity, values=vv, plan=plan,
+                        variant=variant)
+        squeeze = lambda r: RouteResult(*(x[0] for x in r))
+        if values is None:
+            return squeeze(out)
+        return squeeze(out[0]), tree_map(lambda v: v[0], out[1])
+    if logits.ndim != 3:
+        raise ValueError(f"moe_route expects (T, E) or (G, T, E) logits, "
+                         f"got shape {tuple(logits.shape)}")
+    G, T, E = logits.shape
+    if not 1 <= k <= E:
+        raise ValueError(f"moe_route: k={k} outside [1, E={E}]")
+    if capacity < 1:
+        raise ValueError(f"moe_route: capacity={capacity} must be >= 1")
+    _validate.check_lane_width(T * k, "moe_route")
+    logits = logits.to(torch.float32)
+    plan = _resolve("moe_route", plan, variant, logits, k)
+    plan = plan.replace(cap=int(capacity))
+    obs.event("moe.route", groups=G, tokens=T, experts=E, k=k,
+              capacity=int(capacity), n_pairs=G * T * k,
+              variant=plan.variant)
+    e_s, t_s, perm, w_s, slab, keep = registry.call(
+        "moe_route", plan.variant, logits, k, int(capacity), plan=plan)
+    keep = keep.to(torch.bool)
+    if obs.enabled():
+        # reads the keep mask back from the device: only while recording
+        obs.inc("moe.dropped_tokens", int(keep.numel() - keep.sum()))
+    res = RouteResult(e_s, t_s, perm, w_s, slab, keep)
+    if values is None:
+        return res
+    idx = t_s.long()
+    return res, tree_map(lambda v: torch.gather(_tensor(v, logits.device),
+                                                -1, idx), values)
 
 
 def save_plans(path: str) -> None:

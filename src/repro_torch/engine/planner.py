@@ -2,10 +2,12 @@
 
 Counterpart of ``repro/engine/planner.py``. A ``Plan`` fixes the variant and
 tile parameters of one op. Keys bucket shapes to powers of two and carry the
-backend of the input tensor's device (``cuda`` or ``cpu``). The heuristic
-serves ``sort`` / ``argsort`` / ``merge`` from the CUDA kernels and
-``merge_runs`` from the ``tree_cuda`` schedule for CUDA tensors of the
-kernels' key types, and from the torch reference variants otherwise.
+backend of the input tensor's device (``cuda`` or ``cpu``). For CUDA
+tensors of the kernels' key types the heuristic serves ``sort`` /
+``argsort`` / ``merge`` / ``segment_merge`` from the CUDA kernels,
+``merge_runs`` from the ``tree_cuda`` schedule, ``segment_sort`` /
+``segment_argsort`` from the two-phase compositions and ``moe_route`` from
+the fused kernel K7; everything else from the torch reference variants.
 
 Plan tables round-trip through JSON, and :func:`plans_from_jax` reads the
 tables the JAX package's ``engine.save_plans`` writes: backends ``tpu`` /
@@ -22,7 +24,9 @@ import torch
 from repro_torch.core.flims import next_pow2
 
 #: JAX variant name -> the port's
-VARIANT_MAP = {"pallas": "cuda", "tree_pallas": "tree_cuda", "xla": "torch"}
+VARIANT_MAP = {"pallas": "cuda", "tree_pallas": "tree_cuda", "xla": "torch",
+               "pallas_fused": "cuda_fused",
+               "pallas_two_phase": "cuda_two_phase", "fused": "fused"}
 #: JAX backend name -> the port's
 BACKEND_MAP = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 #: key dtypes the CUDA kernels take
@@ -35,6 +39,7 @@ class Plan:
     w: int = 32
     block_out: int = 1024
     chunk: int = 256
+    cap: int = 0           # per-segment capacity; 0 = derive from the offsets
     levels: int = 1        # tree levels fused per pass (MergeSchedule)
     tie: str = "b"         # selector tie policy: 'b' (alg. 1) | 'skew' (alg. 2)
 
@@ -87,12 +92,16 @@ def heuristic_plan(op: str, key: Key) -> Plan:
     block_out = max(w, min(4096, next_pow2(max(n, 1)) // 8 or w))
     if backend == "cuda" and dtype in KERNEL_DTYPES:
         table = {"sort": "cuda", "argsort": "cuda", "merge": "cuda",
-                 "merge_runs": "tree_cuda"}
+                 "merge_runs": "tree_cuda", "segment_merge": "cuda",
+                 "segment_sort": "cuda_two_phase",
+                 "segment_argsort": "cuda_two_phase", "moe_route": "fused"}
         levels = 2 if op == "merge_runs" else 1
     else:
         # other key types, and CPU tensors: the torch reference variants
         table = {"sort": "torch", "argsort": "torch", "merge": "banked",
-                 "merge_runs": "torch"}
+                 "merge_runs": "torch", "segment_merge": "torch",
+                 "segment_sort": "torch", "segment_argsort": "torch",
+                 "moe_route": "torch"}
         levels = 1
     return Plan(variant=table[op], w=w, block_out=block_out, chunk=256,
                 levels=levels)

@@ -1,16 +1,22 @@
 """Variant registry: which implementations serve each engine op.
 
 Counterpart of ``repro/engine/registry.py`` for ``sort``, ``argsort``,
-``merge`` and ``merge_runs``. Variant names map from the JAX package's:
+``merge``, ``merge_runs``, ``segment_sort``, ``segment_argsort``,
+``segment_merge`` and ``moe_route``. Variant names map from the JAX
+package's:
 
-    pallas       -> cuda        the hand-written CUDA kernels (K1-K4)
-    tree_pallas  -> tree_cuda   the fused merge-tree schedule (K3/K4)
-    xla          -> torch       torch built-ins, the reference
-    ref, banked                 the FLiMS reference merges of core/flims.py
+    pallas            -> cuda            the hand-written CUDA kernels
+    tree_pallas       -> tree_cuda       the fused merge-tree schedule (K3/K4)
+    pallas_fused      -> cuda_fused      one-launch segment sorts (K5/K6)
+    pallas_two_phase  -> cuda_two_phase  K1 rows, then the tree_cuda schedule
+    fused             -> fused           the routing megakernel (K7)
+    xla               -> torch           torch built-ins, the reference
+    ref, banked                          the FLiMS reference merges
 
 Every variant takes ``fn(*op_args, plan=Plan, ...)``. Dispatch goes straight
-to the variant: a CUDA kernel that fails to build or launch raises, it is
-never replaced by another variant behind the caller's back.
+to the variant: a CUDA kernel that fails to build or launch, or a shape the
+fused kernels cannot take, raises; it is never replaced by another variant
+behind the caller's back.
 """
 from __future__ import annotations
 
@@ -87,7 +93,8 @@ def _sort_cuda(x, *, plan):
 
 @register("sort", "torch")
 def _sort_torch(x, *, plan):
-    return torch.sort(x, descending=True, stable=True).values
+    from repro_torch.kernels.ref import stable_sort_values
+    return stable_sort_values(x, descending=True)
 
 
 # --- argsort: stable permutation (1-D, or 2-D row-wise) ---------------------
@@ -118,3 +125,78 @@ def _merge_runs_with(variant):
 
 for _v in ("torch", "tree_cuda"):
     register("merge_runs", _v)(_merge_runs_with(_v))
+
+
+# --- segment_merge: ragged batch of 2-way merges ----------------------------
+
+@register("segment_merge", "cuda")
+def _segment_merge_cuda(a, ao, b, bo, *, plan):
+    from repro_torch.kernels.segmented_merge import segmented_merge
+    return segmented_merge(a, ao, b, bo, w=plan.w, block_out=plan.block_out)
+
+
+@register("segment_merge", "torch")
+def _segment_merge_torch(a, ao, b, bo, *, plan):
+    from repro_torch.engine.segments import segment_merge_ref
+    return segment_merge_ref(a, ao, b, bo)
+
+
+# --- segment_sort: ragged batch of descending sorts --------------------------
+
+@register("segment_sort", "cuda_fused")
+def _segment_sort_fused(values, offsets, *, plan):
+    from repro_torch.kernels.segmented_merge import segment_sort
+    return segment_sort(values, offsets, cap=plan.cap)
+
+
+@register("segment_sort", "cuda_two_phase")
+def _segment_sort_two_phase(values, offsets, *, plan):
+    from repro_torch.kernels.segmented_merge import segment_sort_two_phase
+    return segment_sort_two_phase(values, offsets, cap=plan.cap,
+                                  chunk=min(plan.chunk, plan.cap), w=plan.w,
+                                  levels=plan.levels)
+
+
+@register("segment_sort", "torch")
+def _segment_sort_torch(values, offsets, *, plan):
+    from repro_torch.engine.segments import segment_sort_ref
+    return segment_sort_ref(values, offsets, cap=plan.cap)
+
+
+# --- segment_argsort: ragged batch of stable local argsorts ------------------
+
+@register("segment_argsort", "cuda_fused")
+def _segment_argsort_fused(keys, offsets, *, plan, descending):
+    from repro_torch.kernels.segmented_merge import segment_argsort
+    return segment_argsort(keys, offsets, cap=plan.cap,
+                           descending=descending)
+
+
+@register("segment_argsort", "cuda_two_phase")
+def _segment_argsort_two_phase(keys, offsets, *, plan, descending):
+    from repro_torch.kernels.segmented_merge import segment_argsort_two_phase
+    return segment_argsort_two_phase(keys, offsets, cap=plan.cap,
+                                     chunk=min(plan.chunk, plan.cap),
+                                     w=plan.w, descending=descending,
+                                     levels=plan.levels)
+
+
+@register("segment_argsort", "torch")
+def _segment_argsort_torch(keys, offsets, *, plan, descending):
+    from repro_torch.engine.segments import segment_argsort_ref
+    return segment_argsort_ref(keys, offsets, cap=plan.cap,
+                               descending=descending)
+
+
+# --- moe_route: router logits -> permuted capacity slabs ---------------------
+
+@register("moe_route", "fused")
+def _moe_route_fused(logits, k, capacity, *, plan):
+    from repro_torch.kernels.route_fuse import moe_route
+    return moe_route(logits, k, capacity)
+
+
+@register("moe_route", "torch")
+def _moe_route_torch(logits, k, capacity, *, plan):
+    from repro_torch.kernels.route_fuse import moe_route_torch
+    return moe_route_torch(logits, k, capacity)

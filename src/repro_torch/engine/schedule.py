@@ -97,8 +97,9 @@ def _pad_group_runs(offsets, m: int, m2: int):
 
 
 def _torch_reduce(keys, offsets, ranks, m: int, descending: bool):
-    """One-shot per-group sort. Key-only: a stable directional sort. KV:
+    """One-shot per-group sort. Key-only: XLA's directional sort. KV:
     order rows by rank, then stably by key, so ties land in rank order."""
+    from repro_torch.kernels.ref import stable_sort_values
     from repro_torch.kernels.segmented_merge import padded_bank, unpad_bank
     n = keys.shape[0]
     goff = offsets[::m]
@@ -106,8 +107,8 @@ def _torch_reduce(keys, offsets, ranks, m: int, descending: bool):
     _, last_k = bound_keys(keys.dtype, descending)
     kb = padded_bank(keys, goff, cap, fill=last_k)
     if ranks is None:
-        out = torch.sort(kb, dim=-1, descending=descending, stable=True).values
-        return unpad_bank(out, goff, n)
+        return unpad_bank(stable_sort_values(kb, descending=descending), goff,
+                          n)
     rb = padded_bank(ranks, goff, cap, fill=INVALID_RANK)
     p1 = torch.argsort(rb, dim=-1, stable=True)
     kb1 = torch.gather(kb, -1, p1)

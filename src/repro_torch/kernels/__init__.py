@@ -2,8 +2,11 @@
 
     bitonic_sort.py     K1: sort-in-chunks (csrc/bitonic_sort.cu)
     flims_merge.py      K2: partitioned FLiMS 2-way merge (csrc/flims_merge.cu)
-    segmented_merge.py  K3: ragged run-pair merge, one launch (same kernel)
+    segmented_merge.py  K3: ragged run-pair merge, one launch (same kernel);
+                        K5/K6: fused segment sort (csrc/segment_sort.cu),
+                        and the two-phase segment sorts over K1 + K3/K4
     merge_tree.py       K4: fused multi-level merge tree (csrc/merge_tree.cu)
+    route_fuse.py       K7: fused MoE routing (csrc/route_fuse.cu)
     ops.py              kernel_sort / kernel_argsort / merge / sort_rows
     ref.py              torch oracles
 

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "flims_merge_tree": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                               _P, _I, _I, _I, _I, _I, _P]),
     "flims_merge_tree_smem": (_U64, [_I, _I, _I, _I, _I]),
+    "flims_segment_sort": (_I, [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
+    "flims_moe_route": (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                             _P, _P]),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -10,9 +10,13 @@ module-level flag first).
     snap = obs.snapshot()
     obs.disable()
 
-Events this slice records: ``plan.resolve`` (cache hit or heuristic, with
+Events the port records: ``plan.resolve`` (cache hit or heuristic, with
 the variant), ``schedule.pass`` (one per fused merge-tree pass: levels,
-runs, block size) and ``schedule.reduce`` (passes against tree levels).
+runs, block size), ``schedule.reduce`` (passes against tree levels) and
+``moe.route`` (one per routed chunk: groups, tokens, experts, k, capacity,
+variant). Counters: ``plan_cache.*`` and ``moe.dropped_tokens`` (pairs over
+capacity; counting them reads the keep mask back from the device, which
+``engine.moe_route`` does only while recording is enabled).
 ``span`` times host wall clock into a histogram and, when a profiler runs,
 opens a ``torch.profiler.record_function`` range; ``scoped("kernels.*")``
 labels every kernel entry point the same way, enabled or not.

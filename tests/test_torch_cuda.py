@@ -9,7 +9,11 @@ package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: exact; float keys are compared as int32 bit patterns.
+Tolerance: exact; float keys are compared as int32 bit patterns. The one
+exception is K7's weights lane, held to ``ROUTE_WEIGHT_ULPS`` = 8 ulps of
+float32 against ``torch.softmax`` on the card: both compute exp(v - max) /
+sum, with CUDA's ``expf`` (within 2 ulps of exp) on one side and torch's
+exp and its own order of the k-term sum on the other.
 """
 import sys
 
@@ -21,11 +25,14 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import bitonic_sort as TB  # noqa: E402
 from repro_torch.kernels import flims_merge as TF  # noqa: E402
 from repro_torch.kernels import merge_tree as TT  # noqa: E402
+from repro_torch.kernels import route_fuse as TR  # noqa: E402
 from repro_torch.kernels import segmented_merge as TS  # noqa: E402
 
 RNG = np.random.default_rng(29)
 FPOOL = np.array([0.0, -0.0, 1.5, -1.0, -np.inf, 4.0], np.float32)
 PAIR_LENS = [5, 0, 33, 7, 0, 0, 90, 4, 17, 1]   # empty and one-sided pairs
+SEG_LENS = [5, 0, 33, 7, 0, 0, 90, 4, 17, 1, 256]
+ROUTE_WEIGHT_ULPS = 8
 TREE_LENS = [5, 0, 33, 7, 0, 0, 90, 4]
 
 
@@ -182,3 +189,95 @@ def test_engine_on_card_edge_sizes(card, dtype):
                                           offs[1:].tolist())])
         assert torch.equal(engine.merge_runs(runs, offs),
                            torch.sort(x, descending=True).values)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_segment_kernels_match_plain(card, dtype):
+    """K5 (with the +0/-0 sign rule of XLA's max/min) and K6 against their
+    plain versions: empty, one-key and full-cap segments, both caps."""
+    n = sum(SEG_LENS)
+    k = T(keys(n)).to(card)
+    if dtype == torch.int32:
+        k = (k.clamp(-5, 5) * 3).to(torch.int32)
+    offs = T(np.concatenate([[0], np.cumsum(SEG_LENS)]).astype(
+        np.int32)).to(card)
+    for cap in (256, 1024):
+        _same_on_card(TS.segment_sort, k, offs, cap=cap)
+        for d in (True, False):
+            _same_on_card(TS.segment_sort_kv, k, offs, cap=cap, descending=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n_tok,E,k,cap", [
+    (1, 64, 8, 2, 10), (2, 64, 8, 2, 10), (1, 100, 6, 3, 5),
+    (1, 16, 4, 1, 2), (3, 33, 5, 2, 1), (1, 32, 8, 4, 1000),
+    (2, 128, 16, 6, 20), (1, 2048, 8, 2, 641), (1, 2048, 64, 6, 241)])
+def test_route_kernel_matches_plain(card, G, n_tok, E, k, cap):
+    """K7 against ``moe_route_plain`` and ``moe_route_torch``: integer lanes
+    bit for bit, weights within ROUTE_WEIGHT_ULPS; ties with +0.0/-0.0."""
+    rng = np.random.default_rng(G * n_tok + E + k)
+    lg = np.round(rng.standard_normal((G, n_tok, E)).astype(np.float32)
+                  * 2) / 2
+    lg[lg == 0.0] = np.where(rng.random((lg == 0.0).sum()) < 0.5, -0.0, 0.0)
+    x = T(lg.astype(np.float32)).to(card)
+    got = TR.moe_route(x, k, cap)
+    for ref in (TR.moe_route_plain(x, k, cap), TR.moe_route_torch(x, k, cap)):
+        for i, (g, e) in enumerate(zip(got, ref)):
+            assert g.shape == e.shape and g.dtype == e.dtype
+            if i == 3:
+                d = (g.view(torch.int32).long() - e.view(torch.int32).long())
+                assert int(d.abs().max()) <= ROUTE_WEIGHT_ULPS
+            else:
+                assert torch.equal(g, e), i
+
+
+@pytest.mark.cuda
+def test_shared_memory_limits_raise(card):
+    """Above one CTA's shared memory the wrappers refuse, with the limit in
+    the message, before any launch: K5 cap > 32768, K6 cap > 16384, K7
+    T*k padding past 16384 pairs."""
+    from repro_torch.kernels import KernelError
+    v = torch.zeros(70000, device=card)
+    offs = torch.tensor([0, 70000], dtype=torch.int32, device=card)
+    with pytest.raises(KernelError, match="cap <= 32768"):
+        TS.segment_sort(v, offs, cap=1 << 17)
+    with pytest.raises(KernelError, match="cap <= 16384"):
+        TS.segment_sort_kv(v, offs, cap=1 << 15)
+    with pytest.raises(KernelError, match="Np <= 16384"):
+        TR.moe_route(torch.zeros(1, 4097, 8, device=card), 4, 10)
+    TS.segment_sort(v[:32768], torch.tensor([0, 32768], dtype=torch.int32,
+                                            device=card), cap=32768)
+    TR.moe_route(torch.zeros(1, 4096, 8, device=card), 4, 10)
+
+
+@pytest.mark.cuda
+def test_engine_segment_ops_and_route_on_card(card):
+    """The heuristic plans on the card (two-phase segment sorts, K3
+    segment_merge, fused route) against the torch variants."""
+    from repro_torch import engine
+    g = torch.Generator(device=card)
+    g.manual_seed(11)
+    lens = [300, 0, 4000, 17, 1, 9000, 0, 64]
+    n = sum(lens)
+    x = torch.randint(-40, 40, (n,), generator=g, device=card).float()
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                        dtype=torch.int32, device=card)
+    for d in (True, False):
+        for v in ("cuda_fused", "cuda_two_phase"):
+            assert torch.equal(
+                engine.segment_sort(x, offs, descending=d, variant=v),
+                engine.segment_sort(x, offs, descending=d, variant="torch"))
+            assert torch.equal(
+                engine.segment_argsort(x, offs, descending=d, variant=v),
+                engine.segment_argsort(x, offs, descending=d,
+                                       variant="torch"))
+    a = engine.segment_sort(x, offs)
+    assert torch.equal(engine.segment_merge(a, offs, a, offs),
+                       engine.segment_merge(a, offs, a, offs,
+                                            variant="torch"))
+    lg = torch.randn(3, 700, 16, generator=g, device=card)
+    r1 = engine.moe_route(lg, 4, 200)
+    r2 = engine.moe_route(lg, 4, 200, variant="torch")
+    for name in ("experts", "tokens", "perm", "slabs", "keep"):
+        assert torch.equal(getattr(r1, name), getattr(r2, name)), name
