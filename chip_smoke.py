@@ -24,16 +24,25 @@ the CUDA toolkit. It
      / ``segment_argsort`` fused and two-phase, both directions, float32 and
      int32; ``segment_merge``), bit-for-bit the ``torch`` variants (K5, K6,
      and K1/K3/K4 in the two-phase path);
+   - the out-of-core sort at 2^27 keys (``external_sort``: float32 both
+     directions, int32 descending, stable with ``values=arange`` on int32
+     keys in [0, 2^16) both directions; tiles of 2^20, fan-in 8, so K1 x1,
+     K4 x6 and K8 x3 per call and three ``external.pass`` events), and
+     ``merge_runs(variant="stream_cuda")`` on the main path's 128 ragged
+     runs, every result bit-for-bit ``torch.sort`` /
+     ``torch.argsort(stable=True)``;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
-   -inf;
+   -inf; K8's plain version runs on host copies of the same inputs (it is
+   a few million small tensor operations, launch-bound on the card);
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
-   the float32 rate, whichever is larger), and splits the Mixtral layer's
+   the float32 rate, whichever is larger), splits the Mixtral layer's
    time between the router, K7, the slab scatter, the expert products and
-   the combine.
+   the combine, and the out-of-core sort's between run formation and each
+   merge pass.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -55,6 +64,7 @@ import torch
 SEED = 0
 N_MAIN = 1 << 24
 N_SEG = 1 << 22                # keys of the segmented-ops phase
+N_EXT = 1 << 27                # keys of the out-of-core phase (README's)
 SEG_MAX = 16384                # longest segment there (K6's largest cap)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -801,6 +811,277 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
     return table
 
 
+# --------------------------------------------------------------------------
+# slice 3: the out-of-core sort (K8)
+# --------------------------------------------------------------------------
+
+def _import_slice3():
+    from repro_torch import obs
+    from repro_torch.engine import external, schedule
+    from repro_torch.kernels import stream_merge as k8
+    from repro_torch.launch import roofline
+    return obs, external, schedule, k8, roofline
+
+
+def phase_external(engine, kernels, slice3, data, gen):
+    """``external_sort`` at 2^27 keys and ``merge_runs(variant=
+    "stream_cuda")`` on the main path's runs, counted per call, every
+    result bit-for-bit torch."""
+    obs, _, _, _, roofline = slice3
+    n, dev = N_EXT, "cuda"
+    xf = torch.randn(n, generator=gen, device=dev)
+    xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                       device=dev, dtype=torch.int32)
+    xk = torch.randint(0, 1 << 16, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rank = torch.arange(n, dtype=torch.int32, device=dev)
+    rbuf, roffs = data["rbuf"], data["roffs"]
+    rvals = torch.arange(rbuf.shape[0], device=dev)
+    calls = {
+        "f32_desc": lambda: engine.external_sort(xf),
+        "f32_asc": lambda: engine.external_sort(xf, descending=False),
+        "i32_desc": lambda: engine.external_sort(xi),
+        "kv_desc": lambda: engine.external_sort(xk, stable=True,
+                                                values=rank),
+        "kv_asc": lambda: engine.external_sort(xk, descending=False,
+                                               stable=True, values=rank),
+        "merge_runs": lambda: engine.merge_runs(rbuf, roffs,
+                                                variant="stream_cuda"),
+        "merge_runs_kv": lambda: engine.merge_runs(
+            rbuf, roffs, values=rvals, variant="stream_cuda"),
+    }
+    out, per_call, passes = {}, {}, {}
+
+    def drive():
+        for name, fn in calls.items():
+            before = kernels.launch_counts()
+            obs.reset()
+            obs.enable()
+            out[name] = fn()
+            passes[name] = [e["data"] for e in obs.snapshot()["events"]
+                            if e["kind"] == "external.pass"]
+            obs.disable()
+            after = kernels.launch_counts()
+            per_call[name] = {k: v - before.get(k, 0) for k, v in
+                              after.items() if v - before.get(k, 0)}
+
+    _, launches = counted(kernels, drive)
+    obs.reset()
+    for name, x, d in (("f32_desc", xf, True), ("f32_asc", xf, False),
+                       ("i32_desc", xi, True)):
+        check_same(f"external_sort {name}", out[name],
+                   torch.sort(x, descending=d).values)
+    for name, d in (("kv_desc", True), ("kv_asc", False)):
+        perm = torch.argsort(xk, descending=d, stable=True)
+        check_same(f"external_sort {name}", out[name],
+                   (xk[perm], perm.to(torch.int32)))
+    check_same("merge_runs stream_cuda", out["merge_runs"],
+               torch.sort(rbuf, descending=True).values)
+    perm = torch.argsort(rbuf, descending=True, stable=True)
+    check_same("merge_runs stream_cuda values", out["merge_runs_kv"],
+               (rbuf[perm], perm))
+    n_pass = roofline.external_passes(n // (1 << 20), 8)
+    for name in ("f32_desc", "f32_asc", "i32_desc", "kv_desc", "kv_asc"):
+        sfx = "_kv" if name.startswith("kv") else ""
+        want = {"sort_chunks" + sfx: 1, "merge_tree_runs" + sfx: 6,
+                "stream_merge_runs" + sfx: n_pass}
+        if per_call[name] != want:
+            raise AssertionError(f"external_sort {name}: launches "
+                                 f"{per_call[name]}, expected {want}")
+        bytes_each = 2 * n * (8 if sfx else 4)
+        got = [p["bytes_streamed"] for p in passes[name]]
+        if got != [bytes_each] * n_pass:
+            raise AssertionError(f"external_sort {name}: external.pass "
+                                 f"bytes {got}, expected {n_pass} x "
+                                 f"{bytes_each}")
+    for name in ("merge_runs", "merge_runs_kv"):
+        k8 = "stream_merge_runs" + ("_kv" if name.endswith("kv") else "")
+        if not per_call[name].get(k8):
+            raise AssertionError(f"{name} stream_cuda never launched K8: "
+                                 f"{per_call[name]}")
+    print(f"external: 2^27 keys, {n_pass} external.pass events per call; "
+          "every result bit-for-bit torch; launches "
+          + json.dumps(launches), flush=True)
+    print("external launches per call: " + json.dumps(per_call), flush=True)
+    return launches, dict(xf=xf, xk=xk, rank=rank)
+
+
+def _k8_cases(gen):
+    """(kwargs, sorted runs) for K8 against its plain version: fan 2, 8,
+    16; w 32 and 128; run_len above and equal to the output block."""
+    dev = "cuda"
+    cases = []
+    for runs, run_len, fan, w, bo in ((8, 1024, 2, 32, 256),
+                                      (16, 4096, 8, 128, 4096),
+                                      (16, 256, 16, 32, 256)):
+        x = dup_keys(runs * run_len, gen).reshape(runs, run_len)
+        r = torch.randperm(runs * run_len, generator=gen, device=dev).to(
+            torch.int32).reshape(runs, run_len)
+        kw = dict(runs=runs, run_len=run_len, fan_in=fan, w=w, block_out=bo)
+        key_only = torch.sort(x, dim=1, descending=True).values.reshape(-1)
+        kv = {}
+        for d in (True, False):
+            p1 = torch.argsort(r, dim=1)
+            xs, rs = torch.gather(x, 1, p1), torch.gather(r, 1, p1)
+            p2 = torch.argsort(xs, dim=1, descending=d, stable=True)
+            kv[d] = (torch.gather(xs, 1, p2).reshape(-1).contiguous(),
+                     torch.gather(rs, 1, p2).reshape(-1).contiguous())
+        cases.append((kw, key_only.contiguous(), kv))
+    return cases
+
+
+def phase_slice3_vs_plain(slice3, gen):
+    """K8 and K8kv against their plain versions (run on host copies of the
+    same inputs), on keys with +0.0/-0.0, -inf and heavy duplicates, and a
+    two-pass chain reading the first pass's output and slack as is."""
+    _, _, _, k8, _ = slice3
+    errs = {"stream_merge_runs": 0.0, "stream_merge_runs_kv": 0.0}
+
+    def both(fn, *args, **kw):
+        got = fn(*args, **kw)
+        exp = plain_of(fn)(*(a.cpu() for a in args), **kw)
+        exp = tuple(e.cuda() for e in exp) if isinstance(exp, tuple) \
+            else exp.cuda()
+        err = check_same(f"{fn.__name__} {kw}", got, exp)
+        errs[fn.__name__] = max(errs[fn.__name__], err)
+        return got
+
+    for kw, key_only, kv in _k8_cases(gen):
+        both(k8.stream_merge_runs, key_only, out_slack=100, **kw)
+        for d, (k, r) in kv.items():
+            if kw["fan_in"] < 16 or d:
+                both(k8.stream_merge_runs_kv, k, r, descending=d, **kw)
+    # a chain: pass 1 leaves the slack pass 2 needs, pass 2 reads it as is
+    w, bo, runs, run_len, fan = 32, 512, 16, 512, 4
+    x = torch.sort(dup_keys(runs * run_len, gen).reshape(runs, run_len),
+                   dim=1, descending=True).values.reshape(-1)
+    slack = k8.stream_slack(fan, w, bo)
+    b1 = both(k8.stream_merge_runs, x, runs=runs, run_len=run_len,
+              fan_in=fan, w=w, block_out=bo, out_slack=slack)
+    both(k8.stream_merge_runs, b1, runs=runs // fan, run_len=run_len * fan,
+         fan_in=fan, w=w, block_out=bo)
+    torch.cuda.synchronize()
+    print("slice 3 kernels vs plain: K8/K8kv bit-for-bit at fan 2, 8, 16 "
+          "and a two-pass chain " + json.dumps(errs), flush=True)
+    return errs
+
+
+def phase_slice3_times(slice3, launches, errs, ext):
+    """K8 and K8kv at the path's shape (one fan-8 pass over 2^27 keys in
+    runs of 2^20) beside the plain version (at 8 runs of 2^12: the plain
+    version is launch-bound, seconds a call), one torch.sort of the
+    concatenation and the bound."""
+    _, _, _, k8, _ = slice3
+    n, run_len, fan = N_EXT, 1 << 20, 8
+    M = dict(runs=n // run_len, run_len=run_len, fan_in=fan, w=128,
+             block_out=4096)
+    slack = k8.stream_slack(fan, 128, 4096)
+    runs = torch.sort(ext["xf"].reshape(-1, run_len), dim=1,
+                      descending=True).values.reshape(-1)
+    kvs = torch.sort(ext["xk"].reshape(-1, run_len), dim=1,
+                     descending=True, stable=True)
+    rk = (ext["rank"].reshape(-1, run_len).gather(1, kvs.indices)
+          .reshape(-1))
+    kvk = kvs.values.reshape(-1)
+    pad = lambda t, f: torch.cat([t, t.new_full((slack,), f)])
+    kbuf, kvbuf, rbuf = pad(runs, float("-inf")), pad(kvk, -2 ** 31), \
+        pad(rk, 2 ** 31 - 1)
+    # the plain version's shape: the first 8 x 4096 keys of the first run
+    # are 8 sorted runs of 4096
+    P = dict(M, runs=8, run_len=1 << 12)
+    small_kv = (kvk[:8 << 12], torch.arange(8 << 12, dtype=torch.int32,
+                                             device="cuda"))
+    ops = n * (1 + math.log2(128) / 2) * 3
+    cases = [
+        (k8.stream_merge_runs, (kbuf,), M, (runs[:8 << 12],),
+         lambda: torch.sort(runs, descending=True), 2 * n * 4, ops),
+        (k8.stream_merge_runs_kv, (kvbuf, rbuf), M, small_kv,
+         lambda: torch.sort(kvk, descending=True, stable=True),
+         2 * n * 8, ops),
+    ]
+    table = []
+    for fn, args, kw, pargs, lib, nbytes, ops_ in cases:
+        name = fn.__name__
+        plain = plain_of(fn)
+        bound_ms, bound_by = _bound(nbytes, ops_)
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/stream_merge.cu",
+            "replaces": "src/repro/kernels/stream_merge.py:225",
+            "launches": int(launches.get(name, 0)),
+            "max_abs_err": errs[name],
+            "ms": time_ms(lambda: fn(*args, **kw)),
+            "plain_ms": time_ms(lambda: plain(*pargs, **P), warmup=1,
+                                reps=3),
+            "plain_shape": "8 runs of 4096, fan 8, w 128, block 4096",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": time_ms(lib),
+            "library_call": "torch.sort(stable=True)" if name.endswith("_kv")
+            else "torch.sort"})
+        print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+    return table
+
+
+def external_split(slice3, x, ranks):
+    """CUDA-event medians of the out-of-core sort's parts at its plan:
+    run formation (K1 + K4 passes), then each merge pass (K8)."""
+    _, external, schedule, k8, _ = slice3
+    from repro_torch.engine import planner
+    n, kv = x.shape[0], ranks is not None
+    plan = planner.heuristic_plan("external_sort", planner.plan_key(
+        "external_sort", n=n, dtype=x.dtype, backend="cuda"))
+    plan = external.resolve_dofs(plan, n)
+    T, fan = plan.tile_elems, plan.fan_in
+    R = n // T
+    form = lambda: external._form_runs_cuda(
+        x, ranks, R, T, w=plan.w, chunk=plan.chunk, levels=plan.levels,
+        block_out=plan.block_out, descending=True)
+    parts = {"run_form": time_ms(form)}
+    buf, rbuf = form()
+    slack = k8.stream_slack(fan, plan.w, plan.block_out)
+    buf = torch.cat([buf, buf.new_full((slack,), float("-inf")
+                                       if x.is_floating_point() else
+                                       -2 ** 31)])
+    if kv:
+        rbuf = torch.cat([rbuf, rbuf.new_full((slack,), 2 ** 31 - 1)])
+    runs, run_len, i = R, T, 0
+    while runs > 1:
+        f = min(fan, runs)
+
+        def step(b=buf, rb=rbuf, r=runs, rl=run_len, f=f):
+            return schedule.stream_pass(
+                b, rb, runs=r, run_len=rl, fan_in=f, executor="stream_cuda",
+                w=plan.w, block_out=plan.block_out, descending=True,
+                out_slack=slack)
+        parts[f"pass{i}_fan{f}"] = time_ms(step)
+        buf, rbuf = step()
+        runs, run_len, i = runs // f, run_len * f, i + 1
+    return parts
+
+
+def phase_slice3_e2e(engine, slice3, ext):
+    """``external_sort`` at 2^27 keys beside torch.sort on the same input,
+    its bound (``external_sort_bytes`` over the memory rate) and its split
+    per phase."""
+    roofline = slice3[4]
+    xf, xk, rank = ext["xf"], ext["xk"], ext["rank"]
+    rows = []
+    for name, fn, lib, x, r in (
+            ("engine.external_sort f32 desc", lambda: engine.external_sort(xf),
+             lambda: torch.sort(xf, descending=True), xf, None),
+            ("engine.external_sort stable values int32 desc",
+             lambda: engine.external_sort(xk, stable=True, values=rank),
+             lambda: torch.sort(xk, descending=True, stable=True), xk,
+             rank)):
+        nbytes = roofline.external_sort_bytes(
+            N_EXT, 4 if r is None else 8, 1 << 20, 8)
+        rows.append({"call": name, "n": N_EXT, "ms": time_ms(fn),
+                     "library_ms": time_ms(lib),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "split_ms": external_split(slice3, x, r)})
+    print(json.dumps({"e2e_external": rows}), flush=True)
+
+
 def timed(name: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -837,6 +1118,9 @@ def main() -> int:
     moon_launches, moon_errs, moon_route, _ = timed(
         "moe moonshot_v1_16b_a3b", phase_moe, engine, kernels, slice2, gen,
         "moonshot_v1_16b_a3b", [(None, 4, 2048)])
+    slice3 = _import_slice3()
+    ext_launches, ext = timed("external", phase_external, engine, kernels,
+                              slice3, data, gen)
     moe_k7 = mix_launches.get("moe_route", 0) + \
         moon_launches.get("moe_route", 0)
     print(f"K7 launches on the MoE path: {moe_k7} (mixtral "
@@ -848,11 +1132,16 @@ def main() -> int:
     errs2 = timed("slice 2 kernels vs plain", phase_slice2_vs_plain, slice2,
                   seg, route_logits, gen)
     errs2["moe_route"] = max(errs2["moe_route"], mix_errs[0], moon_errs[0])
+    errs3 = timed("slice 3 kernels vs plain", phase_slice3_vs_plain, slice3,
+                  gen)
     table = timed("times", phase_times, mods, launches, errs, data)
     launches2 = dict(seg_launches, moe_route=moe_k7)
     table += timed("slice 2 times", phase_slice2_times, slice2, launches2,
                    errs2, seg, route_logits)
+    table += timed("slice 3 times", phase_slice3_times, slice3,
+                   ext_launches, errs3, ext)
     timed("e2e times", phase_e2e_times, engine, data)
+    timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -253,6 +253,25 @@ template <typename T, bool KV, bool DESC> struct RunReader {
   }
 };
 
+// A finished inner node's stream in shared memory (K4, K8): rows past what it
+// produced read as fill (last key, INVALID_RANK).
+template <typename T, bool KV, bool DESC> struct StreamReader {
+  const T* k;
+  const int32_t* r;
+  int rows, w;
+  __device__ Lane<T> operator()(int row, int c) const {
+    Lane<T> v;
+    if (row < rows) {
+      v.k = k[row * w + c];
+      v.r = KV ? r[row * w + c] : 0;
+    } else {
+      v.k = last_key<T, DESC>();
+      v.r = kInvalidRank;
+    }
+    return v;
+  }
+};
+
 // Segment of flat CTA index g: the largest s with blk0[s] <= g.
 __device__ __forceinline__ int find_segment(const int32_t* blk0, int n, int g) {
   int lo = 0, hi = n - 1;

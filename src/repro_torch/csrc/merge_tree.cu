@@ -98,25 +98,6 @@ __device__ void assign(const Tree<T, KV, DESC>& tr, Meta& mt, int lo, int idx, i
   }
 }
 
-// A finished inner node's stream in shared memory: rows past what it
-// produced read as fill (last key, INVALID_RANK).
-template <typename T, bool KV, bool DESC> struct StreamReader {
-  const T* k;
-  const int32_t* r;
-  int rows, w;
-  __device__ Lane<T> operator()(int row, int c) const {
-    Lane<T> v;
-    if (row < rows) {
-      v.k = k[row * w + c];
-      v.r = KV ? r[row * w + c] : 0;
-    } else {
-      v.k = last_key<T, DESC>();
-      v.r = kInvalidRank;
-    }
-    return v;
-  }
-};
-
 template <typename T, bool KV, bool DESC> struct Ctx {
   const Tree<T, KV, DESC>* tr;
   const Meta* mt;

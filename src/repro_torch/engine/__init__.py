@@ -1,15 +1,15 @@
 """``repro_torch.engine`` — the port's entry point for sorting workloads.
 
 ``sort`` / ``argsort`` / ``merge`` / ``merge_runs``, the ragged
-``segment_sort`` / ``segment_argsort`` / ``segment_merge`` and ``moe_route``
-on the input's device, planned through the variant/plan cache (counterpart
-of ``repro.engine``).
+``segment_sort`` / ``segment_argsort`` / ``segment_merge``, ``moe_route``
+and the out-of-core ``external_sort`` on the input's device, planned
+through the variant/plan cache (counterpart of ``repro.engine``).
 """
 from repro_torch.engine.api import (MergeSchedule, Plan, RouteResult,
-                                    argsort, clear_plans, load_plans, merge,
-                                    merge_runs, moe_route, save_plans,
-                                    segment_argsort, segment_merge,
-                                    segment_sort, sort)
+                                    argsort, clear_plans, external_sort,
+                                    load_plans, merge, merge_runs,
+                                    moe_route, save_plans, segment_argsort,
+                                    segment_merge, segment_sort, sort)
 from repro_torch.engine.segments import segment_sort_oracle
 from repro_torch.engine.planner import (Planner, default_planner,
                                         heuristic_plan, plan_key,
@@ -18,9 +18,9 @@ from repro_torch.engine import registry, schedule, segments
 
 __all__ = [
     "MergeSchedule", "Plan", "Planner", "RouteResult", "argsort",
-    "clear_plans", "default_planner", "heuristic_plan", "load_plans",
-    "merge", "merge_runs", "moe_route", "plan_key", "plans_from_jax",
-    "registry", "save_plans", "schedule", "segment_argsort",
-    "segment_merge", "segment_sort", "segment_sort_oracle", "segments",
-    "sort",
+    "clear_plans", "default_planner", "external_sort", "heuristic_plan",
+    "load_plans", "merge", "merge_runs", "moe_route", "plan_key",
+    "plans_from_jax", "registry", "save_plans", "schedule",
+    "segment_argsort", "segment_merge", "segment_sort",
+    "segment_sort_oracle", "segments", "sort",
 ]

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``,
 ``merge``, ``merge_runs``, the ragged ``segment_sort`` / ``segment_argsort``
-/ ``segment_merge`` and the fused MoE routing op ``moe_route``. Each call
+/ ``segment_merge``, the fused MoE routing op ``moe_route`` and the
+out-of-core ``external_sort``. Each call
 resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches
 straight to the registered variant.
 
@@ -20,6 +21,7 @@ raises, it never falls back to the CPU.
     s    = engine.segment_sort(values, offsets)    # ragged batch
     perm = engine.segment_argsort(keys, offsets)   # local stable perms
     r    = engine.moe_route(logits, k=2, capacity=64)  # fused MoE routing
+    y    = engine.external_sort(x, tile_elems=1 << 20)  # out-of-core sort
     engine.save_plans("plans.json")
 """
 from __future__ import annotations
@@ -41,6 +43,7 @@ from repro_torch.guard import validate as _validate
 
 __all__ = ["sort", "argsort", "merge", "merge_runs", "segment_sort",
            "segment_argsort", "segment_merge", "moe_route", "RouteResult",
+           "external_sort",
            "save_plans", "load_plans", "clear_plans", "Plan",
            "MergeSchedule"]
 
@@ -75,7 +78,7 @@ def infer_key(op: str, *args):
     if op == "merge":
         return plan_key(op, n=x.shape[0] + args[1].shape[0], dtype=x.dtype,
                         backend=backend)
-    if op in ("sort", "argsort"):
+    if op in ("sort", "argsort", "external_sort"):
         return plan_key(op, n=x.shape[-1], dtype=x.dtype, backend=backend)
     if op in ("merge_runs", "segment_sort", "segment_argsort"):
         return plan_key(op, n=x.shape[0], dtype=x.dtype, backend=backend,
@@ -262,6 +265,57 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     ranks = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
     mk, mr = registry.call("merge_runs", plan.variant, keys, run_offsets,
                            plan=plan, descending=descending, ranks=ranks)
+    return mk if values is None else (mk, _gather(mr, values))
+
+
+def external_sort(keys, *, descending: bool = True, values=None,
+                  stable: bool = False, tile_elems: int = 0, fan_in: int = 0,
+                  nan: Optional[str] = None, plan: Optional[Plan] = None,
+                  variant: Optional[str] = None, device=None):
+    """Sort a 1-D tensor tile by tile: the two-phase out-of-core sort.
+
+    Phase 1 forms ``ceil(n / tile_elems)`` sorted runs; phase 2 reduces
+    them with ``ceil(log_fan_in(runs))`` streamed merge passes over
+    device-resident runs (``stream_cuda``: the streaming kernel K8;
+    ``torch``: binary-search pair merges). An input of at most one tile is
+    handed to ``sort`` untouched.
+
+    ``tile_elems`` / ``fan_in`` override the plan's (both clamp to powers
+    of two; defaults 2^20 and 8). ``values=`` carries a payload (a tensor
+    or a dict/list/tuple of tensors) and returns ``(sorted_keys,
+    sorted_values)``; ``stable=True`` (or any payload) orders ties by input
+    position, bit-for-bit ``torch.argsort(stable=True)``. ``nan=`` is the
+    NaN policy. Sizes past the int32 lanes (``n >= 2**31``) raise.
+    """
+    keys = _tensor(keys, device)
+    if keys.ndim != 1:
+        raise _validate.EngineInputError(
+            "external_sort", f"expects a 1-D key tensor, got shape "
+            f"{tuple(keys.shape)}", shape=tuple(keys.shape))
+    n = keys.shape[0]
+    _validate.check_lane_width(n, "external_sort")
+    values = _payload(values, keys)
+    ik = _nan_keys("external_sort", keys, nan)
+    if ik is not None:
+        pay = {"k": keys} if values is None else {"k": keys, "v": values}
+        _, pv = external_sort(ik, descending=descending, values=pay,
+                              tile_elems=tile_elems, fan_in=fan_in,
+                              plan=plan, variant=variant)
+        return pv["k"] if values is None else (pv["k"], pv["v"])
+    from repro_torch.engine.external import resolve_dofs
+    plan = _resolve("external_sort", plan, variant, keys)
+    plan = resolve_dofs(plan, n, tile_elems=tile_elems, fan_in=fan_in)
+    if n <= plan.tile_elems:
+        # one tile holds the whole input: the direct path, no copy
+        obs.event("external.delegate", n=int(n), tile=int(plan.tile_elems))
+        return sort(keys, descending=descending, values=values,
+                    stable=stable)
+    if values is None and not stable:
+        return registry.call("external_sort", plan.variant, keys, plan=plan,
+                             descending=descending)
+    ranks = torch.arange(n, dtype=torch.int32, device=keys.device)
+    mk, mr = registry.call("external_sort", plan.variant, keys, plan=plan,
+                           descending=descending, ranks=ranks)
     return mk if values is None else (mk, _gather(mr, values))
 
 

@@ -6,8 +6,9 @@ backend of the input tensor's device (``cuda`` or ``cpu``). For CUDA
 tensors of the kernels' key types the heuristic serves ``sort`` /
 ``argsort`` / ``merge`` / ``segment_merge`` from the CUDA kernels,
 ``merge_runs`` from the ``tree_cuda`` schedule, ``segment_sort`` /
-``segment_argsort`` from the two-phase compositions and ``moe_route`` from
-the fused kernel K7; everything else from the torch reference variants.
+``segment_argsort`` from the two-phase compositions, ``moe_route`` from
+the fused kernel K7 and ``external_sort`` from the ``stream_cuda`` passes
+(K8); everything else from the torch reference variants.
 
 Plan tables round-trip through JSON, and :func:`plans_from_jax` reads the
 tables the JAX package's ``engine.save_plans`` writes: backends ``tpu`` /
@@ -26,7 +27,8 @@ from repro_torch.core.flims import next_pow2
 #: JAX variant name -> the port's
 VARIANT_MAP = {"pallas": "cuda", "tree_pallas": "tree_cuda", "xla": "torch",
                "pallas_fused": "cuda_fused",
-               "pallas_two_phase": "cuda_two_phase", "fused": "fused"}
+               "pallas_two_phase": "cuda_two_phase", "fused": "fused",
+               "stream_pallas": "stream_cuda", "stream_xla": "stream_torch"}
 #: JAX backend name -> the port's
 BACKEND_MAP = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 #: key dtypes the CUDA kernels take
@@ -42,6 +44,9 @@ class Plan:
     cap: int = 0           # per-segment capacity; 0 = derive from the offsets
     levels: int = 1        # tree levels fused per pass (MergeSchedule)
     tie: str = "b"         # selector tie policy: 'b' (alg. 1) | 'skew' (alg. 2)
+    # external (out-of-core) sort only: engine/external.py
+    tile_elems: int = 0    # phase-1 run length; 0 = default (2^20)
+    fan_in: int = 0        # runs merged per phase-2 pass; 0 = default (8)
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -94,14 +99,15 @@ def heuristic_plan(op: str, key: Key) -> Plan:
         table = {"sort": "cuda", "argsort": "cuda", "merge": "cuda",
                  "merge_runs": "tree_cuda", "segment_merge": "cuda",
                  "segment_sort": "cuda_two_phase",
-                 "segment_argsort": "cuda_two_phase", "moe_route": "fused"}
-        levels = 2 if op == "merge_runs" else 1
+                 "segment_argsort": "cuda_two_phase", "moe_route": "fused",
+                 "external_sort": "stream_cuda"}
+        levels = 2 if op in ("merge_runs", "external_sort") else 1
     else:
         # other key types, and CPU tensors: the torch reference variants
         table = {"sort": "torch", "argsort": "torch", "merge": "banked",
                  "merge_runs": "torch", "segment_merge": "torch",
                  "segment_sort": "torch", "segment_argsort": "torch",
-                 "moe_route": "torch"}
+                 "moe_route": "torch", "external_sort": "torch"}
         levels = 1
     return Plan(variant=table[op], w=w, block_out=block_out, chunk=256,
                 levels=levels)

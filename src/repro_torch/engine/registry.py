@@ -2,14 +2,16 @@
 
 Counterpart of ``repro/engine/registry.py`` for ``sort``, ``argsort``,
 ``merge``, ``merge_runs``, ``segment_sort``, ``segment_argsort``,
-``segment_merge`` and ``moe_route``. Variant names map from the JAX
-package's:
+``segment_merge``, ``moe_route`` and ``external_sort``. Variant names map
+from the JAX package's:
 
     pallas            -> cuda            the hand-written CUDA kernels
     tree_pallas       -> tree_cuda       the fused merge-tree schedule (K3/K4)
     pallas_fused      -> cuda_fused      one-launch segment sorts (K5/K6)
     pallas_two_phase  -> cuda_two_phase  K1 rows, then the tree_cuda schedule
     fused             -> fused           the routing megakernel (K7)
+    stream_pallas     -> stream_cuda     streamed run-merge passes (K8)
+    stream_xla        -> stream_torch    the same passes in plain torch
     xla               -> torch           torch built-ins, the reference
     ref, banked                          the FLiMS reference merges
 
@@ -123,8 +125,20 @@ def _merge_runs_with(variant):
     return fn
 
 
-for _v in ("torch", "tree_cuda"):
+for _v in ("torch", "tree_cuda", "stream_cuda", "stream_torch"):
     register("merge_runs", _v)(_merge_runs_with(_v))
+
+
+# --- external_sort: the two-phase out-of-core sort --------------------------
+
+def _external_sort(keys, *, plan, descending, ranks=None):
+    from repro_torch.engine.external import run_external_sort
+    return run_external_sort(keys, plan=plan, descending=descending,
+                             ranks=ranks)
+
+
+for _v in ("torch", "stream_cuda"):
+    register("external_sort", _v)(_external_sort)
 
 
 # --- segment_merge: ragged batch of 2-way merges ----------------------------

@@ -9,13 +9,22 @@ slice:
                  collapses ``levels_per_pass`` tree levels per group in one
                  launch, the merge-tree kernel K4 at two or more levels and
                  the segmented pair kernel K3 at one, so a reduction takes
-                 ``ceil(log2 K / levels_per_pass)`` passes.
+                 ``ceil(log2 K / levels_per_pass)`` passes;
+- ``stream_cuda`` the device-resident level kind (counterpart of
+                 ``stream_pallas``): runs are made uniform once, then each
+                 pass is one launch of the streaming kernel K8 merging
+                 ``fan_in = 2^levels_per_pass`` runs per group, its output
+                 carrying the slack the next pass reads;
+- ``stream_torch`` the same pass structure in plain torch (counterpart of
+                 ``stream_xla``): each pass is ``log2(fan_in)`` rounds of
+                 vectorised binary-search pair merges.
 
 The calling convention is grouped contiguous runs: a flat buffer of ``R``
 sorted runs with ``(R+1,)`` offsets, consecutive ``runs_per_group`` runs
 forming one reduction. With ``ranks=`` every executor orders ties by the
-compound ``(key, rank asc)`` order. ``tree_cuda`` sorts KV lanes ascending
-natively; key-only ascending calls are mirrored (runs reversed per segment).
+compound ``(key, rank asc)`` order. ``tree_cuda`` and the stream executors
+sort KV lanes ascending natively; their key-only ascending calls are
+mirrored (runs reversed per segment).
 """
 from __future__ import annotations
 
@@ -28,12 +37,16 @@ from repro_torch import obs
 from repro_torch.core.flims import next_pow2
 from repro_torch.core.lanes import INVALID_RANK
 from repro_torch.engine import segments
-from repro_torch.kernels.flims_merge import _exclusive_cumsum, bound_keys
+from repro_torch.kernels.flims_merge import (_exclusive_cumsum, bound_keys,
+                                             lane_first)
 
 #: mirror pivot for the ascending rank trick (INVALID_RANK stays padding)
 _RANK_MIRROR = INVALID_RANK - 1
 
-_VARIANTS = ("torch", "tree_cuda")
+_VARIANTS = ("torch", "tree_cuda", "stream_cuda", "stream_torch")
+
+#: executors whose passes read device-resident uniform runs
+STREAM_VARIANTS = ("stream_cuda", "stream_torch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +182,168 @@ def _cuda_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
     return buf if rbuf is None else (buf, rbuf)
 
 
+def _bcount(xk, xr, vk, vr, pred, length: int):
+    """Per-element monotone-prefix count: for each query ``v[i, j]`` the
+    number of elements of sorted row ``x[i]`` satisfying ``pred`` (true on
+    a prefix of the row), by a vectorised binary search."""
+    lo = torch.zeros(vk.shape, dtype=torch.int64, device=vk.device)
+    hi = torch.full(vk.shape, length, dtype=torch.int64, device=vk.device)
+    for _ in range(max(length, 2).bit_length() + 1):
+        mid = (lo + hi) // 2
+        idx = mid.clamp(max=length - 1)
+        take = lambda a: torch.gather(a, -1, idx)
+        ok = pred(take(xk), None if xr is None else take(xr), vk, vr)
+        ok = ok & (mid < hi)
+        lo, hi = torch.where(ok, mid + 1, lo), torch.where(ok, hi, mid)
+    return lo
+
+
+def _pair_merge_rows(k, r, descending: bool):
+    """Merge adjacent row pairs of an ``(R, L)`` bank of sorted rows into
+    ``(R/2, 2L)`` by each element's merged position (a scatter by rank
+    count). Key-only ties take the even (A) row first; with ranks the
+    compound ``(key, rank)`` order decides, and equal compound lanes
+    (sentinel padding) land A-first too."""
+    R2, L = k.shape[0] // 2, k.shape[1]
+    a, b = k[0::2], k[1::2]
+    if r is not None:
+        ra, rb = r[0::2], r[1::2]
+        first = lane_first(descending)
+        prec = lambda xk, xr, vk, vr: first(xk, xr, vk, vr)
+        prec_or_tie = lambda xk, xr, vk, vr: ~first(vk, vr, xk, xr)
+        ca = _bcount(b, rb, a, ra, prec, L)           # b strictly before a_i
+        cb = _bcount(a, ra, b, rb, prec_or_tie, L)    # a before-or-tying b_j
+    else:
+        ra = rb = None
+        if descending:
+            prec = lambda xk, _, vk, __: xk > vk
+            prec_or_tie = lambda xk, _, vk, __: xk >= vk
+        else:
+            prec = lambda xk, _, vk, __: xk < vk
+            prec_or_tie = lambda xk, _, vk, __: xk <= vk
+        ca = _bcount(b, None, a, None, prec, L)
+        cb = _bcount(a, None, b, None, prec_or_tie, L)
+    idx = torch.arange(L, device=k.device)[None, :]
+    ko = k.new_empty((R2, 2 * L))
+    ko.scatter_(1, idx + ca, a)
+    ko.scatter_(1, idx + cb, b)
+    if r is None:
+        return ko, None
+    ro = r.new_empty((R2, 2 * L))
+    ro.scatter_(1, idx + ca, ra)
+    ro.scatter_(1, idx + cb, rb)
+    return ko, ro
+
+
+def stream_pass(buf, rbuf, *, runs: int, run_len: int, fan_in: int,
+                executor: str, w: int, block_out: int, descending: bool,
+                out_slack: int = 0):
+    """One out-of-core pass: consecutive groups of ``fan_in`` uniform
+    sorted runs (``runs`` of ``run_len`` elements, a power of two ``>=
+    w``) each merge into one run of ``fan_in * run_len``. On
+    ``stream_cuda`` the buffers may carry trailing slack and the returned
+    ones carry ``out_slack`` (K8's contract), so a chain of passes reads
+    and writes the data once per pass; ``stream_torch`` returns exactly
+    ``runs * run_len`` elements."""
+    if executor == "stream_cuda":
+        from repro_torch.kernels.stream_merge import (stream_merge_runs,
+                                                      stream_merge_runs_kv)
+        kw = dict(runs=runs, run_len=run_len, fan_in=fan_in, w=w,
+                  block_out=block_out, out_slack=out_slack)
+        if rbuf is None:
+            return stream_merge_runs(buf, **kw), None
+        return stream_merge_runs_kv(buf, rbuf, descending=descending, **kw)
+    n_val = runs * run_len
+    k = buf[:n_val].reshape(runs, run_len)
+    r = None if rbuf is None else rbuf[:n_val].reshape(runs, run_len)
+    f = fan_in
+    while f > 1:
+        k, r = _pair_merge_rows(k, r, descending)
+        f >>= 1
+    return k.reshape(-1), None if r is None else r.reshape(-1)
+
+
+def _uniform_len(offsets) -> Optional[int]:
+    """The common run length when every run has the same positive one."""
+    lens = torch.diff(offsets)
+    if lens.numel() and bool((lens == lens[0]).all()) and int(lens[0]) > 0:
+        return int(lens[0])
+    return None
+
+
+def _stream_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
+                   descending: bool):
+    """Device-resident level kind: make the ragged runs uniform once (no
+    copy when they already are, at a power of two), then reduce each group
+    with ``ceil(log_fan_in(m))`` streamed passes instead of ``log2(m)``
+    levels."""
+    from repro_torch.kernels.segmented_merge import padded_bank, unpad_bank
+    from repro_torch.kernels.stream_merge import stream_slack
+    n = keys.shape[0]
+    K = offsets.shape[0] - 1
+    n_groups = K // m
+    fan = 1 << max(sched.levels_per_pass, 1)
+    _, last_k = bound_keys(keys.dtype, descending)
+
+    ulen = _uniform_len(offsets)
+    if (ulen is not None and ulen >= sched.w and ulen & (ulen - 1) == 0
+            and ulen * K == n):
+        run_len = ulen
+        krows = keys.reshape(K, run_len)
+        rrows = None if ranks is None else ranks.reshape(K, run_len)
+    else:
+        run_len = max(segments.static_cap(offsets, n), sched.w)
+        krows = padded_bank(keys, offsets, run_len, fill=last_k)
+        rrows = (None if ranks is None else
+                 padded_bank(ranks, offsets, run_len, fill=INVALID_RANK))
+    m2 = next_pow2(m)
+    if m2 != m:                          # sentinel runs complete each group
+        pad = krows.new_full((n_groups, m2 - m, run_len), last_k)
+        krows = torch.cat([krows.reshape(n_groups, m, run_len), pad],
+                          dim=1).reshape(n_groups * m2, run_len)
+        if rrows is not None:
+            rpad = rrows.new_full((n_groups, m2 - m, run_len), INVALID_RANK)
+            rrows = torch.cat([rrows.reshape(n_groups, m, run_len), rpad],
+                              dim=1).reshape(n_groups * m2, run_len)
+
+    levels_total = m2.bit_length() - 1
+    buf = krows.reshape(-1)
+    rbuf = None if rrows is None else rrows.reshape(-1)
+    n_runs, mleft, passes = n_groups * m2, m2, 0
+    slack = (stream_slack(fan, sched.w, sched.block_out)
+             if sched.variant == "stream_cuda" else 0)
+    while mleft > 1:
+        f = min(fan, mleft)
+        passes += 1
+        obs.event("schedule.pass", executor=sched.variant,
+                  levels=f.bit_length() - 1, runs=int(n_runs),
+                  n=int(n_runs * run_len), kv=rbuf is not None,
+                  level_kind="hbm_run")
+        with obs.kernel_scope(f"schedule.stream_pass_f{f}"):
+            buf, rbuf = stream_pass(
+                buf, rbuf, runs=n_runs, run_len=run_len, fan_in=f,
+                executor=sched.variant, w=sched.w,
+                block_out=sched.block_out, descending=descending,
+                out_slack=slack)
+        n_runs //= f
+        run_len *= f
+        mleft //= f
+    obs.event("schedule.reduce", executor=sched.variant, passes=passes,
+              levels_total=levels_total,
+              hbm_trips_saved=levels_total - passes, n=int(n),
+              kv=ranks is not None)
+
+    # each group's valid prefix back to the flat ragged layout
+    glen = torch.diff(offsets).reshape(n_groups, m).sum(1)
+    goff = _exclusive_cumsum(glen)
+    kb = buf[:n_groups * run_len].reshape(n_groups, run_len)
+    if rbuf is None:
+        return unpad_bank(kb, goff, n)
+    return (unpad_bank(kb, goff, n),
+            unpad_bank(rbuf[:n_groups * run_len].reshape(n_groups, run_len),
+                       goff, n))
+
+
 def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
                runs_per_group: Optional[int] = None, descending: bool = True):
     """Reduce grouped contiguous sorted runs to one sorted run per group.
@@ -191,7 +366,7 @@ def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
         return keys if ranks is None else (keys, ranks)
 
     sched = schedule
-    if not descending and sched.variant == "tree_cuda" and ranks is None:
+    if not descending and sched.variant != "torch" and ranks is None:
         keys, ranks = _mirror(keys, offsets, ranks)
         out = merge_runs(keys, offsets, ranks=ranks, schedule=sched,
                          runs_per_group=m, descending=True)
@@ -204,6 +379,9 @@ def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
                   n=int(n), kv=ranks is not None)
         with obs.kernel_scope("schedule.torch_reduce"):
             return _torch_reduce(keys, offsets, ranks, m, descending)
+    if sched.variant in STREAM_VARIANTS:
+        with obs.kernel_scope("schedule.stream_reduce"):
+            return _stream_reduce(keys, offsets, ranks, m, sched, descending)
     return _cuda_reduce(keys, offsets, ranks, m, sched, descending)
 
 

@@ -27,6 +27,7 @@ from repro_torch.kernels import flims_merge as TF  # noqa: E402
 from repro_torch.kernels import merge_tree as TT  # noqa: E402
 from repro_torch.kernels import route_fuse as TR  # noqa: E402
 from repro_torch.kernels import segmented_merge as TS  # noqa: E402
+from repro_torch.kernels import stream_merge as TK8  # noqa: E402
 
 RNG = np.random.default_rng(29)
 FPOOL = np.array([0.0, -0.0, 1.5, -1.0, -np.inf, 4.0], np.float32)
@@ -281,3 +282,79 @@ def test_engine_segment_ops_and_route_on_card(card):
     r2 = engine.moe_route(lg, 4, 200, variant="torch")
     for name in ("experts", "tokens", "perm", "slabs", "keep"):
         assert torch.equal(getattr(r1, name), getattr(r2, name)), name
+
+
+def uniform_runs(runs, run_len, descending=True):
+    """(keys, ranks) of ``runs`` uniform runs: keys from FPOOL (+0.0, -0.0,
+    -inf, ties), each run in the compound (key, rank) order."""
+    k = keys(runs * run_len).reshape(runs, run_len)
+    r = RNG.permutation(runs * run_len).astype(np.int32).reshape(runs,
+                                                                 run_len)
+    for i in range(runs):
+        p = np.lexsort((r[i], -k[i] if descending else k[i]))
+        k[i], r[i] = k[i][p], r[i][p]
+    return k.ravel().copy(), r.ravel().copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", [(8, 256, 2, 32, 128), (16, 64, 8, 8, 128),
+                                  (16, 32, 16, 8, 32)])
+@pytest.mark.parametrize("descending", [True, False])
+def test_stream_kernel_matches_plain(card, geom, descending):
+    """K8 and K8kv against their plain versions at fan 2, 8 and 16, with
+    run lengths above and equal to the output block, and a two-pass chain
+    reading the first pass's output slack as is."""
+    runs, run_len, fan, w, bo = geom
+    k, r = (T(v).to(card) for v in uniform_runs(runs, run_len, descending))
+    kw = dict(runs=runs, run_len=run_len, fan_in=fan, w=w, block_out=bo)
+    if descending:
+        _same_on_card(TK8.stream_merge_runs, k, out_slack=33, **kw)
+    _same_on_card(TK8.stream_merge_runs_kv, k, r, descending=descending,
+                  out_slack=7, **kw)
+    if descending and fan < 16:
+        slack = TK8.stream_slack(fan, w, bo)
+        b1 = TK8.stream_merge_runs(k, out_slack=slack, **kw)
+        _same_on_card(TK8.stream_merge_runs, b1, runs=runs // fan,
+                      run_len=run_len * fan, fan_in=fan if runs // fan >= fan
+                      else runs // fan, w=w, block_out=bo)
+
+
+@pytest.mark.cuda
+def test_stream_kernel_footprint_guard_raises(card):
+    """K8's wrapper refuses a plan whose inner-node slots pass 227 KB of
+    shared memory, before any launch; the planner's plan at fan 16 on KV
+    lanes fits."""
+    from repro_torch.kernels import KernelError, launch_counts
+    n = 16 * 8192
+    k = torch.zeros(n, device=card)
+    r = torch.zeros(n, dtype=torch.int32, device=card)
+    before = launch_counts().get("stream_merge_runs_kv", 0)
+    with pytest.raises(KernelError, match="shared memory"):
+        TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16,
+                                 w=128, block_out=8192)
+    assert launch_counts().get("stream_merge_runs_kv", 0) == before
+    TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16, w=128,
+                             block_out=4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_external_sort_on_card_matches_torch(card, dtype):
+    """``engine.external_sort`` on its heuristic plan (K1, K4, K8) against
+    torch: 300000 keys in tiles of 2^16 (five runs, completed to eight),
+    key-only both directions and stable with a payload both directions."""
+    from repro_torch import engine
+    g = torch.Generator(device=card)
+    g.manual_seed(13)
+    n = 300_000
+    x = torch.randint(-1000, 1000, (n,), generator=g, device=card).to(dtype)
+    for d in (True, False):
+        for fan in (4, 16):
+            got = engine.external_sort(x, descending=d, tile_elems=1 << 16,
+                                       fan_in=fan)
+            assert torch.equal(got, torch.sort(x, descending=d).values)
+            ks, vs = engine.external_sort(x, descending=d, tile_elems=1 << 16,
+                                          fan_in=fan, values=torch.arange(
+                                              n, device=card))
+            perm = torch.argsort(x, descending=d, stable=True)
+            assert torch.equal(vs, perm) and torch.equal(ks, x[perm])
