@@ -34,8 +34,10 @@ the CUDA toolkit. It
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
-   -inf; K8's plain version runs on host copies of the same inputs (it is
-   a few million small tensor operations, launch-bound on the card);
+   -inf; K8's plain version runs on the card at the main path's shapes (one
+   fan-8 group of 2^20-key runs, the fan-2 pass over two 2^26-key runs)
+   and on host copies of the inputs at small shapes up to fan 16 (there it
+   is millions of small tensor operations, launch-bound on the card);
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
@@ -66,7 +68,6 @@ N_MAIN = 1 << 24
 N_SEG = 1 << 22                # keys of the segmented-ops phase
 N_EXT = 1 << 27                # keys of the out-of-core phase (README's)
 SEG_MAX = 16384                # longest segment there (K6's largest cap)
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 # K7's weights against torch.softmax: exp(v - max) / sum on both sides,
 # CUDA's expf (within 2 ulps of exp) against torch's exp and its own order
@@ -347,8 +348,16 @@ def phase_kernels_vs_plain(mods, gen):
     return errs
 
 
+def hbm_bytes_per_s() -> float:
+    """The H100 SXM's HBM3 rate from NVIDIA's data sheet, as the port's
+    traffic models price it (the table entry, not an override)."""
+    from repro_torch.launch.roofline import MEM_BW_BY_BACKEND
+    return MEM_BW_BY_BACKEND["cuda"]
+
+
 def _bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    tb = nbytes / hbm_bytes_per_s() * 1e3
+    to = ops / FP32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -906,14 +915,21 @@ def phase_external(engine, kernels, slice3, data, gen):
     return launches, dict(xf=xf, xk=xk, rank=rank)
 
 
-def _k8_cases(gen):
-    """(kwargs, sorted runs) for K8 against its plain version: fan 2, 8,
-    16; w 32 and 128; run_len above and equal to the output block."""
+# (runs, run_len, fan_in, w, block_out) of K8 against its plain version:
+# small shapes at fan 2, 8 and 16, w 32 and 128, run_len above and equal to
+# the output block (plain version on host copies) ...
+K8_SMALL = ((8, 1024, 2, 32, 256), (16, 4096, 8, 128, 4096),
+            (16, 256, 16, 32, 256))
+# ... and the main path's at its plan: one fan-8 group of pass 0 (runs of
+# 2^20) and the last pass, fan 2 over two runs of 2^26 (plain on the card)
+K8_PATH = ((8, 1 << 20, 8, 128, 4096), (2, 1 << 26, 2, 128, 4096))
+
+
+def _k8_cases(gen, geoms):
+    """(kwargs, key-only runs, {descending: KV runs}) at each geometry."""
     dev = "cuda"
     cases = []
-    for runs, run_len, fan, w, bo in ((8, 1024, 2, 32, 256),
-                                      (16, 4096, 8, 128, 4096),
-                                      (16, 256, 16, 32, 256)):
+    for runs, run_len, fan, w, bo in geoms:
         x = dup_keys(runs * run_len, gen).reshape(runs, run_len)
         r = torch.randperm(runs * run_len, generator=gen, device=dev).to(
             torch.int32).reshape(runs, run_len)
@@ -931,26 +947,35 @@ def _k8_cases(gen):
 
 
 def phase_slice3_vs_plain(slice3, gen):
-    """K8 and K8kv against their plain versions (run on host copies of the
-    same inputs), on keys with +0.0/-0.0, -inf and heavy duplicates, and a
-    two-pass chain reading the first pass's output and slack as is."""
+    """K8 and K8kv against their plain versions, on keys with +0.0/-0.0,
+    -inf and heavy duplicates: at the main path's shapes with the plain
+    version on the card, at small shapes on host copies of the inputs, and
+    a two-pass chain reading the first pass's output and slack as is."""
     _, _, _, k8, _ = slice3
     errs = {"stream_merge_runs": 0.0, "stream_merge_runs_kv": 0.0}
 
-    def both(fn, *args, **kw):
+    def both(fn, *args, host=True, **kw):
         got = fn(*args, **kw)
-        exp = plain_of(fn)(*(a.cpu() for a in args), **kw)
-        exp = tuple(e.cuda() for e in exp) if isinstance(exp, tuple) \
-            else exp.cuda()
+        if host:
+            exp = plain_of(fn)(*(a.cpu() for a in args), **kw)
+            exp = tuple(e.cuda() for e in exp) if isinstance(exp, tuple) \
+                else exp.cuda()
+        else:
+            exp = plain_of(fn)(*args, **kw)
         err = check_same(f"{fn.__name__} {kw}", got, exp)
         errs[fn.__name__] = max(errs[fn.__name__], err)
         return got
 
-    for kw, key_only, kv in _k8_cases(gen):
-        both(k8.stream_merge_runs, key_only, out_slack=100, **kw)
-        for d, (k, r) in kv.items():
-            if kw["fan_in"] < 16 or d:
-                both(k8.stream_merge_runs_kv, k, r, descending=d, **kw)
+    for geoms, host in ((K8_PATH, False), (K8_SMALL, True)):
+        for kw, key_only, kv in _k8_cases(gen, geoms):
+            both(k8.stream_merge_runs, key_only, out_slack=100, host=host,
+                 **kw)
+            for d, (k, r) in kv.items():
+                if kw["fan_in"] < 16 or d:
+                    both(k8.stream_merge_runs_kv, k, r, descending=d,
+                         host=host, **kw)
+        torch.cuda.synchronize()
+        print(f"slice 3 kernels vs plain: {geoms} bit-for-bit", flush=True)
     # a chain: pass 1 leaves the slack pass 2 needs, pass 2 reads it as is
     w, bo, runs, run_len, fan = 32, 512, 16, 512, 4
     x = torch.sort(dup_keys(runs * run_len, gen).reshape(runs, run_len),
@@ -961,8 +986,9 @@ def phase_slice3_vs_plain(slice3, gen):
     both(k8.stream_merge_runs, b1, runs=runs // fan, run_len=run_len * fan,
          fan_in=fan, w=w, block_out=bo)
     torch.cuda.synchronize()
-    print("slice 3 kernels vs plain: K8/K8kv bit-for-bit at fan 2, 8, 16 "
-          "and a two-pass chain " + json.dumps(errs), flush=True)
+    print("slice 3 kernels vs plain: K8/K8kv bit-for-bit at the path's "
+          "shapes, fan 2, 8, 16 and a two-pass chain " + json.dumps(errs),
+          flush=True)
     return errs
 
 
@@ -1024,7 +1050,8 @@ def phase_slice3_times(slice3, launches, errs, ext):
 
 def external_split(slice3, x, ranks):
     """CUDA-event medians of the out-of-core sort's parts at its plan:
-    run formation (K1 + K4 passes), then each merge pass (K8)."""
+    run formation (K1 + K4 passes), the copy that appends K8's input slack
+    to the formed runs, then each merge pass (K8)."""
     _, external, schedule, k8, _ = slice3
     from repro_torch.engine import planner
     n, kv = x.shape[0], ranks is not None
@@ -1039,11 +1066,13 @@ def external_split(slice3, x, ranks):
     parts = {"run_form": time_ms(form)}
     buf, rbuf = form()
     slack = k8.stream_slack(fan, plan.w, plan.block_out)
-    buf = torch.cat([buf, buf.new_full((slack,), float("-inf")
-                                       if x.is_floating_point() else
-                                       -2 ** 31)])
-    if kv:
-        rbuf = torch.cat([rbuf, rbuf.new_full((slack,), 2 ** 31 - 1)])
+    fill = float("-inf") if x.is_floating_point() else -2 ** 31
+
+    def add_slack(b=buf, rb=rbuf):
+        return (external._pad(b, R * T + slack, fill),
+                external._pad(rb, R * T + slack, 2 ** 31 - 1) if kv else None)
+    parts["slack_copy"] = time_ms(add_slack)
+    buf, rbuf = add_slack()
     runs, run_len, i = R, T, 0
     while runs > 1:
         f = min(fan, runs)
@@ -1077,7 +1106,7 @@ def phase_slice3_e2e(engine, slice3, ext):
             N_EXT, 4 if r is None else 8, 1 << 20, 8)
         rows.append({"call": name, "n": N_EXT, "ms": time_ms(fn),
                      "library_ms": time_ms(lib),
-                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
                      "split_ms": external_split(slice3, x, r)})
     print(json.dumps({"e2e_external": rows}), flush=True)
 

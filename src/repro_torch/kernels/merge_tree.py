@@ -52,16 +52,14 @@ def _node_index(group: int):
     return {(lo, hi): idx for lo, mid, hi, idx in _tree_nodes(group)}
 
 
-def _tree_fns(buf, rbuf, starts_g, lens_g, *, steps: int, descending: bool,
-              node_steps=None):
+def _tree_fns(buf, rbuf, starts_g, lens_g, *, steps: int, descending: bool):
     """(elem, corank, node_len) over one group's leaves, vectorised over
     grid steps (``starts_g[j]`` / ``lens_g[j]`` are (G,) tensors).
 
     ``elem(lo, hi, i)`` is element ``i`` of the node's merged sequence under
     the selector's order, guarded past both ends; ``corank(lo, mid, hi, o)``
     the left child's count among the node's top-``o``, found in ``steps``
-    binary-search steps, or ``node_steps(hi - lo)`` where the caller knows
-    a tighter bound per node span."""
+    binary-search steps."""
     kv = rbuf is not None
     wins = wins_fn(kv, descending)
 
@@ -83,7 +81,7 @@ def _tree_fns(buf, rbuf, starts_g, lens_g, *, steps: int, descending: bool,
     def corank(lo, mid, hi, o):
         la, lb = node_len(lo, mid), node_len(mid, hi)
         lo_b, hi_b = (o - lb).clamp(min=0), torch.minimum(o, la)
-        for _ in range(node_steps(hi - lo) if node_steps else steps):
+        for _ in range(steps):
             m = (lo_b + hi_b + 1) // 2
             ok = wins(elem(lo, mid, m - 1), elem(mid, hi, o - m))
             lo_b, hi_b = torch.where(ok, m, lo_b), torch.where(ok, hi_b, m - 1)
@@ -93,12 +91,12 @@ def _tree_fns(buf, rbuf, starts_g, lens_g, *, steps: int, descending: bool,
 
 
 def _tree_meta(starts_g, lens_g, o, buf, rbuf, *, group: int, w: int,
-               steps: int, descending: bool, node_steps=None):
+               steps: int, descending: bool):
     """The nested partition of every grid step (``_tree_meta_one``): the
     aligned start of each leaf and, per internal node in preorder, the
     (left, right) initial rotations."""
     _, corank, _ = _tree_fns(buf, rbuf, starts_g, lens_g, steps=steps,
-                             descending=descending, node_steps=node_steps)
+                             descending=descending)
     leaf_base = [None] * group
     rots = []
 

@@ -88,13 +88,12 @@ def _stream_plain(buf, rbuf, *, runs, run_len, fan_in, w, C, descending):
     grp, o = g // bpg, (g % bpg) * C
     starts_g = [(grp * fan_in + j) * run_len for j in range(fan_in)]
     lens_g = [torch.full_like(g, run_len) for _ in range(fan_in)]
-    # every search of a node of `span` uniform leaves ranges over at most
-    # its left child's (span/2)·run_len + 1 co-ranks: bit_length steps
-    # converge, as the JAX kernel's fixed log2(group length) + 1 do
+    # a search ranges over at most the root's left child's
+    # (fan_in/2)·run_len + 1 co-ranks: its bit_length steps converge at
+    # every node
     leaf_base, rots = _tree_meta(
-        starts_g, lens_g, o, buf, rbuf, group=fan_in, w=w, steps=0,
-        descending=descending,
-        node_steps=lambda span: (span // 2 * run_len).bit_length())
+        starts_g, lens_g, o, buf, rbuf, group=fan_in, w=w,
+        steps=(fan_in // 2 * run_len).bit_length(), descending=descending)
     node_idx = _node_index(fan_in)
 
     def produce(lo, hi, depth):

@@ -12,8 +12,9 @@ import os
 from typing import Optional
 
 #: streaming-memory rate per backend (bytes/s): the H100 SXM's HBM3 from
-#: NVIDIA's data sheet. Other backends have no figure: set
-#: ``REPRO_MEM_BW_GBPS`` to a measured rate for them.
+#: NVIDIA's data sheet, the yardstick of every bound ``chip_smoke.py``
+#: reports (it reads this entry, so no override moves those bounds). Other
+#: backends have no figure: set ``REPRO_MEM_BW_GBPS`` to a measured rate.
 MEM_BW_BY_BACKEND = {"cuda": 3.35e12}
 
 

@@ -9,11 +9,14 @@ partition and dataflow over uniform runs; the JAX K8 itself does not run
 on this jax); the ``stream_cuda`` / ``stream_torch`` executors against
 JAX ``stream_xla``; and the out-of-core helpers against the JAX ones. Inputs
 come from a seeded numpy generator, a few thousand keys at most, with
-``tile_elems=1024, fan_in=4``.
+``tile_elems=1024, fan_in=4``; a case parametrised over the port's
+variants draws its inputs once and computes the JAX reference once.
 
 Tolerance: exact. Keys, payloads and permutations are equal bit for bit;
 float keys are compared as int32 bit patterns, so signed zeros count.
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -71,6 +74,10 @@ def _jext(x, **kw):
     return JE.external_sort(jnp.asarray(x), variant="xla", **kw)
 
 
+#: a case's inputs and JAX results, shared by the port's variants
+cached = functools.lru_cache(maxsize=None)
+
+
 def _events(kind):
     return [e["data"] for e in obs.snapshot()["events"] if e["kind"] == kind]
 
@@ -97,10 +104,17 @@ def clean_state():
 @pytest.mark.parametrize("descending", [True, False])
 @pytest.mark.parametrize("n", [1500, 4096, 10_000])
 def test_external_sort_matches_jax(variant, descending, n):
-    x = RNG.standard_normal(n).astype(np.float32)
+    x, jout, jsorted = _normal_case(n, descending)
     out = _ext(x, descending=descending, variant=variant)
-    same(_jext(x, descending=descending), out)
-    same(jnp.sort(jnp.asarray(x), descending=descending), out)
+    same(jout, out)
+    same(jsorted, out)
+
+
+@cached
+def _normal_case(n, descending):
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    return (x, np.asarray(_jext(x, descending=descending)),
+            np.asarray(jnp.sort(jnp.asarray(x), descending=descending)))
 
 
 @pytest.mark.parametrize("descending", [True, False])
@@ -113,10 +127,16 @@ def test_external_sort_signed_zeros_torch_variant(descending):
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_external_sort_int_keys_with_ties(variant):
-    x = RNG.integers(-3, 3, 9000).astype(np.int32)
+    x, jout = _int_ties_case()
     out = _ext(x, variant=variant)
-    same(_jext(x), out)
+    same(jout, out)
     np.testing.assert_array_equal(out.numpy(), -np.sort(-x))
+
+
+@cached
+def _int_ties_case():
+    x = np.random.default_rng(9000).integers(-3, 3, 9000).astype(np.int32)
+    return x, np.asarray(_jext(x))
 
 
 def test_external_sort_rejects_2d():
@@ -137,15 +157,22 @@ def test_external_sort_lane_guard():
 @pytest.mark.parametrize("variant", VARIANTS)
 @pytest.mark.parametrize("descending", [True, False])
 def test_external_sort_stable_perm(variant, descending):
-    keys = RNG.integers(0, 5, 6000).astype(np.int32)    # heavy ties
+    keys, jk, jp, jperm = _stable_perm_case(descending)
     ks, perm = _ext(keys, variant=variant, descending=descending,
                     values=torch.arange(6000, dtype=torch.int32))
-    jk, jp = _jext(keys, descending=descending,
-                   values=jnp.arange(6000, dtype=jnp.int32))
     same(jp, perm)
     same(jk, ks)
-    same(jnp.argsort(jnp.asarray(keys), stable=True, descending=descending),
-         perm)
+    same(jperm, perm)
+
+
+@cached
+def _stable_perm_case(descending):
+    keys = np.random.default_rng(6000).integers(0, 5, 6000).astype(
+        np.int32)                                       # heavy ties
+    jk, jp = _jext(keys, descending=descending,
+                   values=jnp.arange(6000, dtype=jnp.int32))
+    jperm = jnp.argsort(jnp.asarray(keys), stable=True, descending=descending)
+    return keys, np.asarray(jk), np.asarray(jp), np.asarray(jperm)
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
@@ -153,32 +180,53 @@ def test_external_sort_all_equal_keys_stable(variant):
     keys = np.zeros(5000, np.float32)
     ks, perm = _ext(keys, variant=variant, stable=True,
                     values=torch.arange(5000, dtype=torch.int32))
-    same(jnp.argsort(jnp.asarray(keys), stable=True, descending=True), perm)
+    same(_all_equal_perm(), perm)
     same(keys, ks)
+
+
+@cached
+def _all_equal_perm():
+    return np.asarray(jnp.argsort(jnp.zeros(5000, jnp.float32), stable=True,
+                                  descending=True))
 
 
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_external_sort_payload_pytree(variant):
-    keys = RNG.standard_normal(3000).astype(np.float32)
+    keys, jk, jv = _payload_case()
     ks, vs = _ext(keys, variant=variant,
                   values={"a": torch.arange(3000, dtype=torch.int32),
                           "b": torch.from_numpy(keys) * 2.0})
-    jk, jv = _jext(keys, values={"a": jnp.arange(3000, dtype=jnp.int32),
-                                 "b": jnp.asarray(keys) * 2.0})
     same(jk, ks)
     same(jv["a"], vs["a"])
     same(jv["b"], vs["b"])
 
 
+@cached
+def _payload_case():
+    keys = np.random.default_rng(3000).standard_normal(3000).astype(
+        np.float32)
+    jk, jv = _jext(keys, values={"a": jnp.arange(3000, dtype=jnp.int32),
+                                 "b": jnp.asarray(keys) * 2.0})
+    return keys, np.asarray(jk), {k: np.asarray(v) for k, v in jv.items()}
+
+
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_external_sort_nan_policies(variant):
-    x = RNG.standard_normal(2500).astype(np.float32)
-    x[RNG.random(2500) < 0.1] = np.nan
+    x, jouts = _nan_case()
     for d in (True, False):
-        same(_jext(x, descending=d, nan="sort_last"),
-             _ext(x, descending=d, nan="sort_last", variant=variant))
+        same(jouts[d], _ext(x, descending=d, nan="sort_last",
+                            variant=variant))
     with pytest.raises(EngineInputError):
         _ext(x, nan="raise", variant=variant)
+
+
+@cached
+def _nan_case():
+    rng = np.random.default_rng(2500)
+    x = rng.standard_normal(2500).astype(np.float32)
+    x[rng.random(2500) < 0.1] = np.nan
+    return x, {d: np.asarray(_jext(x, descending=d, nan="sort_last"))
+               for d in (True, False)}
 
 
 # --------------------------------------------------------------------------
@@ -208,17 +256,8 @@ def test_fan_in_larger_than_run_count(variant):
 @pytest.mark.parametrize("kv", [False, True])
 @pytest.mark.parametrize("variant", VARIANTS)
 def test_pass_count_and_bytes_match_jax(variant, kv):
-    n = 16 * 1024                       # 16 runs, fan 4 -> 2 passes
-    x = RNG.standard_normal(n).astype(np.float32)
+    x, jpass, jform = _pass_count_case(kv)
     kw = dict(stable=True) if kv else {}
-    jobs.enable()
-    jobs.reset()
-    _jext(x, **kw)
-    jpass = [e["data"] for e in jobs.snapshot()["events"]
-             if e["kind"] == "external.pass"]
-    jform = [e["data"] for e in jobs.snapshot()["events"]
-             if e["kind"] == "external.run_form"]
-    jobs.disable()
     obs.enable()
     _ext(x, variant=variant, **kw)
     passes, form = _events("external.pass"), _events("external.run_form")
@@ -228,6 +267,20 @@ def test_pass_count_and_bytes_match_jax(variant, kv):
         [p["bytes_streamed"] for p in jpass]
     assert form[0]["runs"] == 16
     assert form[0]["bytes_streamed"] == jform[0]["bytes_streamed"]
+
+
+@cached
+def _pass_count_case(kv):
+    n = 16 * 1024                       # 16 runs, fan 4 -> 2 passes
+    x = np.random.default_rng(n).standard_normal(n).astype(np.float32)
+    jobs.enable()
+    jobs.reset()
+    _jext(x, **(dict(stable=True) if kv else {}))
+    ev = jobs.snapshot()["events"]
+    jobs.disable()
+    jobs.reset()
+    return (x, [e["data"] for e in ev if e["kind"] == "external.pass"],
+            [e["data"] for e in ev if e["kind"] == "external.run_form"])
 
 
 # --------------------------------------------------------------------------
@@ -256,7 +309,7 @@ def _jk4(x, r, runs, run_len, fan, w, block_out, descending=True):
 
 
 @pytest.mark.parametrize("geom", [(8, 64, 4, 8, 128), (4, 32, 2, 8, 32),
-                                  (16, 128, 16, 32, 256)])
+                                  (16, 16, 16, 8, 32)])
 def test_stream_kernel_plain_matches_jax_k4(geom):
     runs, run_len, fan, w, block_out = geom
     x = _uniform_runs(runs, run_len)
@@ -309,15 +362,21 @@ def test_stream_kernel_chains_with_slack():
 @pytest.mark.parametrize("executor", ["stream_cuda", "stream_torch"])
 def test_stream_pass_helper(executor):
     runs, run_len, fan = 8, 32, 8
-    x = _uniform_runs(runs, run_len, ties=4)
-    jout, _ = jstream_pass(jnp.asarray(x.ravel()), None, runs=runs,
-                           run_len=run_len, fan_in=fan, executor="stream_xla",
-                           w=8, block_out=64, descending=True,
-                           interpret=True)
+    x, jout = _stream_pass_case()
     out, _ = tstream_pass(torch.from_numpy(x.ravel()), None, runs=runs,
                           run_len=run_len, fan_in=fan, executor=executor,
                           w=8, block_out=64, descending=True)
     same(jout, out[:runs * run_len])
+
+
+@cached
+def _stream_pass_case():
+    x = np.sort(np.random.default_rng(8).integers(0, 4, (8, 32)).astype(
+        np.int32), axis=1)[:, ::-1].copy()
+    jout, _ = jstream_pass(jnp.asarray(x.ravel()), None, runs=8, run_len=32,
+                           fan_in=8, executor="stream_xla", w=8,
+                           block_out=64, descending=True, interpret=True)
+    return x, np.asarray(jout)
 
 
 def test_stream_torch_signed_zeros_match_stream_xla():
@@ -338,19 +397,7 @@ def test_stream_torch_signed_zeros_match_stream_xla():
 @pytest.mark.parametrize("descending", [True, False])
 @pytest.mark.parametrize("kv", [False, True])
 def test_stream_executors_ragged_merge_runs(variant, descending, kv):
-    # ragged and empty runs, 2 groups of 3, through the schedule
-    lens = [13, 0, 40, 7, 25, 1]
-    sgn = -1 if descending else 1
-    ks = [sgn * np.sort(sgn * RNG.integers(0, 4, n).astype(np.int32))
-          for n in lens]
-    keys = np.concatenate(ks).astype(np.int32)
-    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
-    ranks = np.arange(keys.shape[0], dtype=np.int32) if kv else None
-    jout = jmerge_runs(jnp.asarray(keys), jnp.asarray(off),
-                       ranks=None if ranks is None else jnp.asarray(ranks),
-                       schedule=JSched("stream_xla", levels_per_pass=2, w=8,
-                                       block_out=64),
-                       runs_per_group=3, descending=descending)
+    keys, off, ranks, jout = _ragged_case(descending, kv)
     obs.enable()
     out = tmerge_runs(torch.from_numpy(keys), torch.from_numpy(off),
                       ranks=None if ranks is None else torch.from_numpy(ranks),
@@ -366,6 +413,26 @@ def test_stream_executors_ragged_merge_runs(variant, descending, kv):
     assert passes and all(p["level_kind"] == "hbm_run" for p in passes)
     # 3 runs per group complete to 4: one pass instead of two levels
     assert _events("schedule.reduce")[-1]["hbm_trips_saved"] == 1
+
+
+@cached
+def _ragged_case(descending, kv):
+    # ragged and empty runs, 2 groups of 3, through the schedule
+    rng = np.random.default_rng(86)
+    lens = [13, 0, 40, 7, 25, 1]
+    sgn = -1 if descending else 1
+    ks = [sgn * np.sort(sgn * rng.integers(0, 4, n).astype(np.int32))
+          for n in lens]
+    keys = np.concatenate(ks).astype(np.int32)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    ranks = np.arange(keys.shape[0], dtype=np.int32) if kv else None
+    jout = jmerge_runs(jnp.asarray(keys), jnp.asarray(off),
+                       ranks=None if ranks is None else jnp.asarray(ranks),
+                       schedule=JSched("stream_xla", levels_per_pass=2, w=8,
+                                       block_out=64),
+                       runs_per_group=3, descending=descending)
+    jout = tuple(map(np.asarray, jout)) if kv else np.asarray(jout)
+    return keys, off, ranks, jout
 
 
 @pytest.mark.parametrize("kv", [False, True])
