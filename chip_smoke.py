@@ -37,14 +37,18 @@ the CUDA toolkit. It
    -inf; K8's plain version runs on the card at the main path's shapes (one
    fan-8 group of 2^20-key runs, the fan-2 pass over two 2^26-key runs)
    and on host copies of the inputs at small shapes up to fan 16 (there it
-   is millions of small tensor operations, launch-bound on the card);
+   is millions of small tensor operations, launch-bound on the card), and
+   K8 is held to one plain result under several CTA counts (``ctas=``):
+   spans of many blocks starting mid-group, one block a span, and one CTA
+   taking two groups of a fan-16 KV pass in turn;
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
    the float32 rate, whichever is larger), splits the Mixtral layer's
    time between the router, K7, the slab scatter, the expert products and
    the combine, and the out-of-core sort's between run formation and each
-   merge pass.
+   merge pass; records one K8 pass and the whole out-of-core sort at fan-in
+   2, 4, 8 and 16.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -923,6 +927,15 @@ K8_SMALL = ((8, 1024, 2, 32, 256), (16, 4096, 8, 128, 4096),
 # ... and the main path's at its plan: one fan-8 group of pass 0 (runs of
 # 2^20) and the last pass, fan 2 over two runs of 2^26 (plain on the card)
 K8_PATH = ((8, 1 << 20, 8, 128, 4096), (2, 1 << 26, 2, 128, 4096))
+# span geometries, each (shape, CTA counts forced through ``ctas``, plain
+# on host copies, KV only): two groups of 512 blocks under 6 CTAs (three
+# spans of 170-171 blocks a group, two starting mid-group) and under the
+# card's own count; 16 blocks under 64 CTAs (a span is a block); fan 16 on
+# KV lanes under 5 CTAs (two spans a group) and 1 (one CTA takes both
+# groups in turn)
+K8_SPANS = (((16, 1 << 16, 8, 128, 1024), (6, 0), False, False),
+            ((16, 4096, 8, 128, 4096), (64,), True, False),
+            ((32, 256, 16, 32, 256), (5, 1), True, True))
 
 
 def _k8_cases(gen, geoms):
@@ -976,6 +989,26 @@ def phase_slice3_vs_plain(slice3, gen):
                          host=host, **kw)
         torch.cuda.synchronize()
         print(f"slice 3 kernels vs plain: {geoms} bit-for-bit", flush=True)
+    # span geometries: one plain result, the kernel under each CTA count
+    for geom, ctas_list, host, kv_only in K8_SPANS:
+        (kw, key_only, kv), = _k8_cases(gen, (geom,))
+        cases = [(k8.stream_merge_runs_kv, kv[True], dict(kw, descending=True))]
+        if not kv_only:
+            cases += [(k8.stream_merge_runs, (key_only,), kw),
+                      (k8.stream_merge_runs_kv, kv[False],
+                       dict(kw, descending=False))]
+        for fn, args, ckw in cases:
+            exp = plain_of(fn)(*((a.cpu() for a in args) if host else args),
+                               **ckw)
+            exp = tuple(e.cuda() for e in exp) if isinstance(exp, tuple) \
+                else exp.cuda()
+            for ctas in ctas_list:
+                err = check_same(f"{fn.__name__} {ckw} ctas={ctas}",
+                                 fn(*args, ctas=ctas, **ckw), exp)
+                errs[fn.__name__] = max(errs[fn.__name__], err)
+        torch.cuda.synchronize()
+        print(f"slice 3 kernels vs plain: spans {geom} under ctas "
+              f"{ctas_list} bit-for-bit", flush=True)
     # a chain: pass 1 leaves the slack pass 2 needs, pass 2 reads it as is
     w, bo, runs, run_len, fan = 32, 512, 16, 512, 4
     x = torch.sort(dup_keys(runs * run_len, gen).reshape(runs, run_len),
@@ -987,8 +1020,8 @@ def phase_slice3_vs_plain(slice3, gen):
          fan_in=fan, w=w, block_out=bo)
     torch.cuda.synchronize()
     print("slice 3 kernels vs plain: K8/K8kv bit-for-bit at the path's "
-          "shapes, fan 2, 8, 16 and a two-pass chain " + json.dumps(errs),
-          flush=True)
+          "shapes, fan 2, 8, 16, the span geometries and a two-pass chain "
+          + json.dumps(errs), flush=True)
     return errs
 
 
@@ -1001,7 +1034,7 @@ def phase_slice3_times(slice3, launches, errs, ext):
     n, run_len, fan = N_EXT, 1 << 20, 8
     M = dict(runs=n // run_len, run_len=run_len, fan_in=fan, w=128,
              block_out=4096)
-    slack = k8.stream_slack(fan, 128, 4096)
+    slack = k8.stream_slack(16, 128, 4096)   # enough for every fan-in
     runs = torch.sort(ext["xf"].reshape(-1, run_len), dim=1,
                       descending=True).values.reshape(-1)
     kvs = torch.sort(ext["xk"].reshape(-1, run_len), dim=1,
@@ -1030,10 +1063,14 @@ def phase_slice3_times(slice3, launches, errs, ext):
         name = fn.__name__
         plain = plain_of(fn)
         bound_ms, bound_by = _bound(nbytes, ops_)
+        kv = name.endswith("_kv")
         table.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/stream_merge.cu",
             "replaces": "src/repro/kernels/stream_merge.py:225",
+            "smem_bytes": k8.stream_smem(3, kv, 4, 128),
+            "ctas": k8._resident_ctas(k8._build.DTYPE_CODES[args[0].dtype], kv,
+                                      True, 3, 128, args[0].device),
             "launches": int(launches.get(name, 0)),
             "max_abs_err": errs[name],
             "ms": time_ms(lambda: fn(*args, **kw)),
@@ -1045,6 +1082,15 @@ def phase_slice3_times(slice3, launches, errs, ext):
             "library_call": "torch.sort(stable=True)" if name.endswith("_kv")
             else "torch.sort"})
         print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+    # recorded only: one pass of each fan-in over the same 2^27 keys
+    fans = []
+    for f in (2, 4, 8, 16):
+        Mf = dict(M, fan_in=f)
+        fans.append({"fan_in": f, "run_len": run_len,
+                     "ms": time_ms(lambda: k8.stream_merge_runs(kbuf, **Mf)),
+                     "kv_ms": time_ms(lambda: k8.stream_merge_runs_kv(
+                         kvbuf, rbuf, **Mf))})
+    print(json.dumps({"k8_fans": fans}), flush=True)
     return table
 
 
@@ -1109,6 +1155,13 @@ def phase_slice3_e2e(engine, slice3, ext):
                      "bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
                      "split_ms": external_split(slice3, x, r)})
     print(json.dumps({"e2e_external": rows}), flush=True)
+    # recorded only: the whole sort at each fan-in (the planner's is 8)
+    fans = [{"fan_in": f, "passes": roofline.external_passes(N_EXT >> 20, f),
+             "ms": time_ms(lambda: engine.external_sort(xf, fan_in=f)),
+             "kv_ms": time_ms(lambda: engine.external_sort(
+                 xk, stable=True, values=rank, fan_in=f))}
+            for f in (2, 4, 8, 16)]
+    print(json.dumps({"e2e_external_fans": fans}), flush=True)
 
 
 def timed(name: str, fn, *args, **kw):

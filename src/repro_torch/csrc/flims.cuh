@@ -1,14 +1,16 @@
 // Shared FLiMS routines for the Hopper kernels: key bounds, XLA's max/min,
 // the compound (key, rank) order, the butterfly, the cooperative co-rank
 // search and one windowed FLiMS dataflow (selector, butterfly, two-row
-// window advance).
+// window advance); for K8, the same butterfly run by one warp, mbarriers
+// and 1-D bulk copies.
 //
 // Counterpart of what the JAX package shares between `_merge_kernel` /
 // `_merge_kv_kernel` (kernels/flims_merge.py) and `tree_dataflow`
-// (kernels/merge_tree.py). One CTA runs one dataflow: lane i < w owns head
-// i of A and head w-1-i of B, so the MAX selector pairs a_i with b_{w-1-i}
-// without a reversal. Every control value (rotations, row pointers, the
-// count k taken from A) is uniform across the CTA.
+// (kernels/merge_tree.py). In `merge_stream` one CTA runs one dataflow:
+// lane i < w owns head i of A and head w-1-i of B, so the MAX selector
+// pairs a_i with b_{w-1-i} without a reversal. Every control value
+// (rotations, row pointers, the count k taken from A) is uniform across the
+// CTA.
 #pragma once
 
 #include <cstdint>
@@ -38,23 +40,22 @@ template <typename T, bool DESC> __device__ __forceinline__ T last_key() {
 }
 
 // XLA's maximum/minimum, which the key-only JAX kernels use: a NaN operand
-// wins, and of a +0/-0 pair max gives +0 and min gives -0 whatever the
-// order. fmaxf promises neither, so the rule is spelled out.
+// wins (the first if both are), and of a +0/-0 pair max gives +0 and min
+// gives -0 whatever the order. fmaxf promises neither, so the rule is
+// spelled out, as selects: a branch per lane would diverge the warp.
 __device__ __forceinline__ int32_t xmax(int32_t a, int32_t b) { return a > b ? a : b; }
 __device__ __forceinline__ int32_t xmin(int32_t a, int32_t b) { return a < b ? a : b; }
 __device__ __forceinline__ float xmax(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a > b) return a;
-  if (b > a) return b;
-  return __int_as_float(__float_as_int(a) & __float_as_int(b));
+  float r = a > b ? a : b;
+  r = a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : r;
+  r = b != b ? b : r;
+  return a != a ? a : r;
 }
 __device__ __forceinline__ float xmin(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  if (a < b) return a;
-  if (b < a) return b;
-  return __int_as_float(__float_as_int(a) | __float_as_int(b));
+  float r = a < b ? a : b;
+  r = a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : r;
+  r = b != b ? b : r;
+  return a != a ? a : r;
 }
 
 // One lane: a key and, on KV lanes, its int32 rank.
@@ -69,8 +70,17 @@ template <typename T> struct Lane {
 template <typename T, bool KV, bool DESC>
 __device__ __forceinline__ bool wins(const Lane<T>& x, const Lane<T>& y) {
   if (!KV) return x.k > y.k;
-  if (DESC) return x.k > y.k || (x.k == y.k && x.r < y.r);
-  return x.k < y.k || (x.k == y.k && x.r < y.r);
+  if (DESC) return (x.k > y.k) | ((x.k == y.k) & (x.r < y.r));
+  return (x.k < y.k) | ((x.k == y.k) & (x.r < y.r));
+}
+
+// a if `keep`, else b, lane by lane without a branch.
+template <typename T>
+__device__ __forceinline__ Lane<T> pick(bool keep, const Lane<T>& a, const Lane<T>& b) {
+  Lane<T> v;
+  v.k = keep ? a.k : b.k;
+  v.r = keep ? a.r : b.r;
+  return v;
 }
 
 template <typename T, bool DESC>
@@ -271,6 +281,115 @@ template <typename T, bool KV, bool DESC> struct StreamReader {
     return v;
   }
 };
+
+// Warp-synchronous FLiMS (K8): one warp runs one w-wide dataflow, thread t
+// holding lanes t, t + 32, ... (M = w/32 of them; lane t < w for w < 32).
+constexpr unsigned kFullWarp = 0xffffffffu;
+
+// One compare-exchange of lanes (top, bottom) within a thread's registers:
+// the rule `butterfly` applies across threads.
+template <typename T, bool KV, bool DESC>
+__device__ __forceinline__ void cas_regs(Lane<T>& top, Lane<T>& bot) {
+  if (KV) {
+    const bool keep = wins<T, KV, DESC>(top, bot);
+    const Lane<T> x = top;
+    top = pick(keep, top, bot);
+    bot = pick(keep, bot, x);
+  } else {
+    const T hi = xmax(top.k, bot.k), lo = xmin(top.k, bot.k);
+    top.k = hi;
+    bot.k = lo;
+  }
+}
+
+// `butterfly` over the warp's M lanes per thread: stages d >= 32 pair
+// registers of one thread (slot m with m ^ d/32), stages d < 32 shuffle.
+// Lanes >= w (w < 32) shuffle too and are ignored.
+template <typename T, bool KV, bool DESC, int M>
+__device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int dd = M / 2; dd >= 1; dd >>= 1) {
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      if (!(m & dd)) cas_regs<T, KV, DESC>(v[m], v[m | dd]);
+  }
+  const int d0 = M > 1 ? 16 : (w >> 1);
+#pragma unroll
+  for (int d = 16; d >= 1; d >>= 1) {
+    if (d > d0) continue;
+    const bool top = (lane & d) == 0;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      Lane<T> p;
+      p.k = __shfl_xor_sync(kFullWarp, v[m].k, d);
+      p.r = KV ? __shfl_xor_sync(kFullWarp, v[m].r, d) : 0;
+      if (KV) {
+        // keep = top ? wins(v, p) : wins(p, v), as one compare of picked
+        // operands
+        const bool keep = wins<T, KV, DESC>(pick(top, v[m], p), pick(top, p, v[m]));
+        v[m] = pick(keep, v[m], p);
+      } else {
+        v[m].k = top ? xmax(v[m].k, p.k) : xmin(p.k, v[m].k);
+      }
+    }
+  }
+}
+
+// mbarriers and 1-D bulk copies (sm_90). A wait spins on try_wait (which
+// suspends in hardware) with the parity of the phase it waits for.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* b, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(b)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
+  asm volatile("{ .reg .b64 st; mbarrier.arrive.shared::cta.b64 st, [%0]; }" ::"r"(smem_u32(b))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* b, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(b)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_test(uint64_t* b, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2; "
+      "selp.u32 %0, 1, 0, p; }"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ bool mbar_try(uint64_t* b, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2; "
+      "selp.u32 %0, 1, 0, p; }"
+      : "=r"(ok)
+      : "r"(smem_u32(b)), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* b, uint32_t parity) {
+  while (!mbar_try(b, parity)) {
+  }
+}
+// `bytes` (a multiple of 16) from global `src` to shared `dst`, both 16-byte
+// aligned, completing on `bar`'s transaction count.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 // Segment of flat CTA index g: the largest s with blk0[s] <= g.
 __device__ __forceinline__ int find_segment(const int32_t* blk0, int n, int g) {

@@ -1,48 +1,73 @@
-// K8: streaming k-way merge of uniform device-resident runs.
+// K8: streaming k-way merge of uniform device-resident runs, as a
+// persistent streaming merge tree.
 //
 // Replaces `_stream_call` (src/repro/kernels/stream_merge.py:225; body
 // `_stream_kernel` :101, nested co-rank `_stream_meta_one` :69) behind
-// `stream_merge_runs` / `stream_merge_runs_kv`.
+// `stream_merge_runs` / `stream_merge_runs_kv`. Groups of 2^L uniform runs
+// (L from 1 to 4) merge through L fused FLiMS levels; leaf j of group `grp`
+// is the run at flat offset (grp * 2^L + j) * run_len.
 //
-// One CTA per (group of 2^L uniform runs, C-wide output block), max(w, 32)
-// threads; L from 1 to 4. Leaf j of group `grp` is the run at flat offset
-// (grp * 2^L + j) * run_len: no starts or lengths arrays.
+// What bounds it on this card. Bytes: every element is read once and
+// written once per pass (0.32 ms key-only at 2^27 keys, 3.35 TB/s). But a
+// FLiMS node is a chain, cycle t + 1 needing cycle t's take count, of a few
+// hundred instructions a w-row; 2^L - 1 nodes run per output row. So the
+// kernel is bound by latency unless many node chains are in flight, and by
+// barriers when a chain waits on the whole CTA. The first version, one CTA
+// per C-wide output block, had both: each block re-ran the nested partition
+// (about 230 dependent loads), each cycle ended in a CTA barrier, leaf rows
+// came one cycle ahead, and whole-block inner-node slots (68 KB key-only and
+// 137 KB KV at C 4096, w 128, L 3) left one to three CTAs on an SM.
 //
-// The partition. The TPU kernel takes, per block, each node's co-rank from
-// a nested binary search on the host (`_stream_meta_one`): a node's search
-// evaluates elements of its children's merged sequences, each of which is
-// a search of its own, so the work grows as (log n)^L and the dependent
-// loads as (log n)^(L-1): about 10^4 loads at L = 3 and 10^5 at L = 4 for
-// runs of 2^20. K8 finds the same numbers another way. The nested merges
-// order a node's elements by key (with rank on KV lanes), then by leaf
-// DESCENDING (ties go to the right child at every level), then by
-// position, a strict total order. Under it the rank of element p of leaf j
-// within a node is p plus, for every other leaf j' of the node, the count
+// The design.
+// - Persistent CTAs over spans. The grid is at most what the card holds at
+//   once (the wrapper's `ctas`). Each group splits into `spg` spans of
+//   consecutive C-blocks (span s: blocks [s bpg / spg, (s + 1) bpg / spg)),
+//   never crossing a group; a CTA takes spans blockIdx.x, += gridDim.x. The
+//   partition runs once at a span's first block and the tree streams to the
+//   span's end with no restart. That is the per-block kernel bit for bit: a
+//   node takes A on lane i iff wins(a_i, b_{w-1-i}), monotone in i, so after
+//   t chunks it has consumed the co-rank of t w under the partition's order
+//   (key, leaf descending, position); its state (two head rows a side, row
+//   pointers, lA / lB) is a function of those counts alone, its rows on a
+//   grid of w from the stream's start, so the stream meets each block
+//   boundary in the state a restart computes, sign bits of +-0 included. A
+//   node reads a child's rows below R + d + 1 (leaf rows below the run's
+//   end) and fill lanes past them, as the per-block kernel read rows below
+//   C/w + d + 1; but a child gives rows only as its parent frees ring slots
+//   and stops when the parent is done (a per-edge handshake), so the tree
+//   does about L R node cycles a span, not the (2^L - 1) R of producing
+//   every row a worst-case split could need.
+// - One warp per tree node, synchronous within the warp only. Thread t
+//   holds lanes t, t + 32, ... (w/32 of them; lane t < w for w < 32);
+//   butterfly stages d >= 32 exchange registers, d < 32 shuffle, every
+//   compare-exchange a select (a branch per lane would split the warp); the
+//   take count is a sum of ballots. No CTA barrier in the cycle loop.
+// - FIFOs in shared memory between nodes: a child writes rows into a ring of
+//   kRingRows rows that its parent warp reads, each slot with a full and an
+//   empty mbarrier. (2^(L+1) - 2) rings, independent of C: 30,592 B
+//   key-only and 59,264 B KV at w 128, L 3 (`flims_stream_merge_smem`).
+// - Leaves through cp.async.bulk: the last warp is a producer, lane j
+//   keeping up to kRingRows row copies of leaf j in flight into its ring,
+//   each completing on the slot's full mbarrier (expect_tx). Rows at or
+//   past a run's end are not copied: the parent reads them as sentinels.
+// - The root writes its rows straight to HBM, coalesced.
+// CTAs also write the `out_slack` trailing sentinels, so passes chain with
+// no copy.
+//
+// The partition. The TPU kernel takes each node's co-rank from a nested
+// binary search on the host (`_stream_meta_one`): (log n)^L work and
+// (log n)^(L-1) dependent loads. K8 finds the same numbers another way. The
+// nested merges order a node's elements by key (with rank on KV lanes),
+// then by leaf DESCENDING (ties go to the right child at every level), then
+// by position, a strict total order. Under it the rank of element p of leaf
+// j within a node is p plus, for every other leaf j' of the node, the count
 // of its elements that precede it: one binary search per leaf j', all
-// independent. The count of leaf j among the node's top-a is then the
-// largest p whose element p-1 ranks below a. A node's co-rank is the sum
-// of its left leaves' counts; its children's aligned offsets follow, and
-// the next level repeats with them. Each level runs every leaf's search at
-// once, one team of threads per leaf searching (tpl + 1)-ary over the
-// leaf's positions (tpl threads, sub-warp ballots). Below the root a
-// leaf's count lies within w - 1 under its count at the parent, so those
-// searches take two or three rounds instead of five. Dependent loads:
-// about (5 + 2 (L - 1)) rounds x 21 steps at runs of 2^20.
-//
-// The dataflow. The same windowed FLiMS dataflows as K4 (`merge_stream`)
-// in post-order, leaves read in place (rows past a run's end read as
-// sentinels in registers), inner nodes streamed through shared memory and
-// only the root written, straight to the block's flat offset. Whole leaf
-// windows are not staged: at the default plan (C = 4096, w = 128, L = 3)
-// they would take 148 KiB key-only and 296 KiB on KV lanes. Inner-node
-// streams take two slots per depth, reused across subtrees (a subtree's
-// streams are dead once its root's stream is produced): 2 (L - 1) slots
-// instead of K4's 2^L - 2, which is what lets L = 4 fit on KV lanes.
-//
-// CTAs past the last block write the `out_slack` trailing sentinels.
-//
-// Bound: device memory. Each element is read once per pass and written
-// once; the partition's searches read a few hundred elements per CTA.
+// independent. The count of leaf j among the node's top-a is the largest p
+// whose element p-1 ranks below a. A node's co-rank is the sum of its left
+// leaves' counts; its children's aligned offsets follow, and the next level
+// repeats with them, one warp per leaf searching 33-ary over its positions.
+// Below the root a leaf's count lies within w - 1 under its count at the
+// parent, so those searches take two or three rounds instead of five.
 #include "flims.cuh"
 
 namespace flims {
@@ -164,179 +189,428 @@ __device__ void partition(const Leaves<T, KV>& lv, long long o, int w, int* rot,
   }
 }
 
-template <typename T, bool KV> struct StreamCtx {
-  Leaves<T, KV> lv;
-  const int* rot;
-  const int* base;
-  T* nk;  // inner-node slots: two per depth 1 .. L-1
-  int32_t* nr;
-  T* xk;  // butterfly exchange
-  int32_t* xr;
-  T* ok;  // root output (the block's flat offset)
-  int32_t* orr;
-  int C, w;
+// Rows per FIFO ring, inner-node and leaf edges alike. A node's cycle takes
+// several hundred SM clocks, so four leaf rows in flight cover HBM latency.
+constexpr int kRingRows = 4;
+
+// Per-edge stop handshake (edge c = the child's heap index). When a parent
+// has taken its last row it sets stop[c]; the child then gives no more rows,
+// publishes how many it gave over the CTA's life in given[c] and sets
+// done[c]; the parent releases the rows it did not read. A child gives at
+// most kRingRows + 1 rows past the parent's need, where the per-block kernel
+// produced every row a worst-case split could need (R + d at depth d, of
+// which about R / 2^d are read).
+struct Handshake {
+  volatile int stop[2 * kMaxGroup];
+  volatile int done[2 * kMaxGroup];
+  volatile uint32_t given[2 * kMaxGroup];
 };
 
-// Element offset of the slot of the node at `depth` on `side` (0 left, 1
-// right): a node at depth d produces C/w + d rows.
-__host__ __device__ inline long long slot_offset(int depth, int side, int C, int w) {
-  long long off = 0;
-  for (int e = 1; e < depth; ++e) off += 2LL * (C / w + e) * w;
-  return off + (long long)side * (C / w + depth) * w;
+// One FIFO edge from a child (inner node or leaf) to its parent: a ring of
+// kRingRows rows of w lanes, slot s guarded by full[s] (the child has
+// written it) and empty[s] (the parent has read it). Row q of the edge's
+// life lies in slot q % kRingRows and completes the barriers' phase
+// q / kRingRows.
+template <typename T, bool KV> struct Fifo {
+  T* k;
+  int32_t* r;
+  uint64_t* full;
+  uint64_t* empty;
+  __device__ static int slot(uint32_t q) { return (int)(q % kRingRows); }
+  __device__ static uint32_t parity(uint32_t q) { return (q / kRingRows) & 1u; }
+};
+
+// A parent's read side of edge c. Rows are taken in order, each once: row
+// `taken` of this span is real if below `limit` (the rows a per-block
+// restart would see: a child's R + d + 1, a leaf's rows before its run's
+// end) and the fill lane (last key, INVALID_RANK) otherwise. `rev` reads
+// column w-1-i into lane i (side B).
+template <typename T, bool KV, bool DESC, int M> struct Source {
+  Fifo<T, KV> f;
+  uint32_t q;  // rows taken from the ring over the CTA's life
+  int taken, limit, w, c;
+  bool rev;
+  __device__ void release(int s) {
+    __syncwarp();
+    if ((threadIdx.x & 31) == 0) mbar_arrive(&f.empty[s]);
+    ++q;
+  }
+  __device__ void next(Lane<T> (&x)[M]) {
+    const int lane = threadIdx.x & 31;
+    if (taken < limit) {
+      const int s = f.slot(q);
+      mbar_wait(&f.full[s], f.parity(q));
+      const T* rk = f.k + (size_t)s * w;
+      const int32_t* rr = KV ? f.r + (size_t)s * w : nullptr;
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int i = lane + 32 * m, col = rev ? w - 1 - i : i;
+        if (i < w) {
+          x[m].k = rk[col];
+          x[m].r = KV ? rr[col] : 0;
+        }
+      }
+      release(s);
+    } else {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        x[m].k = last_key<T, DESC>();
+        x[m].r = kInvalidRank;
+      }
+    }
+    ++taken;
+  }
+  // stop the child, then release the rows it gave that were not read, so
+  // the edge starts the next span empty
+  __device__ void finish(Handshake& hs) {
+    if ((threadIdx.x & 31) == 0) hs.stop[c] = 1;
+    while (!hs.done[c]) {
+    }
+    __threadfence_block();
+    const uint32_t end = hs.given[c];
+    while (q != end) {
+      mbar_wait(&f.full[f.slot(q)], f.parity(q));
+      release(f.slot(q));
+    }
+  }
+};
+
+// A child's publication of what it gave, once it stops.
+__device__ __forceinline__ void give_up(Handshake& hs, int c, uint32_t given) {
+  if ((threadIdx.x & 31) == 0) {
+    hs.given[c] = given;
+    __threadfence_block();
+    hs.done[c] = 1;
+  }
 }
 
-// Post-order production of heap node h at `depth`, spanning SPAN leaves.
-template <int SPAN, int GROUP, typename T, bool KV, bool DESC>
-__device__ void sproduce(const StreamCtx<T, KV>& cx, int h, int depth) {
-  constexpr int H = SPAN / 2;
-  const int w = cx.w, C = cx.C;
-  if constexpr (H > 1) {
-    sproduce<H, GROUP, T, KV, DESC>(cx, 2 * h, depth + 1);
-    sproduce<H, GROUP, T, KV, DESC>(cx, 2 * h + 1, depth + 1);
-    __syncthreads();
-  }
-  auto child_stream = [&](int side) {
-    const long long so = slot_offset(depth + 1, side, C, w);
-    return StreamReader<T, KV, DESC>{cx.nk + so, KV ? cx.nr + so : nullptr, C / w + depth + 1,
-                                     w};
-  };
-  auto leaf = [&](int j) {
-    return RunReader<T, KV, DESC>{cx.lv.k, cx.lv.r,
-                                  cx.lv.leaf0 + (long long)j * cx.lv.run_len,
-                                  cx.lv.run_len, cx.base[j], w};
-  };
-  const int lA = cx.rot[2 * h], lB = cx.rot[2 * h + 1];
-  auto run = [&](auto write, int cycles) {
-    if constexpr (H == 1)
-      merge_stream<T, KV, DESC, false>(leaf(2 * h - GROUP), leaf(2 * h + 1 - GROUP), lA, lB,
-                                       cycles, write, w, cx.xk, cx.xr);
-    else
-      merge_stream<T, KV, DESC, false>(child_stream(0), child_stream(1), lA, lB, cycles, write,
-                                       w, cx.xk, cx.xr);
-  };
-  if (depth == 0) {
-    run([&](int t, int c, const Lane<T>& v) {
-      cx.ok[t * w + c] = v.k;
-      if (KV) cx.orr[t * w + c] = v.r;
-    }, C / w);
-  } else {
-    const long long so = slot_offset(depth, h & 1, C, w);
-    T* sk = cx.nk + so;
-    int32_t* sr = KV ? cx.nr + so : nullptr;
-    run([&](int t, int c, const Lane<T>& v) {
-      sk[t * w + c] = v.k;
-      if (KV) sr[t * w + c] = v.r;
-    }, C / w + depth);
+// Heap node h's dataflow over one span: up to `cycles` chunks from sides A
+// (left child) and B (right child) at rotations lA, lB, each chunk handed
+// to put(t, v), which returns false once the parent wants no more. The
+// selector, the butterfly and the window advance are `merge_stream`'s, run
+// by one warp: the take count k is a ballot sum and every branch on it is
+// uniform across the warp. Row rA (rB) of a side is taken once, right after
+// the window advances past row rA - 1.
+template <typename T, bool KV, bool DESC, int M, class Put>
+__device__ void node_stream(Source<T, KV, DESC, M>& A, Source<T, KV, DESC, M>& B, int lA, int lB,
+                            int cycles, int w, Put put) {
+  const int lane = threadIdx.x & 31;
+  Lane<T> a0[M], a1[M], na[M], b0[M], b1[M], nb[M];
+  A.next(a0); A.next(a1); A.next(na);
+  B.next(b0); B.next(b1); B.next(nb);
+  for (int t = 0; t < cycles; ++t) {
+    Lane<T> v[M];
+    int k = 0;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      const int i = lane + 32 * m, j = w - 1 - i;
+      const Lane<T> ca = pick(i < lA, a1[m], a0[m]);
+      const Lane<T> cb = pick(j < lB, b1[m], b0[m]);
+      const bool take = (i < w) & wins<T, KV, DESC>(ca, cb);
+      v[m] = pick(take, ca, cb);
+      k += __popc(__ballot_sync(kFullWarp, take));
+    }
+    warp_butterfly<T, KV, DESC, M>(v, w);
+    if (!put(t, v)) return;
+    int l2 = lA + k;
+    if (l2 >= w) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) { a0[m] = a1[m]; a1[m] = na[m]; }
+      lA = l2 - w;
+      A.next(na);
+    } else {
+      lA = l2;
+    }
+    l2 = lB + (w - k);
+    if (l2 >= w) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) { b0[m] = b1[m]; b1[m] = nb[m]; }
+      lB = l2 - w;
+      B.next(nb);
+    } else {
+      lB = l2;
+    }
   }
 }
 
-template <typename T, bool KV, bool DESC, int L>
-__global__ void stream_merge_kernel(const T* __restrict__ buf, const int32_t* __restrict__ rbuf,
-                                    T* __restrict__ out, int32_t* __restrict__ out_r,
-                                    long long n_val, long long n_out, int run_len, int C, int w,
-                                    int G, long long slots) {
+// Shared-memory layout, in bytes from the dynamic base: full barriers
+// [edge c][slot], empty barriers alike (edges c = 2 .. 2^(L+1) - 1, the heap
+// index of the child), then the key rings and, on KV lanes, the rank rings.
+__host__ __device__ inline size_t bar_bytes(int L) {
+  return ((size_t)2 * (2 << L) * kRingRows * sizeof(uint64_t) + 127) / 128 * 128;
+}
+__host__ __device__ inline int ring_rows(int L) { return ((2 << L) - 2) * kRingRows; }
+
+size_t stream_smem_bytes(int L, int kv, int key_bytes, int w) {
+  return bar_bytes(L) + (size_t)ring_rows(L) * w * (key_bytes + (kv ? 4 : 0));
+}
+
+// Grid: persistent CTAs of 2^L warps. Warps 0 .. 2^L - 2 run heap nodes
+// 1 .. 2^L - 1 (node h at depth floor(log2 h)); the last warp is the leaf
+// producer, lane j feeding leaf j. A CTA takes spans sp = blockIdx.x,
+// += gridDim.x, of groups * spg.
+template <typename T, bool KV, bool DESC, int L, int M>
+__global__ void __launch_bounds__(32 << L)
+    stream_merge_kernel(const T* __restrict__ buf, const int32_t* __restrict__ rbuf,
+                        T* __restrict__ out, int32_t* __restrict__ out_r, long long n_val,
+                        long long n_out, int run_len, int C, int w, int groups, int spg) {
   constexpr int GROUP = 1 << L;
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(128) unsigned char smem[];
   __shared__ long long s_off[2 * kMaxGroup];
   __shared__ int s_cnt[kMaxGroup], s_rot[2 * kMaxGroup], s_base[kMaxGroup];
-  const int threads = blockDim.x;
-  const int g = blockIdx.x;
-  if (g >= G) {  // the trailing out_slack sentinels
-    for (long long p = n_val + (long long)(g - G) * C + threadIdx.x;
-         p < n_out && p < n_val + (long long)(g - G + 1) * C; p += threads) {
-      out[p] = last_key<T, DESC>();
-      if (KV) out_r[p] = kInvalidRank;
-    }
-    return;
+  __shared__ Handshake hs;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // the out_slack trailing sentinels
+  for (long long p = n_val + (long long)blockIdx.x * blockDim.x + tid; p < n_out;
+       p += (long long)gridDim.x * blockDim.x) {
+    out[p] = last_key<T, DESC>();
+    if (KV) out_r[p] = kInvalidRank;
   }
-  T* xk = reinterpret_cast<T*>(smem);
-  int32_t* xr = reinterpret_cast<int32_t*>(xk + threads);
-  T* nk = reinterpret_cast<T*>(xr + (KV ? threads : 0));
-  int32_t* nr = reinterpret_cast<int32_t*>(nk + slots);
+
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + (2 << L) * kRingRows;
+  T* ring_k = reinterpret_cast<T*>(smem + bar_bytes(L));
+  int32_t* ring_r = reinterpret_cast<int32_t*>(ring_k + (size_t)ring_rows(L) * w);
+  auto fifo = [&](int c) {
+    const size_t o = (size_t)(c - 2) * kRingRows * w;
+    return Fifo<T, KV>{ring_k + o, KV ? ring_r + o : nullptr, full + c * kRingRows,
+                       empty + c * kRingRows};
+  };
+  if (tid < 2 * GROUP && tid >= 2) {
+    const Fifo<T, KV> f = fifo(tid);
+    for (int s = 0; s < kRingRows; ++s) {
+      mbar_init(&f.full[s], 1);
+      mbar_init(&f.empty[s], 1);
+    }
+  }
+  mbar_init_fence();
+  __syncthreads();
 
   const long long glen = (long long)GROUP * run_len;
   const int bpg = (int)(glen / C);
-  const long long grp = g / bpg;
-  const long long o = (long long)(g % bpg) * C;
-  Leaves<T, KV> lv{buf, rbuf, grp * glen, run_len};
-  partition<T, KV, DESC, L>(lv, o, w, s_rot, s_base, s_off, s_cnt);
+  const int h = warp + 1, depth = 31 - __clz(h);
+  const bool producer = warp == GROUP - 1;
+  // rows taken or given over the CTA's life, per edge this warp touches
+  uint32_t q_in[2] = {0, 0}, q_out = 0;
 
-  StreamCtx<T, KV> cx{lv, s_rot, s_base, nk, nr, xk, xr,
-                      out + grp * glen + o, KV ? out_r + grp * glen + o : nullptr, C, w};
-  sproduce<GROUP, GROUP, T, KV, DESC>(cx, 1, 0);
+  for (int sp = blockIdx.x; sp < groups * spg; sp += gridDim.x) {
+    const int grp = sp / spg, s = sp % spg;
+    const int blk0 = (int)((long long)s * bpg / spg), blk1 = (int)((long long)(s + 1) * bpg / spg);
+    const long long o = (long long)blk0 * C;
+    const int rows = (int)((long long)(blk1 - blk0) * C / w);  // root rows of the span
+    const Leaves<T, KV> lv{buf, rbuf, grp * glen, run_len};
+    __syncthreads();  // every warp is done with the previous span
+    if (tid < 2 * GROUP) {
+      hs.stop[tid] = 0;
+      hs.done[tid] = 0;
+    }
+    partition<T, KV, DESC, L>(lv, o, w, s_rot, s_base, s_off, s_cnt);
+
+    // rows leaf j can give: those before its run's end, at most the R + L + 2
+    // its depth-(L - 1) parent can take in R + L - 1 cycles
+    auto leaf_rows = [&](int j) { return min(rows + L + 2, (run_len - s_base[j]) / w); };
+    if (producer) {
+      // lane j feeds leaf j until its rows run out or its parent stops it
+      const bool mine = lane < GROUP;
+      const int j = mine ? lane : 0, c = GROUP + j;
+      const Fifo<T, KV> f = fifo(c);
+      const int n = mine ? leaf_rows(j) : 0;
+      const long long src = lv.leaf0 + (long long)j * run_len + (mine ? s_base[j] : 0);
+      const uint32_t bytes = (uint32_t)(w * sizeof(T)), rbytes = (uint32_t)(w * 4);
+      int r = 0;
+      bool live = mine;
+      while (__any_sync(kFullWarp, live)) {
+        bool moved = false;
+        if (live && (r == n || hs.stop[c])) {
+          hs.given[c] = q_out;
+          __threadfence_block();
+          hs.done[c] = 1;
+          live = false;
+        } else if (live && mbar_test(&f.empty[f.slot(q_out)], f.parity(q_out) ^ 1u)) {
+          const int sl = f.slot(q_out);
+          mbar_arrive_tx(&f.full[sl], bytes + (KV ? rbytes : 0));
+          bulk_load(f.k + (size_t)sl * w, buf + src + (long long)r * w, bytes, &f.full[sl]);
+          if (KV)
+            bulk_load(f.r + (size_t)sl * w, rbuf + src + (long long)r * w, rbytes, &f.full[sl]);
+          ++q_out;
+          ++r;
+          moved = true;
+        }
+        if (!__any_sync(kFullWarp, moved)) __nanosleep(32);
+      }
+      continue;
+    }
+
+    // node h: its two edges, then its output
+    Source<T, KV, DESC, M> side[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = 2 * h + e;
+      side[e] = Source<T, KV, DESC, M>{fifo(c), q_in[e], 0,
+                                       c >= GROUP ? leaf_rows(c - GROUP) : rows + depth + 1, w,
+                                       c, e == 1};
+    }
+    const int lA = s_rot[2 * h], lB = s_rot[2 * h + 1];
+    if (depth == 0) {
+      T* ok = out + grp * glen + o;
+      int32_t* orr = KV ? out_r + grp * glen + o : nullptr;
+      node_stream<T, KV, DESC, M>(side[0], side[1], lA, lB, rows, w,
+                                  [&](int t, const Lane<T>(&v)[M]) {
+#pragma unroll
+                                    for (int m = 0; m < M; ++m) {
+                                      const int i = lane + 32 * m;
+                                      if (i < w) {
+                                        ok[(long long)t * w + i] = v[m].k;
+                                        if (KV) orr[(long long)t * w + i] = v[m].r;
+                                      }
+                                    }
+                                    return true;
+                                  });
+    } else {
+      // a row goes into the parent's ring once a slot is free, unless the
+      // parent has stopped this node
+      const Fifo<T, KV> f = fifo(h);
+      node_stream<T, KV, DESC, M>(side[0], side[1], lA, lB, rows + depth, w,
+                                  [&](int, const Lane<T>(&v)[M]) {
+                                    const int sl = f.slot(q_out);
+                                    const uint32_t par = f.parity(q_out) ^ 1u;
+                                    while (true) {
+                                      if (__any_sync(kFullWarp, hs.stop[h] != 0)) return false;
+                                      if (__all_sync(kFullWarp, mbar_try(&f.empty[sl], par)))
+                                        break;
+                                    }
+                                    T* rk = f.k + (size_t)sl * w;
+                                    int32_t* rr = KV ? f.r + (size_t)sl * w : nullptr;
+#pragma unroll
+                                    for (int m = 0; m < M; ++m) {
+                                      const int i = lane + 32 * m;
+                                      if (i < w) {
+                                        rk[i] = v[m].k;
+                                        if (KV) rr[i] = v[m].r;
+                                      }
+                                    }
+                                    __syncwarp();
+                                    if (lane == 0) mbar_arrive(&f.full[sl]);
+                                    ++q_out;
+                                    return true;
+                                  });
+      give_up(hs, h, q_out);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      side[e].finish(hs);
+      q_in[e] = side[e].q;
+    }
+  }
 }
 
-constexpr size_t kStaticSmem = sizeof(long long) * 2 * kMaxGroup + sizeof(int) * 4 * kMaxGroup;
-
-size_t stream_smem_bytes(int L, int kv, int key_bytes, int C, int w, long long* slots) {
-  const int threads = w < 32 ? 32 : w;
-  *slots = slot_offset(L, 0, C, w);  // everything below depth L
-  const size_t lane = key_bytes + (kv ? 4 : 0);
-  return (size_t)threads * lane + (size_t)(*slots) * lane;
+template <typename T, bool KV, bool DESC, int L, int M>
+static cudaError_t prepare(size_t smem) {
+  return allow_smem(stream_merge_kernel<T, KV, DESC, L, M>, smem);
 }
 
-template <typename T, bool KV, bool DESC, int L>
-static cudaError_t launch(const void* buf, const void* rbuf, void* out, void* out_r,
-                          long long n_val, long long n_out, int run_len, int C, int w, int G,
-                          cudaStream_t st) {
-  long long slots = 0;
-  const size_t smem = stream_smem_bytes(L, KV, sizeof(T), C, w, &slots);
-  auto kern = stream_merge_kernel<T, KV, DESC, L>;
-  cudaError_t e = allow_smem(kern, smem);
+// CTAs of the kernel an SM holds at once.
+template <typename T, bool KV, bool DESC, int L, int M>
+static cudaError_t occupancy(int w, int* per_sm) {
+  const size_t smem = stream_smem_bytes(L, KV, sizeof(T), w);
+  cudaError_t e = prepare<T, KV, DESC, L, M>(smem);
   if (e != cudaSuccess) return e;
-  const int threads = w < 32 ? 32 : w;
-  const long long tail = (n_out - n_val + C - 1) / C;
-  kern<<<(unsigned)(G + tail), threads, smem, st>>>((const T*)buf, (const int32_t*)rbuf,
-                                                   (T*)out, (int32_t*)out_r, n_val, n_out,
-                                                   run_len, C, w, G, slots);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, stream_merge_kernel<T, KV, DESC, L, M>, 32 << L, smem);
+}
+
+template <typename T, bool KV, bool DESC, int L, int M>
+static cudaError_t launch(const void* buf, const void* rbuf, void* out, void* out_r,
+                          long long n_val, long long n_out, int run_len, int C, int w,
+                          int groups, int spg, int grid, cudaStream_t st) {
+  const size_t smem = stream_smem_bytes(L, KV, sizeof(T), w);
+  cudaError_t e = prepare<T, KV, DESC, L, M>(smem);
+  if (e != cudaSuccess) return e;
+  stream_merge_kernel<T, KV, DESC, L, M><<<(unsigned)grid, 32 << L, smem, st>>>(
+      (const T*)buf, (const int32_t*)rbuf, (T*)out, (int32_t*)out_r, n_val, n_out, run_len, C, w,
+      groups, spg);
   return cudaGetLastError();
 }
 
+// The instantiation for (L, w): M = w/32 lanes per thread (1 below 32).
+struct Args {
+  const void *buf, *rbuf;
+  void *out, *out_r;
+  long long n_val, n_out;
+  int run_len, C, w, groups, spg, grid;
+  cudaStream_t st;
+  int* per_sm;  // set: report occupancy instead of launching
+};
+
+template <typename T, bool KV, bool DESC, int L, int M>
+static cudaError_t run(const Args& a) {
+  if (a.per_sm) return occupancy<T, KV, DESC, L, M>(a.w, a.per_sm);
+  return launch<T, KV, DESC, L, M>(a.buf, a.rbuf, a.out, a.out_r, a.n_val, a.n_out, a.run_len,
+                                   a.C, a.w, a.groups, a.spg, a.grid, a.st);
+}
+
+template <typename T, bool KV, bool DESC, int L>
+static cudaError_t by_width(const Args& a) {
+  if (a.w <= 32) return run<T, KV, DESC, L, 1>(a);
+  if (a.w == 64) return run<T, KV, DESC, L, 2>(a);
+  return run<T, KV, DESC, L, 4>(a);
+}
+
 template <typename T, bool KV, bool DESC>
-static cudaError_t by_level(int L, const void* buf, const void* rbuf, void* out, void* out_r,
-                            long long n_val, long long n_out, int run_len, int C, int w, int G,
-                            cudaStream_t st) {
+static cudaError_t by_level(int L, const Args& a) {
   switch (L) {
-    case 1: return launch<T, KV, DESC, 1>(buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-    case 2: return launch<T, KV, DESC, 2>(buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-    case 3: return launch<T, KV, DESC, 3>(buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-    case 4: return launch<T, KV, DESC, 4>(buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
+    case 1: return by_width<T, KV, DESC, 1>(a);
+    case 2: return by_width<T, KV, DESC, 2>(a);
+    case 3: return by_width<T, KV, DESC, 3>(a);
+    case 4: return by_width<T, KV, DESC, 4>(a);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-static cudaError_t dispatch(int kv, int desc, int L, const void* buf, const void* rbuf,
-                            void* out, void* out_r, long long n_val, long long n_out,
-                            int run_len, int C, int w, int G, cudaStream_t st) {
-  if (!kv && desc) return by_level<T, false, true>(L, buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-  if (kv && desc) return by_level<T, true, true>(L, buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-  if (kv && !desc) return by_level<T, true, false>(L, buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G, st);
-  return cudaErrorInvalidValue;  // key-only lanes merge descending only
+static cudaError_t dispatch(int dtype, int kv, int desc, int L, const Args& a) {
+  if (a.w < 8 || a.w > 128 || (a.w & (a.w - 1)) || L < 1 || L > 4) return cudaErrorInvalidValue;
+  if (dtype != kInt32 && dtype != kFloat32) return cudaErrorInvalidValue;
+  if (!kv && !desc) return cudaErrorInvalidValue;  // key-only lanes merge descending only
+  if (dtype == kInt32) {
+    if (!kv) return by_level<int32_t, false, true>(L, a);
+    return desc ? by_level<int32_t, true, true>(L, a) : by_level<int32_t, true, false>(L, a);
+  }
+  if (!kv) return by_level<float, false, true>(L, a);
+  return desc ? by_level<float, true, true>(L, a) : by_level<float, true, false>(L, a);
 }
+
+constexpr size_t kStaticSmem =
+    sizeof(long long) * 2 * kMaxGroup + sizeof(int) * 4 * kMaxGroup + sizeof(Handshake);
 
 }  // namespace flims
 
-extern "C" unsigned long long flims_stream_merge_smem(int L, int kv, int key_bytes, int C,
-                                                     int w) {
-  long long slots = 0;
-  return flims::stream_smem_bytes(L, kv, key_bytes, C, w, &slots) + flims::kStaticSmem;
+extern "C" unsigned long long flims_stream_merge_smem(int L, int kv, int key_bytes, int w) {
+  return flims::stream_smem_bytes(L, kv, key_bytes, w) + flims::kStaticSmem;
 }
 
+// CTAs per SM the kernel for (dtype, kv, desc, L, w) reaches, or a negative
+// CUDA error.
+extern "C" int flims_stream_merge_occupancy(int dtype, int kv, int desc, int L, int w) {
+  int per_sm = 0;
+  flims::Args a{};
+  a.w = w;
+  a.per_sm = &per_sm;
+  const cudaError_t e = flims::dispatch(dtype, kv, desc, L, a);
+  return e == cudaSuccess ? per_sm : -(int)e;
+}
+
+// One pass: `groups` = runs / 2^L groups of C-blocks, `spg` spans per group,
+// `grid` persistent CTAs.
 extern "C" int flims_stream_merge(int dtype, int kv, int desc, int L, const void* buf,
                                   const void* rbuf, void* out, void* out_r, long long n_val,
-                                  long long n_out, int run_len, int C, int w, int G,
-                                  void* stream) {
-  using namespace flims;
-  if (w < 1 || w > 1024 || (w & (w - 1)) || C < w || C % w || run_len < w || run_len % w ||
-      G <= 0 || L < 1 || L > 4 || n_out < n_val || ((long long)run_len << L) % C)
+                                  long long n_out, int run_len, int C, int w, int groups,
+                                  int spg, int grid, void* stream) {
+  const long long glen = (long long)run_len << L;
+  if (C < w || C % w || run_len < w || run_len % w || groups <= 0 || glen % C || n_out < n_val ||
+      n_val != glen * groups || spg < 1 || spg > glen / C || grid < 1)
     return cudaErrorInvalidValue;
-  auto st = (cudaStream_t)stream;
-  if (dtype == kInt32)
-    return dispatch<int32_t>(kv, desc, L, buf, rbuf, out, out_r, n_val, n_out, run_len, C, w,
-                             G, st);
-  if (dtype == kFloat32)
-    return dispatch<float>(kv, desc, L, buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, G,
-                           st);
-  return cudaErrorInvalidValue;
+  flims::Args a{buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, groups, spg, grid,
+                (cudaStream_t)stream, nullptr};
+  return flims::dispatch(dtype, kv, desc, L, a);
 }

@@ -21,9 +21,13 @@ copy.
 for a CPU tensor; the ``*_plain`` twins run it on any device. The plain
 version repeats the TPU kernel's arithmetic vectorised over grid steps: the
 nested partition of ``_stream_meta_one`` (``merge_tree._tree_meta``), the
-windowed leaf readers, and ``dataflow`` per tree node. The CUDA kernel
-finds the same partition another way (see its header) and reads the leaves
-in place.
+windowed leaf readers, and ``dataflow`` per tree node. The CUDA kernel is a
+persistent streaming merge tree (see its header): ``ctas`` CTAs, each
+group split into spans of consecutive blocks (:func:`stream_spans`), one
+partition per span and the tree streamed to the span's end through
+shared-memory FIFOs (:func:`stream_smem`). Its output does not depend on
+the split, which is why the plain version, one block at a time, is its
+reference.
 """
 from __future__ import annotations
 
@@ -38,6 +42,16 @@ from repro_torch.kernels.merge_tree import (MAX_SMEM, _node_index,
 
 #: fan-in 2^L up to 16 (the JAX planner's autotune grid reaches 16)
 MAX_LEVELS = 4
+#: the CUDA kernel's FLiMS widths: the planner's range, one warp per node
+W_MIN, W_MAX = 8, 128
+#: rows per shared-memory FIFO ring (one per tree edge, inner and leaf), as
+#: ``csrc/stream_merge.cu`` lays them out
+RING_ROWS = 4
+#: the kernel's static shared memory: partition scratch and the per-edge
+#: stop handshake
+STATIC_SMEM = 8 * 2 * 16 + 4 * 4 * 16 + 3 * 4 * 2 * 16
+
+_per_sm: dict = {}
 
 
 def _block(block_out: int, run_len: int, fan_in: int, w: int) -> int:
@@ -117,31 +131,84 @@ def _stream_plain(buf, rbuf, *, runs, run_len, fan_in, w, C, descending):
     return tuple(x[:, :C].reshape(-1) for x in out)
 
 
+def stream_smem(L: int, kv: bool, key_bytes: int, w: int) -> int:
+    """Shared memory of one CTA of the CUDA kernel: full and empty mbarriers
+    per (edge, slot), 128-aligned, then ``2^(L+1) - 2`` rings (one per tree
+    edge) of ``RING_ROWS`` rows of ``w`` lanes, and the static scratch. It
+    does not depend on the output block."""
+    edges = (2 << L) - 2
+    bars = -(-2 * (2 << L) * RING_ROWS * 8 // 128) * 128
+    return bars + edges * RING_ROWS * w * (key_bytes + (4 if kv else 0)) + \
+        STATIC_SMEM
+
+
+def stream_spans(groups: int, bpg: int, ctas: int) -> int:
+    """Spans per group for ``ctas`` persistent CTAs over ``groups`` groups
+    of ``bpg`` blocks: as many as the CTAs allow, one block at least each;
+    with fewer CTAs than groups each group is one span and CTAs take
+    several."""
+    return max(1, min(bpg, ctas // groups))
+
+
+def span_blocks(groups: int, bpg: int, spg: int):
+    """``(group, first block, end block)`` of every span, in the kernel's
+    order: span ``s`` of a group covers blocks ``[s bpg // spg, (s + 1)
+    bpg // spg)``."""
+    return [(g, s * bpg // spg, (s + 1) * bpg // spg)
+            for g in range(groups) for s in range(spg)]
+
+
+def _resident_ctas(code: int, kv: bool, descending: bool, L: int, w: int,
+                   device) -> int:
+    """CTAs the card holds at once: SMs times the kernel's occupancy at its
+    shared memory."""
+    key = (code, kv, descending, L, w, torch.device(device).index)
+    if key not in _per_sm:
+        per_sm = _build.library().flims_stream_merge_occupancy(
+            code, int(kv), int(descending), L, w)
+        if per_sm <= 0:
+            raise _build.KernelError(
+                f"stream_merge: occupancy query failed ({per_sm}) at L={L}, "
+                f"w={w}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _per_sm[key] = per_sm * sms
+    return _per_sm[key]
+
+
 def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
-                 descending):
+                 descending, ctas):
     kv = rbuf is not None
     L = fan_in.bit_length() - 1
     _build.check_cuda(name, buf, rbuf)
     code = _build.dtype_code(name, buf.dtype)
-    smem = _build.library().flims_stream_merge_smem(L, int(kv),
-                                                    buf.element_size(), C, w)
+    if not W_MIN <= w <= W_MAX:
+        raise _build.KernelError(
+            f"{name}: the CUDA kernel runs one warp per tree node at w in "
+            f"[{W_MIN}, {W_MAX}], got w={w}")
+    smem = stream_smem(L, kv, buf.element_size(), w)
     if smem > MAX_SMEM:
         raise _build.KernelError(
-            f"{name}: {smem} bytes of shared memory at L={L}, C={C}, w={w} "
-            f"pass the card's {MAX_SMEM}; lower block_out or fan_in")
+            f"{name}: {smem} bytes of shared memory at L={L}, w={w} pass "
+            f"the card's {MAX_SMEM}; lower w or fan_in")
+    # leaf rows go by 16-byte bulk copies from the buffers' bases
+    buf, rbuf = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
+                 for x in (buf, rbuf))
     out = torch.empty(n_out, dtype=buf.dtype, device=buf.device)
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
-    G = runs // fan_in * (fan_in * run_len // C)
+    groups, bpg = runs // fan_in, fan_in * run_len // C
+    ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
+    spg = stream_spans(groups, bpg, ctas)
     P = _build.ptr
     _build.launch(name, "flims_stream_merge", code, int(kv), int(descending),
                   L, P(buf), P(rbuf), P(out), P(out_r), runs * run_len, n_out,
-                  run_len, C, w, G, _build.stream(buf.device))
+                  run_len, C, w, groups, spg, min(ctas, groups * spg),
+                  _build.stream(buf.device))
     return (out,) if not kv else (out, out_r)
 
 
 def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
-                 out_slack, descending, cuda):
+                 out_slack, descending, cuda, ctas=0):
     kv = ranks is not None
     L = fan_in.bit_length() - 1
     if fan_in < 2 or fan_in & (fan_in - 1) or L > MAX_LEVELS:
@@ -171,7 +238,7 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
     if cuda:
         return _stream_cuda(name, buf, ranks, runs=runs, run_len=run_len,
                             fan_in=fan_in, w=w, C=C, n_out=n_val + out_slack,
-                            descending=descending)
+                            descending=descending, ctas=ctas)
     out = _stream_plain(buf, ranks, runs=runs, run_len=run_len,
                         fan_in=fan_in, w=w, C=C, descending=descending)
     if not out_slack:
@@ -184,21 +251,24 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
 @obs.scoped("kernels.stream_merge")
 def stream_merge_runs(buf, *, runs: int, run_len: int, fan_in: int,
                       w: int = 32, block_out: int = 1024,
-                      out_slack: int = 0):
+                      out_slack: int = 0, ctas: int = 0):
     """Merge consecutive groups of ``fan_in = 2^L`` descending runs of
     uniform ``run_len`` (``buf`` their flat concatenation) in one launch.
     Returns a flat buffer whose ``[:runs * run_len]`` prefix is the merged
-    groups in group order, followed by ``out_slack`` sentinel elements."""
+    groups in group order, followed by ``out_slack`` sentinel elements.
+    ``ctas`` forces the CUDA kernel's CTA count (0: as many as the card
+    holds at once); the result does not depend on it."""
     return _stream_call("stream_merge_runs", buf, None, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
-                        descending=True, cuda=buf.is_cuda)[0]
+                        descending=True, cuda=buf.is_cuda, ctas=ctas)[0]
 
 
 def stream_merge_runs_plain(buf, *, runs: int, run_len: int, fan_in: int,
                             w: int = 32, block_out: int = 1024,
-                            out_slack: int = 0):
-    """``stream_merge_runs``' plain version, on any device."""
+                            out_slack: int = 0, ctas: int = 0):
+    """``stream_merge_runs``' plain version, on any device (``ctas`` is
+    accepted and has no effect)."""
     return _stream_call("stream_merge_runs", buf, None, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
@@ -208,21 +278,23 @@ def stream_merge_runs_plain(buf, *, runs: int, run_len: int, fan_in: int,
 @obs.scoped("kernels.stream_merge_kv")
 def stream_merge_runs_kv(buf, ranks, *, runs: int, run_len: int,
                          fan_in: int, w: int = 32, block_out: int = 1024,
-                         out_slack: int = 0, descending: bool = True):
+                         out_slack: int = 0, descending: bool = True,
+                         ctas: int = 0):
     """Stable KV form of ``stream_merge_runs``: int32 rank lanes ride the
     same windows and the tree compares the compound (key, rank) order,
     either direction natively. Returns ``(keys, ranks)``."""
     return _stream_call("stream_merge_runs_kv", buf, ranks, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
-                        descending=descending, cuda=buf.is_cuda)
+                        descending=descending, cuda=buf.is_cuda, ctas=ctas)
 
 
 def stream_merge_runs_kv_plain(buf, ranks, *, runs: int, run_len: int,
                                fan_in: int, w: int = 32,
                                block_out: int = 1024, out_slack: int = 0,
-                               descending: bool = True):
-    """``stream_merge_runs_kv``' plain version, on any device."""
+                               descending: bool = True, ctas: int = 0):
+    """``stream_merge_runs_kv``' plain version, on any device (``ctas`` is
+    accepted and has no effect)."""
     return _stream_call("stream_merge_runs_kv", buf, ranks, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,

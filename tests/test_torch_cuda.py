@@ -321,20 +321,79 @@ def test_stream_kernel_matches_plain(card, geom, descending):
 
 @pytest.mark.cuda
 def test_stream_kernel_footprint_guard_raises(card):
-    """K8's wrapper refuses a plan whose inner-node slots pass 227 KB of
-    shared memory, before any launch; the planner's plan at fan 16 on KV
-    lanes fits."""
+    """K8's wrapper refuses, before any launch, what the streaming tree
+    cannot run: w past 128 (one warp per node holds at most 4 lanes a
+    thread) or under 8; the planner's largest plan, fan 16 on KV lanes at
+    w 128, fits the card's shared memory and launches."""
     from repro_torch.kernels import KernelError, launch_counts
     n = 16 * 8192
     k = torch.zeros(n, device=card)
     r = torch.zeros(n, dtype=torch.int32, device=card)
     before = launch_counts().get("stream_merge_runs_kv", 0)
-    with pytest.raises(KernelError, match="shared memory"):
-        TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16,
-                                 w=128, block_out=8192)
+    for w in (256, 4):
+        with pytest.raises(KernelError, match="w in"):
+            TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16,
+                                     w=w, block_out=8192)
     assert launch_counts().get("stream_merge_runs_kv", 0) == before
+    assert TK8.stream_smem(4, True, 4, 128) <= TT.MAX_SMEM
     TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16, w=128,
                              block_out=4096)
+    assert launch_counts().get("stream_merge_runs_kv", 0) == before + 1
+
+
+@pytest.mark.cuda
+def test_stream_kernel_footprint_matches_wrapper(card):
+    """The wrapper's footprint formula is the kernel's, for every (L, lane
+    form, w) the kernel takes."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    for L in range(1, 5):
+        for kv in (False, True):
+            for w in (8, 16, 32, 64, 128):
+                assert lib.flims_stream_merge_smem(L, int(kv), 4, w) == \
+                    TK8.stream_smem(L, kv, 4, w)
+
+
+# (runs, run_len, fan_in, w): two groups each, the output block at w, so a
+# group holds 4 fan_in .. 16 fan_in blocks; w 8 and 32 hold one lane a
+# thread (8 of a warp's 32 live), 64 two and 128 four; L 1 to 4
+SPAN_GEOMS = [(4, 128, 2, 8), (8, 256, 4, 32), (16, 256, 8, 64),
+              (16, 512, 8, 128), (32, 128, 16, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geom", SPAN_GEOMS)
+def test_stream_kernel_spans_match_plain(card, geom):
+    """K8 / K8kv at span geometries forced through ``ctas``, each against
+    one plain result: one CTA taking both groups in turn, spans of many
+    blocks of which the second starts mid-group (5 CTAs: two spans a
+    group), the card's own count, and more CTAs than blocks (a span is a
+    block); key-only, and KV both directions (fan 16: KV descending only).
+    The plain version runs on host copies: at fan 16 it is millions of
+    small tensor operations, slower on the card than on its host."""
+    runs, run_len, fan, w = geom
+    G = runs * run_len // w
+    kw = dict(runs=runs, run_len=run_len, fan_in=fan, w=w, block_out=w)
+    for descending in (True, False):
+        if fan == 16 and not descending:
+            continue
+        k, r = (T(v).to(card) for v in uniform_runs(runs, run_len,
+                                                    descending))
+        cases = [(TK8.stream_merge_runs_kv, (k, r),
+                  dict(kw, descending=descending, out_slack=5))]
+        if descending and fan < 16:
+            cases.append((TK8.stream_merge_runs, (k,), dict(kw, out_slack=3)))
+        for fn, args, ckw in cases:
+            plain = getattr(TK8, fn.__name__ + "_plain")(
+                *(a.cpu() for a in args), **ckw)
+            plain = tuple(p.to(card) for p in (
+                plain if isinstance(plain, tuple) else (plain,)))
+            for ctas in (1, 5, 0, G + 3):
+                got = fn(*args, ctas=ctas, **ckw)
+                got = got if isinstance(got, tuple) else (got,)
+                for g, e in zip(got, plain):
+                    assert torch.equal(_bits(g), _bits(e)), (fn.__name__,
+                                                             ctas)
 
 
 @pytest.mark.cuda

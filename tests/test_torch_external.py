@@ -356,6 +356,109 @@ def test_stream_kernel_chains_with_slack():
 
 
 # --------------------------------------------------------------------------
+# K8's persistent CUDA design: what the wrapper computes, and its hinge
+# --------------------------------------------------------------------------
+
+def _kv_runs(runs, run_len, descending):
+    """Keys from FPOOL (+0.0, -0.0, -inf, ties) with a permutation of ranks,
+    each run in the compound (key, rank) order."""
+    k = RNG.choice(FPOOL, (runs, run_len))
+    r = RNG.permutation(runs * run_len).astype(np.int32).reshape(runs,
+                                                                 run_len)
+    for i in range(runs):
+        p = np.lexsort((r[i], -k[i] if descending else k[i]))
+        k[i], r[i] = k[i][p], r[i][p]
+    return torch.from_numpy(k.ravel().copy()), torch.from_numpy(r.ravel().copy())
+
+
+@pytest.mark.parametrize("geom", [(8, 64, 4, 8), (16, 32, 8, 8),
+                                  (4, 128, 2, 16), (8, 64, 2, 32)])
+def test_stream_plain_output_does_not_depend_on_block(geom):
+    """The hinge of the CUDA kernel's persistent design: a span streams
+    through the tree from one partition, which is the per-block kernel at
+    an output block of the span's length. The plain version gives the same
+    bits at every block from w to the group's length, key-only and KV both
+    directions, on keys with +0.0/-0.0, -inf and heavy ties."""
+    runs, run_len, fan, w = geom
+    kw = dict(runs=runs, run_len=run_len, fan_in=fan, w=w)
+    blocks = [w << i for i in range((fan * run_len // w).bit_length())]
+    assert blocks[-1] == fan * run_len
+    for descending in (True, False):
+        k, r = _kv_runs(runs, run_len, descending)
+        outs = []
+        for bo in blocks:
+            got = tk8.stream_merge_runs_kv(k, r, block_out=bo,
+                                           descending=descending, **kw)
+            if descending:
+                got += (tk8.stream_merge_runs(k, block_out=bo, **kw),)
+            outs.append([x.view(torch.int32) if x.dtype == torch.float32
+                         else x for x in got])
+        for o in outs[1:]:
+            for a, b in zip(outs[0], o):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("groups,bpg", [(16, 2048), (2, 16384), (1, 32768),
+                                        (4096, 8), (3, 5), (1, 1)])
+def test_stream_spans_tile_each_group(groups, bpg):
+    """The CUDA kernel's span split: a group's spans tile its blocks in
+    order with no gap or overlap, never cross a group, differ by at most
+    one block, fit one span per CTA once the CTAs cover the groups, and
+    are single blocks once the CTAs outnumber the blocks."""
+    for ctas in sorted({1, 2, max(1, groups - 1), groups, groups + 1, 396,
+                        528, groups * bpg, groups * bpg + 7}):
+        spg = tk8.stream_spans(groups, bpg, ctas)
+        assert 1 <= spg <= bpg
+        spans = tk8.span_blocks(groups, bpg, spg)
+        assert len(spans) == groups * spg
+        if ctas >= groups:
+            assert len(spans) <= ctas
+        if ctas >= groups * bpg:
+            assert spg == bpg
+        for g in range(groups):
+            mine = [(b0, b1) for gg, b0, b1 in spans if gg == g]
+            assert mine[0][0] == 0 and mine[-1][1] == bpg
+            assert all(a[1] == b[0] for a, b in zip(mine, mine[1:]))
+            sizes = [b1 - b0 for b0, b1 in mine]
+            assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        assert [g for g, _, _ in spans] == sorted(g for g, _, _ in spans)
+
+
+def test_stream_footprint_fits_every_plan():
+    """The CUDA kernel's shared memory (FIFO rings, mbarriers, partition
+    scratch) stays under the card's 232,448 B for every plan the planner
+    can produce (w 8 to 128, fan-in 2 to 16, key-only and KV), and at the
+    default plan (fan 8, w 128) under the first version's whole-block slots
+    (68 KB key-only, 137 KB KV)."""
+    ws = {tplanner.heuristic_plan("external_sort", tplanner.plan_key(
+        "external_sort", n=1 << e, dtype=torch.float32, backend="cuda")).w
+        for e in range(34)}
+    assert ws == {8, 16, 32, 64, 128}
+    assert (tk8.W_MIN, tk8.W_MAX) == (min(ws), max(ws))
+    for w in ws:
+        for L in range(1, tk8.MAX_LEVELS + 1):
+            for kv in (False, True):
+                assert tk8.stream_smem(L, kv, 4, w) <= 232448
+    assert tk8.stream_smem(3, False, 4, 128) == 30592 < 68 * 1024
+    assert tk8.stream_smem(3, True, 4, 128) == 59264 < 137 * 1024
+    assert tk8.stream_smem(4, True, 4, 128) == 125824
+
+
+def test_stream_ctas_keyword_is_inert_off_the_card():
+    """``ctas`` only steers the CUDA kernel's grid: on a CPU tensor the
+    wrappers and their plain twins give the same result for any value."""
+    k, r = _kv_runs(8, 64, True)
+    kw = dict(runs=8, run_len=64, fan_in=4, w=8, block_out=32)
+    ref = tk8.stream_merge_runs_kv_plain(k, r, **kw)
+    for ctas in (0, 1, 7):
+        for fn in (tk8.stream_merge_runs_kv, tk8.stream_merge_runs_kv_plain):
+            for a, b in zip(fn(k, r, ctas=ctas, **kw), ref):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(tk8.stream_merge_runs(k, ctas=3, **kw),
+                       tk8.stream_merge_runs_plain(k, **kw))
+
+
+# --------------------------------------------------------------------------
 # the stream executors against JAX stream_xla
 # --------------------------------------------------------------------------
 
