@@ -38,7 +38,7 @@ the CUDA toolkit. It
    fan-8 group of 2^20-key runs, the fan-2 pass over two 2^26-key runs)
    and on host copies of the inputs at small shapes up to fan 16 (there it
    is millions of small tensor operations, launch-bound on the card), and
-   K8 is held to one plain result under several CTA counts (``ctas=``):
+   K8 is held to one plain result under several CTA counts (``_ctas=``):
    spans of many blocks starting mid-group, one block a span, and one CTA
    taking two groups of a fan-16 KV pass in turn;
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
@@ -927,7 +927,7 @@ K8_SMALL = ((8, 1024, 2, 32, 256), (16, 4096, 8, 128, 4096),
 # ... and the main path's at its plan: one fan-8 group of pass 0 (runs of
 # 2^20) and the last pass, fan 2 over two runs of 2^26 (plain on the card)
 K8_PATH = ((8, 1 << 20, 8, 128, 4096), (2, 1 << 26, 2, 128, 4096))
-# span geometries, each (shape, CTA counts forced through ``ctas``, plain
+# span geometries, each (shape, CTA counts forced through ``_ctas``, plain
 # on host copies, KV only): two groups of 512 blocks under 6 CTAs (three
 # spans of 170-171 blocks a group, two starting mid-group) and under the
 # card's own count; 16 blocks under 64 CTAs (a span is a block); fan 16 on
@@ -1004,7 +1004,7 @@ def phase_slice3_vs_plain(slice3, gen):
                 else exp.cuda()
             for ctas in ctas_list:
                 err = check_same(f"{fn.__name__} {ckw} ctas={ctas}",
-                                 fn(*args, ctas=ctas, **ckw), exp)
+                                 fn(*args, _ctas=ctas, **ckw), exp)
                 errs[fn.__name__] = max(errs[fn.__name__], err)
         torch.cuda.synchronize()
         print(f"slice 3 kernels vs plain: spans {geom} under ctas "
@@ -1064,13 +1064,15 @@ def phase_slice3_times(slice3, launches, errs, ext):
         plain = plain_of(fn)
         bound_ms, bound_by = _bound(nbytes, ops_)
         kv = name.endswith("_kv")
+        L = kw["fan_in"].bit_length() - 1
         table.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/stream_merge.cu",
             "replaces": "src/repro/kernels/stream_merge.py:225",
-            "smem_bytes": k8.stream_smem(3, kv, 4, 128),
+            "smem_bytes": k8.stream_smem(args[0].dtype, kv, True, L,
+                                         kw["w"]),
             "ctas": k8._resident_ctas(k8._build.DTYPE_CODES[args[0].dtype], kv,
-                                      True, 3, 128, args[0].device),
+                                      True, L, kw["w"], args[0].device),
             "launches": int(launches.get(name, 0)),
             "max_abs_err": errs[name],
             "ms": time_ms(lambda: fn(*args, **kw)),

@@ -1,20 +1,21 @@
-"""Where K8's time goes on the card: per-warp clock counters in a copy of
-the kernel.
+"""Where K8's time goes on the card: the kernel's per-warp clock counters,
+compiled in under ``-DK8_PROFILE``.
 
     python3 scripts/k8_profile.py [--fans 8,2] [--variants base,nobfly]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
-the CUDA toolkit. It copies ``src/repro_torch/csrc/stream_merge.cu`` and
-``flims.cuh`` into ``build/k8_profile/<variant>/``, adds ``clock64``
-counters (accumulated per warp in shared memory, written out once at the
-kernel's end), builds each variant with the port's nvcc flags, and runs one
+the CUDA toolkit. It builds ``src/repro_torch/csrc/stream_merge.cu`` with
+the port's nvcc flags and ``-DK8_PROFILE``, which compiles in the kernel's
+``clock64`` counters (accumulated per warp in shared memory, written out
+once at the kernel's end), into ``build/k8_profile/<variant>/``, and runs one
 pass over 2^27 float32 keys in runs of 2^20 (fan 2 over two runs of 2^26)
 at w 128, block 4096, on the CTA count the card holds, key-only and KV
 (ranks riding the keys). Variants: ``base`` (the kernel as it is) and
-``nobfly`` (the butterfly left out, wrong results: a floor that shows the
-butterfly's share). Each line printed is one JSON object with the pass's
-median time (CUDA events) and, per tree depth (``"0"`` the root, ``"prod"``
-the leaf producer warp), the mean SM clocks a warp spent:
+``nobfly`` (``-DK8_NO_BUTTERFLY``: the butterfly left out, wrong results,
+a floor that shows the butterfly's share). Each line printed is one JSON
+object with the pass's median time (CUDA events) and, per tree depth
+(``"0"`` the root, ``"prod"`` the leaf producer warp), the mean SM clocks
+a warp spent:
 
   full_wait   waiting for a child's row (mbarrier full)
   empty_wait  waiting for a free slot in the parent's ring
@@ -48,68 +49,9 @@ COUNTERS = ("full_wait", "empty_wait", "partition", "node_total",
             "prod_total", "bfly", "put", "next")
 MAX_CTAS = 8192
 
-# (anchor in the kernel source, replacement): each anchor must occur once
-PATCHES = (
-    ('#include "flims.cuh"',
-     '#include "flims.cuh"\n'
-     f'__device__ unsigned long long k8_prof[{MAX_CTAS} * 32 * 8];\n'
-     '__shared__ unsigned long long s_prof[16][8];\n'
-     '#define PROF(k, v) do { if ((threadIdx.x & 31) == 0) '
-     's_prof[threadIdx.x >> 5][k] += (v); } while (0)\n'),
-    ("mbar_wait(&f.full[s], f.parity(q));",
-     "{ long long t0_ = clock64(); mbar_wait(&f.full[s], f.parity(q)); "
-     "PROF(0, clock64() - t0_); }"),
-    ("const uint32_t par = f.parity(q_out) ^ 1u;\n",
-     "const uint32_t par = f.parity(q_out) ^ 1u; long long t0_ = clock64();\n"),
-    ("                                    T* rk = f.k + (size_t)sl * w;\n",
-     "                                    PROF(1, clock64() - t0_); "
-     "T* rk = f.k + (size_t)sl * w;\n"),
-    ("    partition<T, KV, DESC, L>(lv, o, w, s_rot, s_base, s_off, s_cnt);\n",
-     "    { long long t0_ = clock64(); "
-     "partition<T, KV, DESC, L>(lv, o, w, s_rot, s_base, s_off, s_cnt); "
-     "PROF(2, clock64() - t0_); }\n    const long long tspan_ = clock64();\n"),
-    ("      continue;\n    }\n",
-     "      PROF(4, clock64() - tspan_);\n      continue;\n    }\n"),
-    ("#pragma unroll\n    for (int e = 0; e < 2; ++e) {\n"
-     "      side[e].finish(hs);",
-     "    PROF(3, clock64() - tspan_);\n#pragma unroll\n"
-     "    for (int e = 0; e < 2; ++e) {\n      side[e].finish(hs);"),
-    ("    warp_butterfly<T, KV, DESC, M>(v, w);\n    if (!put(t, v)) return;\n",
-     "    long long tb_ = clock64();\n    BUTTERFLY;\n"
-     "    long long tp_ = clock64(); PROF(5, tp_ - tb_);\n"
-     "    if (!put(t, v)) return;\n    PROF(6, clock64() - tp_);\n"),
-    ("  __device__ void next(Lane<T> (&x)[M]) {\n"
-     "    const int lane = threadIdx.x & 31;\n",
-     "  __device__ void next(Lane<T> (&x)[M]) {\n"
-     "    const int lane = threadIdx.x & 31;\n    const long long tn_ = clock64();\n"),
-    ("    ++taken;\n  }\n", "    ++taken;\n    PROF(7, clock64() - tn_);\n  }\n"),
-    ("  if (tid < 2 * GROUP && tid >= 2) {\n",
-     "  if (tid < 16 * 8) s_prof[tid / 8][tid % 8] = 0;\n"
-     "  if (tid < 2 * GROUP && tid >= 2) {\n"),
-    ("      q_in[e] = side[e].q;\n    }\n  }\n}\n",
-     "      q_in[e] = side[e].q;\n    }\n  }\n  if (lane == 0) "
-     "for (int k = 0; k < 8; ++k) "
-     "k8_prof[((size_t)blockIdx.x * 32 + warp) * 8 + k] = s_prof[warp][k];\n}\n"),
-)
-VARIANTS = {"base": "warp_butterfly<T, KV, DESC, M>(v, w)", "nobfly": ""}
-
-
-def patched(src: str, variant: str) -> str:
-    for anchor, new in PATCHES:
-        if src.count(anchor) != 1:
-            raise SystemExit(f"k8_profile: anchor not found once: {anchor!r}")
-        src = src.replace(anchor, new)
-    src = src.replace("BUTTERFLY", VARIANTS[variant])
-    return src + """
-extern "C" int k8_prof_read(void* dst) {
-  return cudaMemcpyFromSymbol(dst, k8_prof, sizeof(k8_prof));
-}
-extern "C" int k8_prof_zero() {
-  void* p = nullptr;
-  const cudaError_t e = cudaGetSymbolAddress(&p, k8_prof);
-  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(k8_prof));
-}
-"""
+#: the kernel's compile-time switches per variant (``csrc/stream_merge.cu``)
+VARIANTS = {"base": ("-DK8_PROFILE",),
+            "nobfly": ("-DK8_PROFILE", "-DK8_NO_BUTTERFLY")}
 
 
 def build(variants):
@@ -118,11 +60,9 @@ def build(variants):
     for v in variants:
         d = ROOT / "build" / "k8_profile" / v
         d.mkdir(parents=True, exist_ok=True)
-        (d / "stream_merge.cu").write_text(
-            patched((csrc / "stream_merge.cu").read_text(), v))
-        (d / "flims.cuh").write_text((csrc / "flims.cuh").read_text())
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-shared",
-               "-o", str(d / "lib.so"), str(d / "stream_merge.cu")]
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *VARIANTS[v],
+               f"-DK8_PROF_CTAS={MAX_CTAS}", "-I", str(csrc), "-shared",
+               "-o", str(d / "lib.so"), str(csrc / "stream_merge.cu")]
         procs.append((v, d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True)))

@@ -45,7 +45,8 @@
 // - FIFOs in shared memory between nodes: a child writes rows into a ring of
 //   kRingRows rows that its parent warp reads, each slot with a full and an
 //   empty mbarrier. (2^(L+1) - 2) rings, independent of C: 30,592 B
-//   key-only and 59,264 B KV at w 128, L 3 (`flims_stream_merge_smem`).
+//   key-only and 59,264 B KV a CTA at w 128, L 3, static scratch included
+//   (`flims_stream_merge_smem` reads it from the compiled kernel).
 // - Leaves through cp.async.bulk: the last warp is a producer, lane j
 //   keeping up to kRingRows row copies of leaf j in flight into its ring,
 //   each completing on the slot's full mbarrier (expect_tx). Rows at or
@@ -69,6 +70,42 @@
 // Below the root a leaf's count lies within w - 1 under its count at the
 // parent, so those searches take two or three rounds instead of five.
 #include "flims.cuh"
+
+// Clock counters for scripts/k8_profile.py, compiled in only under
+// -DK8_PROFILE (and the butterfly left out under -DK8_NO_BUTTERFLY, a
+// floor with wrong results): per warp, summed in shared memory and written
+// to k8_prof[cta][warp][counter] at the kernel's end, for the first
+// K8_PROF_CTAS CTAs. Without the define every PROF* macro is empty.
+#ifdef K8_PROFILE
+#ifndef K8_PROF_CTAS
+#define K8_PROF_CTAS 8192
+#endif
+constexpr int kProfCounters = 8;
+__device__ unsigned long long k8_prof[K8_PROF_CTAS * 32 * kProfCounters];
+__shared__ unsigned long long s_prof[16][kProfCounters];
+#define PROF_START(t) const long long t = clock64()
+#define PROF(k, t)                                                       \
+  do {                                                                   \
+    if ((threadIdx.x & 31) == 0) s_prof[threadIdx.x >> 5][k] += clock64() - (t); \
+  } while (0)
+#define PROF_INIT()                                                      \
+  do {                                                                   \
+    if (threadIdx.x < 16 * kProfCounters)                                \
+      s_prof[threadIdx.x / kProfCounters][threadIdx.x % kProfCounters] = 0; \
+  } while (0)
+#define PROF_FLUSH()                                                     \
+  do {                                                                   \
+    if ((threadIdx.x & 31) == 0 && blockIdx.x < K8_PROF_CTAS)            \
+      for (int k_ = 0; k_ < kProfCounters; ++k_)                         \
+        k8_prof[((size_t)blockIdx.x * 32 + (threadIdx.x >> 5)) * kProfCounters + k_] = \
+            s_prof[threadIdx.x >> 5][k_];                                \
+  } while (0)
+#else
+#define PROF_START(t)
+#define PROF(k, t) do { } while (0)
+#define PROF_INIT() do { } while (0)
+#define PROF_FLUSH() do { } while (0)
+#endif
 
 namespace flims {
 
@@ -237,9 +274,12 @@ template <typename T, bool KV, bool DESC, int M> struct Source {
   }
   __device__ void next(Lane<T> (&x)[M]) {
     const int lane = threadIdx.x & 31;
+    PROF_START(t_next);
     if (taken < limit) {
       const int s = f.slot(q);
+      PROF_START(t_wait);
       mbar_wait(&f.full[s], f.parity(q));
+      PROF(0, t_wait);
       const T* rk = f.k + (size_t)s * w;
       const int32_t* rr = KV ? f.r + (size_t)s * w : nullptr;
 #pragma unroll
@@ -259,6 +299,7 @@ template <typename T, bool KV, bool DESC, int M> struct Source {
       }
     }
     ++taken;
+    PROF(7, t_next);
   }
   // stop the child, then release the rows it gave that were not read, so
   // the edge starts the next span empty
@@ -310,8 +351,14 @@ __device__ void node_stream(Source<T, KV, DESC, M>& A, Source<T, KV, DESC, M>& B
       v[m] = pick(take, ca, cb);
       k += __popc(__ballot_sync(kFullWarp, take));
     }
+    PROF_START(t_bfly);
+#ifndef K8_NO_BUTTERFLY
     warp_butterfly<T, KV, DESC, M>(v, w);
+#endif
+    PROF(5, t_bfly);
+    PROF_START(t_put);
     if (!put(t, v)) return;
+    PROF(6, t_put);
     int l2 = lA + k;
     if (l2 >= w) {
 #pragma unroll
@@ -377,6 +424,7 @@ __global__ void __launch_bounds__(32 << L)
     return Fifo<T, KV>{ring_k + o, KV ? ring_r + o : nullptr, full + c * kRingRows,
                        empty + c * kRingRows};
   };
+  PROF_INIT();
   if (tid < 2 * GROUP && tid >= 2) {
     const Fifo<T, KV> f = fifo(tid);
     for (int s = 0; s < kRingRows; ++s) {
@@ -405,7 +453,10 @@ __global__ void __launch_bounds__(32 << L)
       hs.stop[tid] = 0;
       hs.done[tid] = 0;
     }
+    PROF_START(t_part);
     partition<T, KV, DESC, L>(lv, o, w, s_rot, s_base, s_off, s_cnt);
+    PROF(2, t_part);
+    PROF_START(t_span);
 
     // rows leaf j can give: those before its run's end, at most the R + L + 2
     // its depth-(L - 1) parent can take in R + L - 1 cycles
@@ -439,6 +490,7 @@ __global__ void __launch_bounds__(32 << L)
         }
         if (!__any_sync(kFullWarp, moved)) __nanosleep(32);
       }
+      PROF(4, t_span);
       continue;
     }
 
@@ -475,11 +527,13 @@ __global__ void __launch_bounds__(32 << L)
                                   [&](int, const Lane<T>(&v)[M]) {
                                     const int sl = f.slot(q_out);
                                     const uint32_t par = f.parity(q_out) ^ 1u;
+                                    PROF_START(t_slot);
                                     while (true) {
                                       if (__any_sync(kFullWarp, hs.stop[h] != 0)) return false;
                                       if (__all_sync(kFullWarp, mbar_try(&f.empty[sl], par)))
                                         break;
                                     }
+                                    PROF(1, t_slot);
                                     T* rk = f.k + (size_t)sl * w;
                                     int32_t* rr = KV ? f.r + (size_t)sl * w : nullptr;
 #pragma unroll
@@ -497,12 +551,14 @@ __global__ void __launch_bounds__(32 << L)
                                   });
       give_up(hs, h, q_out);
     }
+    PROF(3, t_span);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       side[e].finish(hs);
       q_in[e] = side[e].q;
     }
   }
+  PROF_FLUSH();
 }
 
 template <typename T, bool KV, bool DESC, int L, int M>
@@ -533,6 +589,17 @@ static cudaError_t launch(const void* buf, const void* rbuf, void* out, void* ou
   return cudaGetLastError();
 }
 
+// Shared memory of one CTA: the compiled kernel's static bytes plus the
+// dynamic bytes its launch at w requests.
+template <typename T, bool KV, bool DESC, int L, int M>
+static cudaError_t footprint(int w, long long* bytes) {
+  cudaFuncAttributes attr;
+  const cudaError_t e = cudaFuncGetAttributes(&attr, stream_merge_kernel<T, KV, DESC, L, M>);
+  if (e != cudaSuccess) return e;
+  *bytes = (long long)attr.sharedSizeBytes + (long long)stream_smem_bytes(L, KV, sizeof(T), w);
+  return cudaSuccess;
+}
+
 // The instantiation for (L, w): M = w/32 lanes per thread (1 below 32).
 struct Args {
   const void *buf, *rbuf;
@@ -540,12 +607,14 @@ struct Args {
   long long n_val, n_out;
   int run_len, C, w, groups, spg, grid;
   cudaStream_t st;
-  int* per_sm;  // set: report occupancy instead of launching
+  int* per_sm;         // set: report occupancy instead of launching
+  long long* smem;     // set: report the footprint instead of launching
 };
 
 template <typename T, bool KV, bool DESC, int L, int M>
 static cudaError_t run(const Args& a) {
   if (a.per_sm) return occupancy<T, KV, DESC, L, M>(a.w, a.per_sm);
+  if (a.smem) return footprint<T, KV, DESC, L, M>(a.w, a.smem);
   return launch<T, KV, DESC, L, M>(a.buf, a.rbuf, a.out, a.out_r, a.n_val, a.n_out, a.run_len,
                                    a.C, a.w, a.groups, a.spg, a.grid, a.st);
 }
@@ -580,13 +649,17 @@ static cudaError_t dispatch(int dtype, int kv, int desc, int L, const Args& a) {
   return desc ? by_level<float, true, true>(L, a) : by_level<float, true, false>(L, a);
 }
 
-constexpr size_t kStaticSmem =
-    sizeof(long long) * 2 * kMaxGroup + sizeof(int) * 4 * kMaxGroup + sizeof(Handshake);
-
 }  // namespace flims
 
-extern "C" unsigned long long flims_stream_merge_smem(int L, int kv, int key_bytes, int w) {
-  return flims::stream_smem_bytes(L, kv, key_bytes, w) + flims::kStaticSmem;
+// Shared-memory bytes of one CTA of the kernel for (dtype, kv, desc, L, w),
+// as compiled and launched, or a negative CUDA error.
+extern "C" long long flims_stream_merge_smem(int dtype, int kv, int desc, int L, int w) {
+  long long bytes = 0;
+  flims::Args a{};
+  a.w = w;
+  a.smem = &bytes;
+  const cudaError_t e = flims::dispatch(dtype, kv, desc, L, a);
+  return e == cudaSuccess ? bytes : -(long long)e;
 }
 
 // CTAs per SM the kernel for (dtype, kv, desc, L, w) reaches, or a negative
@@ -611,6 +684,17 @@ extern "C" int flims_stream_merge(int dtype, int kv, int desc, int L, const void
       n_val != glen * groups || spg < 1 || spg > glen / C || grid < 1)
     return cudaErrorInvalidValue;
   flims::Args a{buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, groups, spg, grid,
-                (cudaStream_t)stream, nullptr};
+                (cudaStream_t)stream, nullptr, nullptr};
   return flims::dispatch(dtype, kv, desc, L, a);
 }
+
+#ifdef K8_PROFILE
+extern "C" int k8_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k8_prof, sizeof(k8_prof));
+}
+extern "C" int k8_prof_zero() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, k8_prof);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(k8_prof));
+}
+#endif

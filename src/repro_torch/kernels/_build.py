@@ -48,7 +48,7 @@ _SIGNATURES = {
                              _P, _P]),
     "flims_stream_merge": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _LL, _LL, _I,
                                 _I, _I, _I, _I, _I, _P]),
-    "flims_stream_merge_smem": (_U64, [_I, _I, _I, _I]),
+    "flims_stream_merge_smem": (_LL, [_I, _I, _I, _I, _I]),
     "flims_stream_merge_occupancy": (_I, [_I, _I, _I, _I, _I]),
 }
 

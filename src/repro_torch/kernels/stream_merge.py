@@ -22,12 +22,12 @@ for a CPU tensor; the ``*_plain`` twins run it on any device. The plain
 version repeats the TPU kernel's arithmetic vectorised over grid steps: the
 nested partition of ``_stream_meta_one`` (``merge_tree._tree_meta``), the
 windowed leaf readers, and ``dataflow`` per tree node. The CUDA kernel is a
-persistent streaming merge tree (see its header): ``ctas`` CTAs, each
-group split into spans of consecutive blocks (:func:`stream_spans`), one
-partition per span and the tree streamed to the span's end through
-shared-memory FIFOs (:func:`stream_smem`). Its output does not depend on
-the split, which is why the plain version, one block at a time, is its
-reference.
+persistent streaming merge tree (see its header): as many CTAs as the
+card holds, each group split into spans of consecutive blocks
+(:func:`stream_spans`), one partition per span and the tree streamed to
+the span's end through shared-memory FIFOs (:func:`stream_smem`). Its
+output does not depend on the split, which is why the plain version, one
+block at a time, is its reference.
 """
 from __future__ import annotations
 
@@ -37,19 +37,13 @@ from repro_torch import obs
 from repro_torch.core.lanes import INVALID_RANK
 from repro_torch.kernels import _build
 from repro_torch.kernels.flims_merge import bound_keys, dataflow
-from repro_torch.kernels.merge_tree import (MAX_SMEM, _node_index,
-                                            _stream_rows, _tree_meta)
+from repro_torch.kernels.merge_tree import (_node_index, _stream_rows,
+                                            _tree_meta)
 
 #: fan-in 2^L up to 16 (the JAX planner's autotune grid reaches 16)
 MAX_LEVELS = 4
 #: the CUDA kernel's FLiMS widths: the planner's range, one warp per node
 W_MIN, W_MAX = 8, 128
-#: rows per shared-memory FIFO ring (one per tree edge, inner and leaf), as
-#: ``csrc/stream_merge.cu`` lays them out
-RING_ROWS = 4
-#: the kernel's static shared memory: partition scratch and the per-edge
-#: stop handshake
-STATIC_SMEM = 8 * 2 * 16 + 4 * 4 * 16 + 3 * 4 * 2 * 16
 
 _per_sm: dict = {}
 
@@ -131,15 +125,19 @@ def _stream_plain(buf, rbuf, *, runs, run_len, fan_in, w, C, descending):
     return tuple(x[:, :C].reshape(-1) for x in out)
 
 
-def stream_smem(L: int, kv: bool, key_bytes: int, w: int) -> int:
-    """Shared memory of one CTA of the CUDA kernel: full and empty mbarriers
-    per (edge, slot), 128-aligned, then ``2^(L+1) - 2`` rings (one per tree
-    edge) of ``RING_ROWS`` rows of ``w`` lanes, and the static scratch. It
-    does not depend on the output block."""
-    edges = (2 << L) - 2
-    bars = -(-2 * (2 << L) * RING_ROWS * 8 // 128) * 128
-    return bars + edges * RING_ROWS * w * (key_bytes + (4 if kv else 0)) + \
-        STATIC_SMEM
+def stream_smem(dtype, kv: bool, descending: bool, L: int, w: int) -> int:
+    """Shared-memory bytes of one CTA of the CUDA kernel at (dtype, lane
+    form, direction, L, w), read from the compiled kernel on the card: its
+    static scratch plus the FIFO rings and mbarriers its launch requests.
+    It does not depend on the output block."""
+    code = _build.dtype_code("stream_merge", dtype)
+    nbytes = _build.library().flims_stream_merge_smem(
+        code, int(kv), int(descending), L, w)
+    if nbytes < 0:
+        raise _build.KernelError(
+            f"stream_merge: footprint query failed ({nbytes}) at L={L}, "
+            f"w={w}")
+    return nbytes
 
 
 def stream_spans(groups: int, bpg: int, ctas: int) -> int:
@@ -185,14 +183,13 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
         raise _build.KernelError(
             f"{name}: the CUDA kernel runs one warp per tree node at w in "
             f"[{W_MIN}, {W_MAX}], got w={w}")
-    smem = stream_smem(L, kv, buf.element_size(), w)
-    if smem > MAX_SMEM:
-        raise _build.KernelError(
-            f"{name}: {smem} bytes of shared memory at L={L}, w={w} pass "
-            f"the card's {MAX_SMEM}; lower w or fan_in")
     # leaf rows go by 16-byte bulk copies from the buffers' bases
-    buf, rbuf = (x if x is None or x.data_ptr() % 16 == 0 else x.clone()
-                 for x in (buf, rbuf))
+    for x in (buf, rbuf):
+        if x is not None and x.data_ptr() % 16:
+            raise _build.KernelError(
+                f"{name}: the CUDA kernel reads its buffers by 16-byte bulk "
+                "copies; pass a buffer whose storage offset is a multiple "
+                "of 16 bytes")
     out = torch.empty(n_out, dtype=buf.dtype, device=buf.device)
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
@@ -209,6 +206,8 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
 
 def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
                  out_slack, descending, cuda, ctas=0):
+    """``ctas`` forces the CUDA kernel's CTA count (0: as many as the card
+    holds at once); the result does not depend on it."""
     kv = ranks is not None
     L = fan_in.bit_length() - 1
     if fan_in < 2 or fan_in & (fan_in - 1) or L > MAX_LEVELS:
@@ -251,24 +250,22 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
 @obs.scoped("kernels.stream_merge")
 def stream_merge_runs(buf, *, runs: int, run_len: int, fan_in: int,
                       w: int = 32, block_out: int = 1024,
-                      out_slack: int = 0, ctas: int = 0):
+                      out_slack: int = 0, _ctas: int = 0):
     """Merge consecutive groups of ``fan_in = 2^L`` descending runs of
     uniform ``run_len`` (``buf`` their flat concatenation) in one launch.
     Returns a flat buffer whose ``[:runs * run_len]`` prefix is the merged
     groups in group order, followed by ``out_slack`` sentinel elements.
-    ``ctas`` forces the CUDA kernel's CTA count (0: as many as the card
-    holds at once); the result does not depend on it."""
+    ``_ctas`` (tests only) forces the CUDA kernel's CTA count."""
     return _stream_call("stream_merge_runs", buf, None, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
-                        descending=True, cuda=buf.is_cuda, ctas=ctas)[0]
+                        descending=True, cuda=buf.is_cuda, ctas=_ctas)[0]
 
 
 def stream_merge_runs_plain(buf, *, runs: int, run_len: int, fan_in: int,
                             w: int = 32, block_out: int = 1024,
-                            out_slack: int = 0, ctas: int = 0):
-    """``stream_merge_runs``' plain version, on any device (``ctas`` is
-    accepted and has no effect)."""
+                            out_slack: int = 0):
+    """``stream_merge_runs``' plain version, on any device."""
     return _stream_call("stream_merge_runs", buf, None, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
@@ -279,22 +276,22 @@ def stream_merge_runs_plain(buf, *, runs: int, run_len: int, fan_in: int,
 def stream_merge_runs_kv(buf, ranks, *, runs: int, run_len: int,
                          fan_in: int, w: int = 32, block_out: int = 1024,
                          out_slack: int = 0, descending: bool = True,
-                         ctas: int = 0):
+                         _ctas: int = 0):
     """Stable KV form of ``stream_merge_runs``: int32 rank lanes ride the
     same windows and the tree compares the compound (key, rank) order,
-    either direction natively. Returns ``(keys, ranks)``."""
+    either direction natively. Returns ``(keys, ranks)``. ``_ctas`` (tests
+    only) forces the CUDA kernel's CTA count."""
     return _stream_call("stream_merge_runs_kv", buf, ranks, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,
-                        descending=descending, cuda=buf.is_cuda, ctas=ctas)
+                        descending=descending, cuda=buf.is_cuda, ctas=_ctas)
 
 
 def stream_merge_runs_kv_plain(buf, ranks, *, runs: int, run_len: int,
                                fan_in: int, w: int = 32,
                                block_out: int = 1024, out_slack: int = 0,
-                               descending: bool = True, ctas: int = 0):
-    """``stream_merge_runs_kv``' plain version, on any device (``ctas`` is
-    accepted and has no effect)."""
+                               descending: bool = True):
+    """``stream_merge_runs_kv``' plain version, on any device."""
     return _stream_call("stream_merge_runs_kv", buf, ranks, runs=runs,
                         run_len=run_len, fan_in=fan_in, w=w,
                         block_out=block_out, out_slack=out_slack,

@@ -335,23 +335,47 @@ def test_stream_kernel_footprint_guard_raises(card):
             TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16,
                                      w=w, block_out=8192)
     assert launch_counts().get("stream_merge_runs_kv", 0) == before
-    assert TK8.stream_smem(4, True, 4, 128) <= TT.MAX_SMEM
+    assert TK8.stream_smem(torch.float32, True, True, 4, 128) <= \
+        TT.MAX_SMEM
     TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16, w=128,
                              block_out=4096)
     assert launch_counts().get("stream_merge_runs_kv", 0) == before + 1
 
 
 @pytest.mark.cuda
-def test_stream_kernel_footprint_matches_wrapper(card):
-    """The wrapper's footprint formula is the kernel's, for every (L, lane
-    form, w) the kernel takes."""
-    from repro_torch.kernels import _build
-    lib = _build.library()
-    for L in range(1, 5):
-        for kv in (False, True):
+def test_stream_kernel_footprint_fits_every_plan(card):
+    """The compiled kernel's shared memory (FIFO rings, mbarriers, partition
+    scratch) stays under the card's 232,448 B for every plan the planner
+    can produce (w 8 to 128, fan-in 2 to 16, both dtypes, key-only and KV
+    both directions), and at the default plan (fan 8, w 128) under the
+    first version's whole-block slots (68 KB key-only, 137 KB KV)."""
+    for dtype in (torch.float32, torch.int32):
+        for L in range(1, TK8.MAX_LEVELS + 1):
             for w in (8, 16, 32, 64, 128):
-                assert lib.flims_stream_merge_smem(L, int(kv), 4, w) == \
-                    TK8.stream_smem(L, kv, 4, w)
+                for kv, desc in ((False, True), (True, True), (True, False)):
+                    assert TK8.stream_smem(dtype, kv, desc, L, w) <= \
+                        TT.MAX_SMEM
+    assert TK8.stream_smem(torch.float32, False, True, 3, 128) < 68 * 1024
+    assert TK8.stream_smem(torch.float32, True, True, 3, 128) < 137 * 1024
+
+
+@pytest.mark.cuda
+def test_stream_kernel_misaligned_buffer_raises(card):
+    """K8 reads its buffers by 16-byte bulk copies: a key or rank buffer
+    whose storage does not start on 16 bytes raises ``KernelError`` before
+    any launch (no hidden copy)."""
+    from repro_torch.kernels import KernelError, launch_counts
+    kw = dict(runs=4, run_len=64, fan_in=4, w=32, block_out=64)
+    n = 4 * 64 + TK8.stream_slack(4, 32, 64)
+    k = torch.zeros(n + 1, device=card)
+    r = torch.zeros(n + 1, dtype=torch.int32, device=card)
+    before = dict(launch_counts())
+    with pytest.raises(KernelError, match="16 bytes"):
+        TK8.stream_merge_runs(k[1:], **kw)
+    with pytest.raises(KernelError, match="16 bytes"):
+        TK8.stream_merge_runs_kv(k[:n], r[1:], **kw)
+    assert dict(launch_counts()) == before
+    TK8.stream_merge_runs_kv(k[:n], r[:n], **kw)
 
 
 # (runs, run_len, fan_in, w): two groups each, the output block at w, so a
@@ -364,7 +388,7 @@ SPAN_GEOMS = [(4, 128, 2, 8), (8, 256, 4, 32), (16, 256, 8, 64),
 @pytest.mark.cuda
 @pytest.mark.parametrize("geom", SPAN_GEOMS)
 def test_stream_kernel_spans_match_plain(card, geom):
-    """K8 / K8kv at span geometries forced through ``ctas``, each against
+    """K8 / K8kv at span geometries forced through ``_ctas``, each against
     one plain result: one CTA taking both groups in turn, spans of many
     blocks of which the second starts mid-group (5 CTAs: two spans a
     group), the card's own count, and more CTAs than blocks (a span is a
@@ -389,7 +413,7 @@ def test_stream_kernel_spans_match_plain(card, geom):
             plain = tuple(p.to(card) for p in (
                 plain if isinstance(plain, tuple) else (plain,)))
             for ctas in (1, 5, 0, G + 3):
-                got = fn(*args, ctas=ctas, **ckw)
+                got = fn(*args, _ctas=ctas, **ckw)
                 got = got if isinstance(got, tuple) else (got,)
                 for g, e in zip(got, plain):
                     assert torch.equal(_bits(g), _bits(e)), (fn.__name__,
