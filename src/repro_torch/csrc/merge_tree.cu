@@ -21,7 +21,148 @@
 // memory, which needs the opt-in above 48 KiB.
 #include "flims.cuh"
 
+// Clock counters for scripts/k4_profile.py, compiled in only under
+// -DK4_PROFILE: thread 0 of each CTA sums SM clocks per counter and writes
+// them to k4_prof[cta][0][counter] at the kernel's end, for the first
+// K4_PROF_CTAS CTAs. Without the define every PROF* macro is empty and the
+// dataflow is flims.cuh's merge_stream.
+#ifdef K4_PROFILE
+#ifndef K4_PROF_CTAS
+#define K4_PROF_CTAS 16384
+#endif
+constexpr int kProfCounters = 8;
+constexpr int kProfWarps = 1;
+__device__ unsigned long long k4_prof[K4_PROF_CTAS * kProfWarps * kProfCounters];
+__shared__ unsigned long long s_prof[kProfCounters];
+__shared__ volatile int s_sink;
+// total, partition, nodes (all dataflows), barrier (waits in the CTA
+// barriers of the cycles and the butterfly), bfly (the butterfly, its
+// barriers included), leaf_wait (waiting for a leaf row's loads where the
+// dataflow first needs them), cycles (count), root (the root's dataflow)
+extern "C" const char* k4_prof_names() {
+  return "total,partition,nodes,barrier,bfly,leaf_wait,cycles,root";
+}
+#define PROF_START(t) const long long t = clock64()
+#define PROF(k, t)                                         \
+  do {                                                     \
+    if (threadIdx.x == 0) s_prof[k] += clock64() - (t);    \
+  } while (0)
+#define PROF_COUNT(k)                                      \
+  do {                                                     \
+    if (threadIdx.x == 0) s_prof[k] += 1;                  \
+  } while (0)
+#define PROF_INIT()                                        \
+  do {                                                     \
+    if (threadIdx.x < kProfCounters) s_prof[threadIdx.x] = 0; \
+    __syncthreads();                                       \
+  } while (0)
+#define PROF_FLUSH()                                       \
+  do {                                                     \
+    if (threadIdx.x == 0 && blockIdx.x < K4_PROF_CTAS)     \
+      for (int k_ = 0; k_ < kProfCounters; ++k_)           \
+        k4_prof[(size_t)blockIdx.x * kProfCounters + k_] = s_prof[k_]; \
+  } while (0)
+#else
+#define PROF_START(t)
+#define PROF(k, t) do { } while (0)
+#define PROF_COUNT(k) do { } while (0)
+#define PROF_INIT() do { } while (0)
+#define PROF_FLUSH() do { } while (0)
+#endif
+
 namespace flims {
+
+#ifdef K4_PROFILE
+// merge_stream, partner and butterfly of flims.cuh with clock counters
+// around the barriers and the butterfly; `leaf` marks a dataflow whose
+// sides are leaves, whose row loads are waited for where first needed.
+template <typename T, bool KV>
+__device__ __forceinline__ Lane<T> partner_p(const Lane<T>& v, int d, int w, T* xk, int32_t* xr) {
+  if (d >= 32) {
+    Lane<T> p;
+    PROF_START(t0);
+    __syncthreads();
+    PROF(3, t0);
+    xk[threadIdx.x] = v.k;
+    if (KV) xr[threadIdx.x] = v.r;
+    PROF_START(t1);
+    __syncthreads();
+    PROF(3, t1);
+    p.k = xk[threadIdx.x ^ d];
+    p.r = KV ? xr[threadIdx.x ^ d] : 0;
+    return p;
+  }
+  return partner<T, KV>(v, d, w, xk, xr);
+}
+
+template <typename T, bool KV, bool DESC>
+__device__ __forceinline__ Lane<T> butterfly_p(Lane<T> v, int w, T* xk, int32_t* xr) {
+  for (int d = w >> 1; d >= 1; d >>= 1) {
+    const Lane<T> p = partner_p<T, KV>(v, d, w, xk, xr);
+    const bool top = (threadIdx.x & d) == 0;
+    if (KV) {
+      const bool keep = top ? wins<T, KV, DESC>(v, p) : wins<T, KV, DESC>(p, v);
+      if (!keep) v = p;
+    } else {
+      v.k = top ? xmax(v.k, p.k) : xmin(p.k, v.k);
+    }
+  }
+  return v;
+}
+
+// a dependent use of a loaded lane: the clock read after it waits for the load
+template <typename T> __device__ __forceinline__ void touch(const Lane<T>& v) {
+  if (v.k == (T)12345 && v.r == 54321) s_sink = 1;
+}
+
+template <typename T, bool KV, bool DESC, bool SEL_MAX, class RA, class RB, class W>
+__device__ void merge_stream_p(RA read_a, RB read_b, int lA, int lB, int cycles, W write, int w,
+                               T* xk, int32_t* xr, bool leaf) {
+  const int i = threadIdx.x;
+  const bool live = i < w;
+  const int j = w - 1 - i;
+  Lane<T> a0{}, a1{}, b0{}, b1{};
+  if (live) {
+    a0 = read_a(0, i); a1 = read_a(1, i);
+    b0 = read_b(0, j); b1 = read_b(1, j);
+  }
+  if (leaf) {
+    PROF_START(tl);
+    touch(a0); touch(a1); touch(b0); touch(b1);
+    PROF(5, tl);
+  }
+  int rA = 2, rB = 2;
+  for (int t = 0; t < cycles; ++t) {
+    PROF_COUNT(6);
+    Lane<T> na{}, nb{};
+    if (live) { na = read_a(rA, i); nb = read_b(rB, j); }
+    const Lane<T> ca = i < lA ? a1 : a0;
+    const Lane<T> cb = j < lB ? b1 : b0;
+    const bool take = live && wins<T, KV, DESC>(ca, cb);
+    Lane<T> v = take ? ca : cb;
+    if (SEL_MAX) v.k = xmax(ca.k, cb.k);
+    PROF_START(tb);
+    v = butterfly_p<T, KV, DESC>(v, w, xk, xr);
+    PROF(4, tb);
+    if (live) write(t, i, v);
+    PROF_START(ts);
+    const int k = __syncthreads_count(take);
+    PROF(3, ts);
+    if (leaf) {
+      PROF_START(tl);
+      touch(na); touch(nb);
+      PROF(5, tl);
+    }
+    int l2 = lA + k;
+    if (l2 >= w) { a0 = a1; a1 = na; lA = l2 - w; ++rA; } else { lA = l2; }
+    l2 = lB + (w - k);
+    if (l2 >= w) { b0 = b1; b1 = nb; lB = l2 - w; ++rB; } else { lB = l2; }
+  }
+}
+#define MERGE_STREAM(T, KV, DESC, LEAF, ...) merge_stream_p<T, KV, DESC, false>(__VA_ARGS__, LEAF)
+#else
+#define MERGE_STREAM(T, KV, DESC, LEAF, ...) merge_stream<T, KV, DESC, false>(__VA_ARGS__)
+#endif
 
 template <typename T, bool KV, bool DESC> struct Tree {
   const T* k;
@@ -122,7 +263,9 @@ __device__ void produce(const Ctx<T, KV, DESC>& cx, int lo, int idx, int depth) 
     if constexpr (H > 1) {
       produce<H>(cx, lo, idx + 1, depth + 1);
       produce<H>(cx, lo + H, idx + H, depth + 1);
+      PROF_START(tsync);
       __syncthreads();
+      PROF(3, tsync);
     }
     auto child_stream = [&](int cidx) {
       const int rows = cx.C / w + depth + 1;
@@ -144,12 +287,14 @@ __device__ void produce(const Ctx<T, KV, DESC>& cx, int lo, int idx, int depth) 
         }
       };
       const int root_cycles = (cx.valid + w - 1) / w;
+      PROF_START(tr);
       if (H == 1)
-        merge_stream<T, KV, DESC, false>(leaf(lo), leaf(lo + 1), lA, lB, root_cycles, write, w,
-                                         cx.xk, cx.xr);
+        MERGE_STREAM(T, KV, DESC, true, leaf(lo), leaf(lo + 1), lA, lB, root_cycles, write, w,
+                     cx.xk, cx.xr);
       else
-        merge_stream<T, KV, DESC, false>(child_stream(idx + 1), child_stream(idx + H), lA, lB,
-                                         root_cycles, write, w, cx.xk, cx.xr);
+        MERGE_STREAM(T, KV, DESC, false, child_stream(idx + 1), child_stream(idx + H), lA, lB,
+                     root_cycles, write, w, cx.xk, cx.xr);
+      PROF(7, tr);
     } else {
       T* sk = cx.nk + (long long)(idx - 1) * cx.slot;
       int32_t* sr = KV ? cx.nr + (long long)(idx - 1) * cx.slot : nullptr;
@@ -158,11 +303,11 @@ __device__ void produce(const Ctx<T, KV, DESC>& cx, int lo, int idx, int depth) 
         if (KV) sr[t * w + c] = v.r;
       };
       if (H == 1)
-        merge_stream<T, KV, DESC, false>(leaf(lo), leaf(lo + 1), lA, lB, cycles, write, w,
-                                         cx.xk, cx.xr);
+        MERGE_STREAM(T, KV, DESC, true, leaf(lo), leaf(lo + 1), lA, lB, cycles, write, w, cx.xk,
+                     cx.xr);
       else
-        merge_stream<T, KV, DESC, false>(child_stream(idx + 1), child_stream(idx + H), lA, lB,
-                                         cycles, write, w, cx.xk, cx.xr);
+        MERGE_STREAM(T, KV, DESC, false, child_stream(idx + 1), child_stream(idx + H), lA, lB,
+                     cycles, write, w, cx.xk, cx.xr);
     }
   }
 }
@@ -183,6 +328,8 @@ __global__ void merge_tree_kernel(const T* __restrict__ buf, const int32_t* __re
   T* nk = reinterpret_cast<T*>(xr + (KV ? threads : 0));
   int32_t* nr = reinterpret_cast<int32_t*>(nk + (long long)(GROUP - 2) * slot);
 
+  PROF_INIT();
+  PROF_START(t_total);
   const int g = blockIdx.x;
   if (g >= blk0[n_groups]) return;  // tail CTAs of the static grid
   const int grp = find_segment(blk0, n_groups + 1, g);
@@ -201,13 +348,19 @@ __global__ void merge_tree_kernel(const T* __restrict__ buf, const int32_t* __re
   for (int j = 0; j < GROUP; ++j) tr.pref[j + 1] = tr.pref[j] + tr.lens[j];
 
   Meta mt;
+  PROF_START(t_part);
   assign<GROUP>(tr, mt, 0, 0, (int)o, w);
+  PROF(1, t_part);
 
   Ctx<T, KV, DESC> cx{&tr, &mt, nk, nr, slot, xk, xr,
                       out + (long long)goff[grp] + o,
                       KV ? out_r + (long long)goff[grp] + o : nullptr,
                       valid, C, w};
+  PROF_START(t_nodes);
   produce<GROUP>(cx, 0, 0, 0);
+  PROF(2, t_nodes);
+  PROF(0, t_total);
+  PROF_FLUSH();
 }
 
 size_t tree_smem_bytes(int L, int kv, int key_bytes, int C, int w, int* slot) {
@@ -265,6 +418,23 @@ extern "C" unsigned long long flims_merge_tree_smem(int L, int kv, int key_bytes
   int slot = 0;
   return flims::tree_smem_bytes(L, kv, key_bytes, C, w, &slot);
 }
+
+#ifdef K4_PROFILE
+extern "C" int k4_prof_layout(int* ctas, int* warps, int* counters) {
+  *ctas = K4_PROF_CTAS;
+  *warps = kProfWarps;
+  *counters = kProfCounters;
+  return 0;
+}
+extern "C" int k4_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k4_prof, sizeof(k4_prof));
+}
+extern "C" int k4_prof_zero() {
+  void* p = nullptr;
+  const cudaError_t e = cudaGetSymbolAddress(&p, k4_prof);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(k4_prof));
+}
+#endif
 
 extern "C" int flims_merge_tree(int dtype, int kv, int desc, int L, const void* buf,
                                 const void* rbuf, const void* starts, const void* lens,
