@@ -65,7 +65,27 @@ def build() -> ctypes.CDLL:
             fn.restype, fn.argtypes = res, args
     lib.k4_prof_names.restype = ctypes.c_char_p
     lib.k4_prof_read.argtypes = [ctypes.c_void_p]
+    if hasattr(lib, "k4_when_read"):
+        lib.k4_when_read.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def residency(when: np.ndarray) -> dict:
+    """From per-CTA (start ns, end ns, SM): the pass's span on the card,
+    the CTAs' mean and longest run, and the most CTAs any SM ran at once."""
+    start, end, sm = when[:, 0], when[:, 1], when[:, 2]
+    most = 0
+    for s in np.unique(sm):
+        ev = sorted([(t, 1) for t in start[sm == s]] +
+                    [(t, -1) for t in end[sm == s]], key=lambda e: (e[0], e[1]))
+        live = 0
+        for _, d in ev:
+            live += d
+            most = max(most, live)
+    return {"wall_us": float(end.max() - start.min()) / 1e3,
+            "cta_us_mean": float((end - start).mean()) / 1e3,
+            "cta_us_max": float((end - start).max()) / 1e3,
+            "most_ctas_on_an_sm": int(most)}
 
 
 def time_ms(fn, reps=5):
@@ -82,10 +102,12 @@ def time_ms(fn, reps=5):
     return sorted(ts)[len(ts) // 2]
 
 
-def roles(warps: int):
+def roles(warps: int, group: int):
+    """Each counted warp's role: the CTA, or a tree depth and the
+    producer (the kernel's ``group`` warps of its ``warps`` slots)."""
     if warps == 1:
         return ["cta"]
-    return [str((wp + 1).bit_length() - 1) for wp in range(warps - 1)] + \
+    return [str((wp + 1).bit_length() - 1) for wp in range(group - 1)] + \
         ["prod"]
 
 
@@ -125,12 +147,26 @@ def main() -> int:
             P = np.frombuffer(raw, dtype=np.uint64).reshape(
                 ctas, warps, counters).astype(np.float64)
             ran = P.reshape(ctas, -1).any(1)
+            extra = {}
+            if hasattr(lib, "k4_when_read"):
+                wraw = (ctypes.c_ulonglong * (ctas * 3))()
+                lib.k4_when_read(ctypes.addressof(wraw))
+                W = np.frombuffer(wraw, dtype=np.uint64).reshape(ctas, 3)
+                extra = residency(W[ran].astype(np.float64))
+            if warps > 1:
+                sms = torch.cuda.get_device_properties(0).multi_processor_count
+                extra["ms_by_ctas"] = {
+                    k * sms: time_ms(lambda: (
+                        k4.merge_tree_runs_kv(runs, rk, st, ln, _ctas=k * sms,
+                                              **kw) if kv else
+                        k4.merge_tree_runs(runs, st, ln, _ctas=k * sms, **kw)))
+                    for k in (1, 2, 3, 4, 5, 6)}
             out = {}
-            for wp, role in enumerate(roles(warps)):
+            for wp, role in enumerate(roles(warps, kw["group"])):
                 out.setdefault(role, []).append(P[ran, wp].mean(0))
             print(json.dumps({
                 "case": case, "kv": kv, "run_len": run_len, "block_out": bo,
-                "ms": ms, "ctas_ran": int(ran.sum()),
+                "ms": ms, "ctas_ran": int(ran.sum()), **extra,
                 "clocks_per_cta": {r: dict(zip(names, (
                     round(float(c), 1) for c in np.mean(v, 0))))
                     for r, v in out.items()}}), flush=True)

@@ -391,6 +391,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// 4 bytes from global `src` to shared `dst` (K4's leaves at any alignment),
+// and the arrive on `bar` that fires once every cp.async this thread has
+// issued so far is complete (counting as one of the barrier's arrivals).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 // Segment of flat CTA index g: the largest s with blk0[s] <= g.
 __device__ __forceinline__ int find_segment(const int32_t* blk0, int n, int g) {
   int lo = 0, hi = n - 1;

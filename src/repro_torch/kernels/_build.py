@@ -34,15 +34,15 @@ LAUNCHES: Dict[str, int] = {}
 
 DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
 
-_P, _I, _LL, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                     ctypes.c_ulonglong)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "flims_bitonic_rows": (_I, [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "flims_merge_blocks": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flims_merge_tree": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _I, _I, _I, _I, _I, _P]),
-    "flims_merge_tree_smem": (_U64, [_I, _I, _I, _I, _I]),
+                              _I, _I, _I, _I, _I, _P]),
+    "flims_merge_tree_smem": (_LL, [_I, _I, _I, _I, _I]),
+    "flims_merge_tree_occupancy": (_I, [_I, _I, _I, _I, _I]),
     "flims_segment_sort": (_I, [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
     "flims_moe_route": (_I, [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                              _P, _P]),

@@ -8,14 +8,20 @@ start (a multiple of ``w``) and an initial rotation, so each of the
 inner nodes stream through scratch and only the root writes.
 
 ``merge_tree_runs`` / ``merge_tree_runs_kv`` launch ``csrc/merge_tree.cu``
-for a CUDA tensor. There the kernel computes the nested partition itself,
-keeps the inner nodes in shared memory and reads the leaves in place; the
-wrapper raises when the shared-memory footprint passes the card's 227 KB.
-For a CPU tensor they run the plain version below (the ``*_plain`` twins run
-it on any device): the nested co-rank partition (``_tree_fns`` /
-``_tree_meta``) and the post-order dataflow, vectorised over grid steps.
+for a CUDA tensor and run the plain version below for a CPU tensor (the
+``*_plain`` twins run it on any device): the nested co-rank partition
+(``_tree_fns`` / ``_tree_meta``) and the post-order dataflow, vectorised
+over grid steps. The CUDA kernel is a persistent streaming merge tree (see
+its header): as many CTAs as the card holds, each taking an equal share of
+the flat blocks cut into spans at group boundaries (:func:`tree_spans`),
+one partition per span (:func:`leaf_count_partition`) and the tree
+streamed to the span's end through shared-memory FIFOs (:func:`tree_smem`).
+Its output does not depend on the split, which is why the plain version,
+one block at a time, is its reference.
 """
 from __future__ import annotations
+
+from bisect import bisect_right
 
 import torch
 
@@ -30,6 +36,10 @@ from repro_torch.kernels.flims_merge import (_exclusive_cumsum, block_size,
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM = 232448
 MAX_LEVELS = 3
+#: the CUDA kernel's FLiMS widths: the planner's range, one warp per node
+W_MIN, W_MAX = 8, 128
+
+_per_sm: dict = {}
 
 
 def _tree_nodes(group: int):
@@ -175,43 +185,181 @@ def _merge_tree_plain(buf, rbuf, starts, lens, *, group, n_out, C, w, G,
     return tuple(x[gg, pos % C] for x in out)
 
 
+def leaf_count_partition(keys, ranks, o: int, *, w: int,
+                         descending: bool):
+    """The CUDA kernel's partition of a span at group offset ``o``, in
+    plain Python: ``keys[j]`` (and ``ranks[j]``) are leaf j's lanes as
+    lists. At the root each leaf's count among the group's top-``o`` under
+    the tree's order (key, with rank on KV lanes; leaf descending;
+    position); below it each node's top-``a'`` is its top-``s`` less its
+    last ``s % w``, found among the last ``min(s % w, count)`` counted
+    elements of each leaf. Returns ``(leaf_base, rots)`` as
+    :func:`_tree_meta` gives them for one block (rotations in preorder)."""
+    group = len(keys)
+    kv = ranks is not None
+
+    def lane(j, p):
+        return (keys[j][p], ranks[j][p]) if kv else (keys[j][p],)
+
+    def wins(x, y):
+        if descending and x[0] != y[0]:
+            return x[0] > y[0]
+        if not descending and x[0] != y[0]:
+            return x[0] < y[0]
+        return kv and x[1] < y[1]
+
+    def precedes(y, jj, x, j):
+        return not wins(x, y) if jj > j else wins(y, x)
+
+    def prefix(n, ok):
+        """Largest m in [0, n] with ok(m - 1) for all below (ok monotone)."""
+        lo, hi = 0, n
+        while lo < hi:
+            m = (lo + hi + 1) // 2
+            lo, hi = (m, hi) if ok(m - 1) else (lo, m - 1)
+        return lo
+
+    def rank(j, p):
+        x = lane(j, p)
+        return p + sum(prefix(len(keys[jj]),
+                              lambda q, jj=jj: precedes(lane(jj, q), jj, x, j))
+                       for jj in range(group) if jj != j)
+
+    cnt = [prefix(min(o, len(keys[j])), lambda p, j=j: rank(j, p) < o)
+           for j in range(group)]
+    off = {1: o}
+    rot, base = {}, [0] * group
+    span, d = group, 0
+    while span >= 2:
+        if d:
+            new = []
+            for j in range(group):
+                first = j // span * span
+                node = range(first, first + span)
+                r = sum(cnt[jj] for jj in node) - off[(1 << d) + j // span]
+                q = min(r, cnt[j])
+                dropped = 0
+                for i in range(q):
+                    x = lane(j, cnt[j] - q + i)
+                    after = q - 1 - i
+                    for jj in node:
+                        if jj != j:
+                            qq = min(r, cnt[jj])
+                            after += qq - prefix(qq, lambda m, jj=jj: precedes(
+                                lane(jj, cnt[jj] - qq + m), jj, x, j))
+                    dropped += after < r
+                new.append(cnt[j] - dropped)
+            cnt = new
+        for t in range(1 << d):
+            h, lo = (1 << d) + t, t * span
+            sx = sum(cnt[lo:lo + span // 2])
+            sy = off[h] - sx
+            rot[h] = (sx % w, sy % w)
+            if span == 2:
+                base[lo], base[lo + 1] = sx - sx % w, sy - sy % w
+            else:
+                off[2 * h], off[2 * h + 1] = sx - sx % w, sy - sy % w
+        span, d = span // 2, d + 1
+    # heap order to _tree_nodes' preorder
+    heap = {}
+
+    def walk(lo, hi, h):
+        if hi - lo > 1:
+            heap[(lo, hi)] = h
+            walk(lo, (lo + hi) // 2, 2 * h)
+            walk((lo + hi) // 2, hi, 2 * h + 1)
+
+    walk(0, group, 1)
+    return base, [rot[heap[(lo, hi)]] for lo, _, hi, _ in _tree_nodes(group)]
+
+
+def tree_spans(blk0, grid: int):
+    """The CUDA kernel's span split: per CTA, the ``(group, first block,
+    end block)`` spans (flat block indices) it takes. CTA ``c`` takes the
+    flat blocks ``[c G // grid, (c + 1) G // grid)``, ``G = blk0[-1]``, cut
+    at group boundaries; a group with no block is passed over."""
+    G = blk0[-1]
+    out = []
+    for c in range(grid):
+        b, end, mine = c * G // grid, (c + 1) * G // grid, []
+        while b < end:
+            grp = bisect_right(blk0, b) - 1
+            stop = min(end, blk0[grp + 1])
+            mine.append((grp, b, stop))
+            b = stop
+        out.append(mine)
+    return out
+
+
+def tree_smem(dtype, kv: bool, descending: bool, L: int, w: int) -> int:
+    """Shared-memory bytes of one CTA of the CUDA kernel at (dtype, lane
+    form, direction, L, w), read from the compiled kernel on the card: its
+    static scratch plus the FIFO rings, mbarriers and partition windows its
+    launch requests. It does not depend on the output block."""
+    code = _build.dtype_code("merge_tree", dtype)
+    nbytes = _build.library().flims_merge_tree_smem(
+        code, int(kv), int(descending), L, w)
+    if nbytes < 0:
+        raise _build.KernelError(
+            f"merge_tree: footprint query failed ({nbytes}) at L={L}, w={w}")
+    return nbytes
+
+
+def _resident_ctas(code: int, kv: bool, descending: bool, L: int, w: int,
+                   device) -> int:
+    """CTAs the card holds at once: SMs times the kernel's occupancy at its
+    shared memory."""
+    key = (code, kv, descending, L, w, torch.device(device).index)
+    if key not in _per_sm:
+        per_sm = _build.library().flims_merge_tree_occupancy(
+            code, int(kv), int(descending), L, w)
+        if per_sm <= 0:
+            raise _build.KernelError(
+                f"merge_tree: occupancy query failed ({per_sm}) at L={L}, "
+                f"w={w}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _per_sm[key] = per_sm * sms
+    return _per_sm[key]
+
+
 def _merge_tree_cuda(name, buf, rbuf, starts, lens, *, group, n_out, C, w, G,
-                     descending):
+                     descending, ctas):
     kv = rbuf is not None
     L = group.bit_length() - 1
     if L > MAX_LEVELS:
         raise _build.KernelError(f"{name}: at most {MAX_LEVELS} fused levels")
     if not kv and not descending:
         raise _build.KernelError(f"{name}: key-only lanes merge descending")
+    if not W_MIN <= w <= W_MAX:
+        raise _build.KernelError(
+            f"{name}: the CUDA kernel runs one warp per tree node at w in "
+            f"[{W_MIN}, {W_MAX}], got w={w}")
     starts = starts.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     _build.check_cuda(name, buf, rbuf, starts, lens)
     code = _build.dtype_code(name, buf.dtype)
     if rbuf is not None and rbuf.dtype != torch.int32:
         raise _build.KernelError(f"{name}: int32 rank lanes")
-    smem = _build.library().flims_merge_tree_smem(L, int(kv),
-                                                  buf.element_size(), C, w)
-    if smem > MAX_SMEM:
-        raise _build.KernelError(
-            f"{name}: {smem} bytes of shared memory at L={L}, C={C}, w={w} "
-            f"pass the card's {MAX_SMEM}; lower block_out or levels")
     n_groups = starts.shape[0] // group
-    glen = lens.reshape(n_groups, group).sum(1, dtype=torch.int32)
-    goff = _exclusive_cumsum(glen)
-    blk0 = _exclusive_cumsum((glen + (C - 1)) // C)
+    # the kernel's group table (offsets and first blocks), written on the card
+    meta = torch.empty(2 * (n_groups + 1), dtype=torch.int32,
+                       device=buf.device)
     out = torch.empty(n_out, dtype=buf.dtype, device=buf.device)
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
+    ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
     P = _build.ptr
     _build.launch(name, "flims_merge_tree", code, int(kv), int(descending),
-                  L, P(buf), P(rbuf), P(starts), P(lens), P(goff), P(blk0),
-                  P(out), P(out_r), n_groups, n_out, G, C, w,
+                  L, P(buf), P(rbuf), P(starts), P(lens), P(meta), P(out),
+                  P(out_r), n_groups, n_out, C, w, min(ctas, G),
                   _build.stream(buf.device))
     return (out,) if not kv else (out, out_r)
 
 
 def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
-                     block_out, descending, cuda):
+                     block_out, descending, cuda, ctas=0):
+    """``ctas`` forces the CUDA kernel's CTA count (0: as many as the card
+    holds at once); the result does not depend on it."""
     kv = ranks is not None
     if kv:
         ranks = ranks.to(torch.int32)
@@ -231,7 +379,7 @@ def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
     if cuda:
         return _merge_tree_cuda(name, buf, ranks, starts, lens, group=group,
                                 n_out=n_out, C=C, w=w, G=G,
-                                descending=descending)
+                                descending=descending, ctas=ctas)
     return _merge_tree_plain(buf, ranks, starts, lens, group=group,
                              n_out=n_out, C=C, w=w, G=G,
                              descending=descending)
@@ -239,14 +387,15 @@ def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
 
 @obs.scoped("kernels.merge_tree")
 def merge_tree_runs(buf, starts, lens, *, group: int, n_out: int, w: int = 32,
-                    block_out: int = 1024):
+                    block_out: int = 1024, _ctas: int = 0):
     """Merge consecutive groups of ``group = 2^L`` descending runs (run r is
     ``buf[starts[r] : starts[r] + lens[r]]``) through ``L`` fused levels in
-    one launch. Returns the (n_out,) merged groups in group order."""
+    one launch. Returns the (n_out,) merged groups in group order.
+    ``_ctas`` (tests only) forces the CUDA kernel's CTA count."""
     return _merge_tree_call("merge_tree_runs", buf, None, starts, lens,
                             group=group, n_out=n_out, w=w,
                             block_out=block_out, descending=True,
-                            cuda=buf.is_cuda)[0]
+                            cuda=buf.is_cuda, ctas=_ctas)[0]
 
 
 def merge_tree_runs_plain(buf, starts, lens, *, group: int, n_out: int,
@@ -261,14 +410,14 @@ def merge_tree_runs_plain(buf, starts, lens, *, group: int, n_out: int,
 @obs.scoped("kernels.merge_tree_kv")
 def merge_tree_runs_kv(buf, ranks, starts, lens, *, group: int, n_out: int,
                        w: int = 32, block_out: int = 1024,
-                       descending: bool = True):
+                       descending: bool = True, _ctas: int = 0):
     """Stable KV form of ``merge_tree_runs``: (key, int32 rank) lanes under
     the compound order, either direction natively. Returns ``(keys,
-    ranks)``."""
+    ranks)``. ``_ctas`` (tests only) forces the CUDA kernel's CTA count."""
     return _merge_tree_call("merge_tree_runs_kv", buf, ranks, starts, lens,
                             group=group, n_out=n_out, w=w,
                             block_out=block_out, descending=descending,
-                            cuda=buf.is_cuda)
+                            cuda=buf.is_cuda, ctas=_ctas)
 
 
 def merge_tree_runs_kv_plain(buf, ranks, starts, lens, *, group: int,

@@ -118,18 +118,96 @@ def test_cuda_kernels_match_plain(card, descending):
                       descending=descending)
 
 
+# (run lengths, group, w, block_out) of K4 under forced CTA counts: runs at
+# starts off 16 bytes (after the 5-key run) and on them (the 4096-key runs
+# at multiples of 4 keys), partial last rows, empty runs and an empty group;
+# w 8, 32 and 128 (one, one and four lanes a thread); L 2 and 3
+K4_SPANS = [
+    ([5, 0, 33, 7, 0, 0, 0, 0, 900, 4, 170, 1, 300, 301, 299, 3] * 2, 4, 32,
+     64),
+    ([5, 0, 330, 7, 0, 0, 90, 4] + [0] * 8 + [640, 1, 0, 400, 3, 3, 9, 1000],
+     8, 8, 32),
+    ([4096, 2048, 3, 0, 0, 517, 1000, 999] * 2, 8, 128, 256),
+    ([4096, 0, 1, 2000, 7, 7, 7, 7], 4, 128, 512),
+]
+
+
 @pytest.mark.cuda
-def test_k4_footprint_guard_raises(card):
-    """The wrapper refuses a tree whose inner nodes pass 227 KB of shared
-    memory instead of clamping it (checked before any launch)."""
+@pytest.mark.parametrize("geom", K4_SPANS)
+def test_merge_tree_spans_match_plain(card, geom):
+    """K4 / K4kv against one plain result each under forced CTA counts (one
+    CTA taking every group in turn, 2, 7, and the card's own count): key-only
+    and KV both directions, the output whole and cut below the group total
+    (``n_out``), the buffers at their allocation and one key into it (every
+    start off 16 bytes: no row goes by bulk copy)."""
+    lens, group, w, bo = geom
+    for descending in (True, False):
+        buf, st, ln = (T(v).to(card) for v in ragged(lens, descending))
+        n = buf.numel()
+        rk = torch.arange(n, dtype=torch.int32, device=card)
+        shifted = [torch.cat([x.new_zeros(1), x])[1:] for x in (buf, rk)]
+        assert shifted[0].data_ptr() % 16 and torch.equal(shifted[1], rk)
+        for n_out in (n, n - n // 3):
+            kw = dict(group=group, n_out=n_out, w=w, block_out=bo)
+            cases = [(TT.merge_tree_runs_kv, (buf, rk),
+                      dict(kw, descending=descending))]
+            if descending:
+                cases.append((TT.merge_tree_runs, (buf,), kw))
+            for fn, args, ckw in cases:
+                plain = getattr(TT, fn.__name__ + "_plain")(*args, st, ln,
+                                                            **ckw)
+                plain = plain if isinstance(plain, tuple) else (plain,)
+                for xs in (args, shifted[:len(args)]):
+                    for ctas in (1, 2, 7, 0):
+                        got = fn(*xs, st, ln, _ctas=ctas, **ckw)
+                        got = got if isinstance(got, tuple) else (got,)
+                        for g, e in zip(got, plain):
+                            assert torch.equal(_bits(g), _bits(e)), (
+                                fn.__name__, n_out, ctas)
+
+
+@pytest.mark.cuda
+def test_k4_footprint_does_not_depend_on_block(card):
+    """The streaming tree's shared memory (rings, mbarriers, partition
+    windows), read from the compiled kernel, depends on (L, w, lanes) and
+    not on the output block: it fits the card for every plan the planner
+    can give (w 8 to 128, L 1 to 3, both dtypes, key-only and KV both
+    directions), and the plan the first version refused (KV, L 3, w 128, a
+    block of the whole 8192-key group: 227 KB of whole-block slots) runs at
+    every block from 128 to 8192 and matches the plain version."""
+    for dtype in (torch.float32, torch.int32):
+        for L in range(1, TT.MAX_LEVELS + 1):
+            for w in (8, 16, 32, 64, 128):
+                for kv, desc in ((False, True), (True, True), (True, False)):
+                    assert TT.tree_smem(dtype, kv, desc, L, w) <= TT.MAX_SMEM
+    assert TT.tree_smem(torch.float32, True, True, 3, 128) < 64 * 1024
     n = 8192
-    buf = torch.zeros(n, device="cuda")
-    st = torch.zeros(8, dtype=torch.int32, device="cuda")
-    ln = torch.tensor([n] + [0] * 7, dtype=torch.int32, device="cuda")
-    with pytest.raises(Exception, match="shared memory"):
-        TT.merge_tree_runs_kv(buf, torch.zeros(n, dtype=torch.int32,
-                                               device="cuda"), st, ln,
-                              group=8, n_out=n, w=128, block_out=n)
+    buf, st, ln = (T(v).to(card) for v in ragged([n] + [0] * 7))
+    rk = torch.arange(n, dtype=torch.int32, device=card)
+    for bo in (128, 1024, 8192):
+        _same_on_card(TT.merge_tree_runs_kv, buf, rk, st, ln, group=8,
+                      n_out=n, w=128, block_out=bo)
+
+
+@pytest.mark.cuda
+def test_k4_refuses_before_launch(card):
+    """What the streaming tree cannot run raises ``KernelError`` before any
+    launch: w past 128 (one warp per node holds at most four lanes a
+    thread) or under 8, more than three fused levels."""
+    from repro_torch.kernels import KernelError, launch_counts
+    buf, st, ln = (T(v).to(card) for v in ragged([64] * 16))
+    rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+    before = dict(launch_counts())
+    for w in (4, 256):
+        with pytest.raises(KernelError, match="w in"):
+            TT.merge_tree_runs(buf, st, ln, group=4, n_out=buf.numel(), w=w,
+                               block_out=256)
+        with pytest.raises(KernelError, match="w in"):
+            TT.merge_tree_runs_kv(buf, rk, st, ln, group=4,
+                                  n_out=buf.numel(), w=w, block_out=256)
+    with pytest.raises(KernelError, match="levels"):
+        TT.merge_tree_runs(buf, st, ln, group=16, n_out=buf.numel(), w=32)
+    assert dict(launch_counts()) == before
 
 
 @pytest.mark.cuda
