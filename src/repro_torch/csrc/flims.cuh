@@ -1,8 +1,8 @@
 // Shared FLiMS routines for the Hopper kernels: key bounds, XLA's max/min,
 // the compound (key, rank) order, the butterfly, the cooperative co-rank
 // search and one windowed FLiMS dataflow (selector, butterfly, two-row
-// window advance); for K8, the same butterfly run by one warp, mbarriers
-// and 1-D bulk copies.
+// window advance); for K4 and K8, the same butterfly run by one warp,
+// mbarriers, 1-D bulk copies and 4-byte cp.async.
 //
 // Counterpart of what the JAX package shares between `_merge_kernel` /
 // `_merge_kv_kernel` (kernels/flims_merge.py) and `tree_dataflow`
@@ -263,27 +263,9 @@ template <typename T, bool KV, bool DESC> struct RunReader {
   }
 };
 
-// A finished inner node's stream in shared memory (K4, K8): rows past what it
-// produced read as fill (last key, INVALID_RANK).
-template <typename T, bool KV, bool DESC> struct StreamReader {
-  const T* k;
-  const int32_t* r;
-  int rows, w;
-  __device__ Lane<T> operator()(int row, int c) const {
-    Lane<T> v;
-    if (row < rows) {
-      v.k = k[row * w + c];
-      v.r = KV ? r[row * w + c] : 0;
-    } else {
-      v.k = last_key<T, DESC>();
-      v.r = kInvalidRank;
-    }
-    return v;
-  }
-};
-
-// Warp-synchronous FLiMS (K8): one warp runs one w-wide dataflow, thread t
-// holding lanes t, t + 32, ... (M = w/32 of them; lane t < w for w < 32).
+// Warp-synchronous FLiMS (K4, K8): one warp runs one w-wide dataflow,
+// thread t holding lanes t, t + 32, ... (M = w/32 of them; lane t < w for
+// w < 32).
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // One compare-exchange of lanes (top, bottom) within a thread's registers:
@@ -389,6 +371,17 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
       ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// Orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones: a consumer that read a ring slot a bulk copy refills
+// fences before it frees the slot. The mbarrier alone orders the generic
+// proxy only; without the fence the refill could land before the reads
+// (-DFLIMS_NO_PROXY_FENCE leaves it out, for scripts/fan2_race.py only).
+__device__ __forceinline__ void fence_proxy_async() {
+#ifndef FLIMS_NO_PROXY_FENCE
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+#endif
 }
 
 // 4 bytes from global `src` to shared `dst` (K4's leaves at any alignment),

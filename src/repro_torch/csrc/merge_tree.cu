@@ -42,7 +42,8 @@
 //   other row (a run starting off 16 bytes, a run's partial last row) by
 //   4-byte cp.async, lanes past the run's end not copied. Both complete on
 //   the slot's full mbarrier. The parent reads positions at or past a run's
-//   end as the fill lane (last key, INVALID_RANK).
+//   end as the fill lane (last key, INVALID_RANK), and fences its reads of
+//   a slot (fence.proxy.async) before freeing it for the next copy.
 // - The root writes straight to HBM, coalesced, clipped at the group's end
 //   and at n_out.
 //
@@ -375,6 +376,7 @@ template <typename T, bool KV, bool DESC, int M> struct Source {
   int w, c;
   bool rev, leaf, nan;
   __device__ void release(int s) {
+    fence_proxy_async();  // a leaf slot is refilled by a bulk copy
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&f.empty[s]);
     ++q;
@@ -712,10 +714,11 @@ __global__ void __launch_bounds__(32 << L)
             continue;
           }
           any = true;
+          // every lane acquires the slot itself: on the cp.async path each
+          // lane writes it
           const int sl = f.slot(q_leaf[j]);
-          const bool free = __shfl_sync(
-              kFullWarp, (int)mbar_test(&f.empty[sl], f.parity(q_leaf[j]) ^ 1u), 0);
-          if (!free) continue;
+          if (!__all_sync(kFullWarp, mbar_test(&f.empty[sl], f.parity(q_leaf[j]) ^ 1u)))
+            continue;
           const long long p0 = (long long)r[j] * w, src = (long long)s_start[j] + s_base[j] + p0;
           const bool aligned = !(reinterpret_cast<uintptr_t>(buf + src) & 15) &&
                                (!KV || !(reinterpret_cast<uintptr_t>(rbuf + src) & 15));

@@ -51,6 +51,9 @@
 //   keeping up to kRingRows row copies of leaf j in flight into its ring,
 //   each completing on the slot's full mbarrier (expect_tx). Rows at or
 //   past a run's end are not copied: the parent reads them as sentinels.
+//   A parent fences its reads of a slot (fence.proxy.async) before freeing
+//   it: the refill is an async-proxy write the mbarrier does not order
+//   after generic reads (without it about 1 fan-2 pass in 400 went wrong).
 // - The root writes its rows straight to HBM, coalesced.
 // CTAs also write the `out_slack` trailing sentinels, so passes chain with
 // no copy.
@@ -268,6 +271,7 @@ template <typename T, bool KV, bool DESC, int M> struct Source {
   int taken, limit, w, c;
   bool rev;
   __device__ void release(int s) {
+    fence_proxy_async();  // a leaf slot is refilled by a bulk copy
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&f.empty[s]);
     ++q;
