@@ -40,7 +40,9 @@ the CUDA toolkit. It
    is millions of small tensor operations, launch-bound on the card), and
    K8 is held to one plain result under several CTA counts (``_ctas=``):
    spans of many blocks starting mid-group, one block a span, and one CTA
-   taking two groups of a fan-16 KV pass in turn;
+   taking two groups of a fan-16 KV pass in turn; K4 likewise on ragged runs
+   at unaligned starts under forced CTA counts (1, 2, 7 and the card's own),
+   the output whole and cut below the group total;
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
@@ -48,7 +50,8 @@ the CUDA toolkit. It
    time between the router, K7, the slab scatter, the expert products and
    the combine, and the out-of-core sort's between run formation and each
    merge pass; records one K8 pass and the whole out-of-core sort at fan-in
-   2, 4, 8 and 16.
+   2, 4, 8 and 16, K4 at engine.sort's first and last pass, engine.sort /
+   engine.argsort split per launch, and both at 2 and 3 fused levels a pass.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -288,6 +291,10 @@ def phase_main_path(engine, kernels, gen):
                           vb=vb, rbuf=rbuf, roffs=roffs)
 
 
+# CTA counts K4 is forced to against its plain version (0: the card's own)
+K4_CTAS = (1, 2, 7, 0)
+
+
 def phase_kernels_vs_plain(mods, gen):
     """Every kernel bit-for-bit against its plain version on the card."""
     k1, k2, k3, k4 = mods
@@ -336,16 +343,29 @@ def phase_kernels_vs_plain(mods, gen):
         both(k3.segmented_merge_runs_kv, buf, rk, buf, rk, *pairs,
              n_out=buf.shape[0], w=128, block_out=4096, descending=d)
 
+    # K4 on ragged runs at unaligned starts with empty runs, each against one
+    # plain result under forced CTA counts (one CTA taking every group in
+    # turn, 2, 7, the card's own count), the output whole and cut at 3/4
     for group, total in ((4, 1 << 20), (8, 1 << 18)):
         lens = ragged_lens(group * 32, total, gen)
         for d in (True, False):
             buf, st, ln = sorted_runs(lens, gen, descending=d)
-            rk = torch.arange(buf.shape[0], dtype=torch.int32, device=dev)
+            n = buf.shape[0]
+            rk = torch.arange(n, dtype=torch.int32, device=dev)
+            cases = [(k4.merge_tree_runs_kv, (buf, rk), dict(descending=d))]
             if d:
-                both(k4.merge_tree_runs, buf, st, ln, group=group,
-                     n_out=buf.shape[0], w=128, block_out=4096)
-            both(k4.merge_tree_runs_kv, buf, rk, st, ln, group=group,
-                 n_out=buf.shape[0], w=128, block_out=4096, descending=d)
+                cases.append((k4.merge_tree_runs, (buf,), {}))
+            for fn, args, kw in cases:
+                for n_out in (n, 3 * n // 4):
+                    ckw = dict(kw, group=group, n_out=n_out, w=128,
+                               block_out=4096)
+                    exp = plain_of(fn)(*args, st, ln, **ckw)
+                    for ctas in K4_CTAS:
+                        err = check_same(f"{fn.__name__} {ckw} ctas={ctas}",
+                                         fn(*args, st, ln, _ctas=ctas, **ckw),
+                                         exp)
+                        errs[fn.__name__] = max(errs.get(fn.__name__, 0.0),
+                                                err)
     torch.cuda.synchronize()
     print("kernels vs plain: all bit-for-bit " + json.dumps(errs),
           flush=True)
@@ -432,7 +452,15 @@ def phase_times(mods, launches, errs, data):
         err = check_same(f"{name} at the main path's shape", fn(*args, **kw),
                          plain(*args, **kw))
         bound_ms, bound_by = _bound(nbytes, ops)
-        table.append({
+        extra = {}
+        if fn in (k4.merge_tree_runs, k4.merge_tree_runs_kv):
+            kv = name.endswith("_kv")
+            extra = {"smem_bytes": k4.tree_smem(torch.float32, kv, True, 2,
+                                                128),
+                     "ctas": k4._resident_ctas(
+                         k4._build.DTYPE_CODES[torch.float32], kv, True, 2,
+                         128, dev)}
+        table.append({**extra,
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + source,
             "replaces": "src/repro/kernels/" + replaces,
@@ -446,7 +474,93 @@ def phase_times(mods, launches, errs, data):
             "library_call": "torch.sort(stable=True)" if name.endswith("_kv")
             else "torch.sort"})
         print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+    # recorded only: K4 at engine.sort's first pass (runs of 256, block
+    # 1024) and last (4 runs of 2^22, block 4096)
+    passes = []
+    for run_len, bo in ((256, 1024), (1 << 22, 4096)):
+        runs = torch.sort(data["xf"].reshape(-1, run_len), dim=-1,
+                          descending=True).values.reshape(-1)
+        st = torch.arange(0, n, run_len, dtype=torch.int32, device=dev)
+        ln = torch.full_like(st, run_len)
+        kw = dict(group=4, n_out=n, w=128, block_out=bo)
+        for fn, args in ((k4.merge_tree_runs, (runs,)),
+                         (k4.merge_tree_runs_kv, (runs, rcat))):
+            check_same(f"{fn.__name__} runs of {run_len}", fn(*args, st, ln,
+                                                              **kw),
+                       plain_of(fn)(*args, st, ln, **kw))
+            passes.append({"name": fn.__name__, "run_len": run_len,
+                           "block_out": bo,
+                           "ms": time_ms(lambda: fn(*args, st, ln, **kw))})
+    print(json.dumps({"k4_passes": passes}), flush=True)
     return table
+
+
+def sorter_split(engine, x, kv: bool):
+    """CUDA-event medians of ``engine.sort`` (``engine.argsort`` with
+    ``kv``) of ``x`` split into its launches: the K1 chunk sort, then each
+    merge pass at the shapes the schedule's ``schedule.pass`` events give
+    (runs of uniform length, sorted here)."""
+    from repro_torch import obs
+    from repro_torch.kernels import bitonic_sort as k1
+    from repro_torch.kernels import merge_tree as k4
+    n, chunk = x.shape[0], 256
+    obs.reset()
+    obs.enable()
+    (engine.argsort if kv else engine.sort)(x)
+    events = [e["data"] for e in obs.snapshot()["events"]
+              if e["kind"] == "schedule.pass"]
+    obs.disable()
+    obs.reset()
+    rows = x.reshape(-1, chunk)
+    ranks = torch.arange(n, dtype=torch.int32, device="cuda")
+    out = [{"pass": "K1", "ms": time_ms(
+        (lambda: k1.sort_chunks_kv(rows, ranks.reshape(-1, chunk)))
+        if kv else (lambda: k1.sort_chunks(rows)))}]
+    for ev in events:
+        runs = ev["runs"]
+        run_len = n // runs
+        srt = torch.sort(x.reshape(runs, run_len), dim=-1, descending=True,
+                         stable=True)
+        buf = srt.values.reshape(-1)
+        st = torch.arange(0, n, run_len, dtype=torch.int32, device="cuda")
+        ln = torch.full_like(st, run_len)
+        kw = dict(group=1 << ev["levels"], n_out=n, w=128,
+                  block_out=ev["block_out"])
+        if ev["levels"] < 2:
+            raise AssertionError(f"sorter pass at one level: {ev}")
+        if kv:
+            rk = ranks.reshape(runs, run_len).gather(1, srt.indices) \
+                .reshape(-1)
+            fn = lambda: k4.merge_tree_runs_kv(buf, rk, st, ln, **kw)
+        else:
+            fn = lambda: k4.merge_tree_runs(buf, st, ln, **kw)
+        out.append({"pass": len(out), "runs": runs, "run_len": run_len,
+                    "levels": ev["levels"], "block_out": ev["block_out"],
+                    "ms": time_ms(fn)})
+    return out
+
+
+def phase_sorter_split(engine, data):
+    """engine.sort / engine.argsort of 2^24 keys split per launch, and the
+    sorter at 2 and 3 fused levels a pass (``kernel_sort`` /
+    ``kernel_argsort``, the functions engine.sort / argsort call; recorded,
+    the planner keeps 2), each result bit-for-bit torch."""
+    from repro_torch.kernels import ops
+    xf, kt = data["xf"], data["kt"]
+    split = {"engine.sort f32 desc": sorter_split(engine, xf, False),
+             "engine.argsort f32 desc": sorter_split(engine, kt, True)}
+    print(json.dumps({"sorter_split": split}), flush=True)
+    levels = []
+    for L in (2, 3):
+        s_fn = lambda: ops.kernel_sort(xf, chunk=256, w=128, levels=L)
+        a_fn = lambda: ops.kernel_argsort(kt, chunk=256, w=128, levels=L)
+        check_same(f"kernel_sort levels={L}", s_fn(),
+                   torch.sort(xf, descending=True).values)
+        check_same(f"kernel_argsort levels={L}", a_fn().long(),
+                   torch.argsort(kt, descending=True, stable=True))
+        levels.append({"levels": L, "sort_ms": time_ms(s_fn),
+                       "argsort_ms": time_ms(a_fn)})
+    print(json.dumps({"sorter_levels": levels}), flush=True)
 
 
 def phase_e2e_times(engine, data):
@@ -1225,6 +1339,7 @@ def main() -> int:
     table += timed("slice 3 times", phase_slice3_times, slice3,
                    ext_launches, errs3, ext)
     timed("e2e times", phase_e2e_times, engine, data)
+    timed("sorter split", phase_sorter_split, engine, data)
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

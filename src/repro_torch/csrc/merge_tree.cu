@@ -68,8 +68,7 @@
 #include "flims.cuh"
 
 // Clock counters for scripts/k4_profile.py, compiled in only under
-// -DK4_PROFILE (the butterfly left out under -DK4_NO_BUTTERFLY, a floor with
-// wrong results): per warp, summed in shared memory and written to
+// -DK4_PROFILE: per warp, summed in shared memory and written to
 // k4_prof[cta][warp][counter] at the kernel's end, for the first
 // K4_PROF_CTAS CTAs. Without the define every PROF* macro is empty.
 #ifdef K4_PROFILE
@@ -479,7 +478,6 @@ __device__ void node_stream(Source<T, KV, DESC, M>& A, Source<T, KV, DESC, M>& B
       k += __popc(__ballot_sync(kFullWarp, take));
     }
     PROF_START(t_bfly);
-#ifndef K4_NO_BUTTERFLY
     if constexpr (mono) {
       if (slow) {
 #pragma unroll
@@ -498,7 +496,6 @@ __device__ void node_stream(Source<T, KV, DESC, M>& A, Source<T, KV, DESC, M>& B
     } else {
       warp_butterfly<T, KV, DESC, M>(v, w);
     }
-#endif
     PROF(5, t_bfly);
     PROF_START(t_put);
     if (!put(t, v)) return;
@@ -676,8 +673,9 @@ __global__ void __launch_bounds__(32 << L)
     PROF(2, t_part);
     PROF_START(t_span);
 
-    // rows leaf j can give: those before its run's end, at most the R + L + 2
-    // its depth-(L - 1) parent can take in R + L - 1 cycles
+    // rows leaf j can give: those before its run's end, at most R + L + 2
+    // (its depth-(L - 1) parent takes two rows, then at most one a cycle for
+    // R + L - 1 cycles)
     auto avail = [&](int j) { return (long long)s_len[j] - s_base[j]; };
     auto leaf_rows = [&](int j) {
       return (int)min((long long)rows + L + 2, (avail(j) + w - 1) / w);

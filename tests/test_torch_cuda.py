@@ -172,15 +172,23 @@ def test_k4_footprint_does_not_depend_on_block(card):
     windows), read from the compiled kernel, depends on (L, w, lanes) and
     not on the output block: it fits the card for every plan the planner
     can give (w 8 to 128, L 1 to 3, both dtypes, key-only and KV both
-    directions), and the plan the first version refused (KV, L 3, w 128, a
-    block of the whole 8192-key group: 227 KB of whole-block slots) runs at
-    every block from 128 to 8192 and matches the plain version."""
+    directions), below the first version's whole-block slots at the
+    planner's block of 4096 from two levels on, and the plan the first
+    version refused (KV, L 3, w 128, a block of the whole 8192-key group:
+    227 KB of slots) runs at every block from 128 to 8192 and matches the
+    plain version."""
+    def first_version(L, kv, w, C=4096):
+        lane = 8 if kv else 4
+        return max(w, 32) * lane + ((1 << L) - 2) * (C // w + L - 1) * w * lane
+
     for dtype in (torch.float32, torch.int32):
         for L in range(1, TT.MAX_LEVELS + 1):
             for w in (8, 16, 32, 64, 128):
                 for kv, desc in ((False, True), (True, True), (True, False)):
-                    assert TT.tree_smem(dtype, kv, desc, L, w) <= TT.MAX_SMEM
-    assert TT.tree_smem(torch.float32, True, True, 3, 128) < 64 * 1024
+                    smem = TT.tree_smem(dtype, kv, desc, L, w)
+                    assert smem <= TT.MAX_SMEM
+                    if L >= 2:
+                        assert smem < first_version(L, kv, w)
     n = 8192
     buf, st, ln = (T(v).to(card) for v in ragged([n] + [0] * 7))
     rk = torch.arange(n, dtype=torch.int32, device=card)
