@@ -375,7 +375,7 @@ template <typename T, bool KV, bool DESC, int M> struct Source {
   int w, c;
   bool rev, leaf, nan;
   __device__ void release(int s) {
-    fence_proxy_async();  // a leaf slot is refilled by a bulk copy
+    if (leaf) fence_proxy_async();  // a leaf slot is refilled by a bulk copy
     __syncwarp();
     if ((threadIdx.x & 31) == 0) mbar_arrive(&f.empty[s]);
     ++q;

@@ -167,6 +167,29 @@ def test_merge_tree_spans_match_plain(card, geom):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w,lens", [(128, [300, 0, 129, 77] * 8),
+                                    (32, [40, 3, 0, 1] * 16)])
+def test_k4_nan_rows_match_plain(card, w, lens):
+    """Key-only float lanes travel K4's tree as monotone integers, and a
+    node that reads a row holding a NaN runs the float selection and
+    butterfly: runs holding +NaN, -NaN, +0.0, -0.0 and -inf against the
+    plain version bit for bit, under forced CTA counts. One output block a
+    group, so no partition (its order is not a total one with NaNs)."""
+    pool = np.array([np.nan, -np.nan, 0.0, -0.0, 1.0, -1.0, -np.inf],
+                    np.float32)
+    buf = np.concatenate([np.sort(RNG.choice(pool, n))[::-1] for n in lens])
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    buf, st, ln = (T(v).to(card) for v in (buf.astype(np.float32),
+                                            offs[:-1].copy(),
+                                            np.diff(offs).astype(np.int32)))
+    kw = dict(group=4, n_out=buf.numel(), w=w, block_out=1024)
+    plain = TT.merge_tree_runs_plain(buf, st, ln, **kw)
+    for ctas in (1, 7, 0):
+        got = TT.merge_tree_runs(buf, st, ln, _ctas=ctas, **kw)
+        assert torch.equal(_bits(got), _bits(plain)), ctas
+
+
+@pytest.mark.cuda
 def test_k4_footprint_does_not_depend_on_block(card):
     """The streaming tree's shared memory (rings, mbarriers, partition
     windows), read from the compiled kernel, depends on (L, w, lanes) and
