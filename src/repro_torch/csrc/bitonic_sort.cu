@@ -16,6 +16,71 @@
 // barriers rather than by device memory (one read and one write of the row).
 #include "flims.cuh"
 
+// Clock counters for scripts/k1_profile.py, compiled in only under
+// -DK1_PROFILE: per warp, summed in shared memory and written to
+// k1_prof[cta][warp][counter] at the kernel's end, for the first
+// K1_PROF_CTAS CTAs, with each CTA's start and end (globaltimer) and SM.
+// Without the define every PROF* macro is empty.
+#ifdef K1_PROFILE
+#ifndef K1_PROF_CTAS
+#define K1_PROF_CTAS 4096
+#endif
+constexpr int kProfCounters = 6;
+constexpr int kProfWarps = 32;
+__device__ unsigned long long k1_prof[K1_PROF_CTAS * kProfWarps * kProfCounters];
+__device__ unsigned long long k1_when[K1_PROF_CTAS * 3];
+__shared__ unsigned long long s_prof[kProfWarps][kProfCounters];
+// load (global to shared memory, its barrier included), cas (the stages'
+// compare-exchanges), barrier (the barrier after each stage), store,
+// total, stages (count)
+extern "C" const char* k1_prof_names() { return "load,cas,barrier,store,total,stages"; }
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned smid() {
+  unsigned s;
+  asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
+  return s;
+}
+#define PROF_START(t) const long long t = clock64()
+#define PROF(k, t)                                                            \
+  do {                                                                        \
+    if ((threadIdx.x & 31) == 0) s_prof[threadIdx.x >> 5][k] += clock64() - (t); \
+  } while (0)
+#define PROF_COUNT(k)                                                         \
+  do {                                                                        \
+    if ((threadIdx.x & 31) == 0) s_prof[threadIdx.x >> 5][k] += 1;            \
+  } while (0)
+#define PROF_INIT()                                                           \
+  do {                                                                        \
+    if (threadIdx.x == 0 && blockIdx.x < K1_PROF_CTAS) {                      \
+      k1_when[blockIdx.x * 3] = globaltimer();                                \
+      k1_when[blockIdx.x * 3 + 2] = smid();                                   \
+    }                                                                         \
+    for (int i_ = threadIdx.x; i_ < kProfWarps * kProfCounters; i_ += blockDim.x) \
+      s_prof[i_ / kProfCounters][i_ % kProfCounters] = 0;                     \
+    __syncthreads();                                                          \
+  } while (0)
+#define PROF_FLUSH()                                                          \
+  do {                                                                        \
+    __syncthreads();                                                          \
+    if ((threadIdx.x & 31) == 0 && blockIdx.x < K1_PROF_CTAS)                 \
+      for (int k_ = 0; k_ < kProfCounters; ++k_)                              \
+        k1_prof[((size_t)blockIdx.x * kProfWarps + (threadIdx.x >> 5)) * kProfCounters + k_] = \
+            s_prof[threadIdx.x >> 5][k_];                                     \
+    if (threadIdx.x == 0 && blockIdx.x < K1_PROF_CTAS)                        \
+      k1_when[blockIdx.x * 3 + 1] = globaltimer();                            \
+  } while (0)
+#else
+#define PROF_START(t)
+#define PROF(k, t) do { } while (0)
+#define PROF_COUNT(k) do { } while (0)
+#define PROF_INIT() do { } while (0)
+#define PROF_FLUSH() do { } while (0)
+#endif
+
 namespace flims {
 
 template <typename T, bool KV, bool DESC>
@@ -26,16 +91,60 @@ __global__ void bitonic_rows_kernel(const T* __restrict__ kin, const int32_t* __
   T* sk = reinterpret_cast<T*>(smem);
   int32_t* sr = reinterpret_cast<int32_t*>(sk + c);
   const long long row = (long long)blockIdx.x * c;
+  PROF_INIT();
+  PROF_START(t_total);
+  PROF_START(t_load);
   for (int j = threadIdx.x; j < c; j += blockDim.x) {
     sk[j] = kin[row + j];
     if (KV) sr[j] = rin[row + j];
   }
   __syncthreads();
+  PROF(0, t_load);
+#ifdef K1_PROFILE
+  // bitonic_smem's stages, with the compare-exchanges and the barrier after
+  // each stage timed apart
+  const int half = c >> 1;
+  for (int lk = 1; lk <= logc; ++lk) {
+    for (int ld = lk - 1; ld >= 0; --ld) {
+      const int d = 1 << ld;
+      PROF_START(t_cas);
+      for (int j = threadIdx.x; j < half; j += blockDim.x) {
+        const int first = ((j >> ld) << (ld + 1)) + (j & (d - 1));
+        const int second = first + d;
+        const bool asc = (first >> lk) & 1;
+        const T kt = sk[first], kb = sk[second];
+        if (KV) {
+          const int32_t rt = sr[first], rb = sr[second];
+          const bool top_first = DESC ? (kt > kb || (kt == kb && rt < rb))
+                                      : (kt < kb || (kt == kb && rt < rb));
+          if (!(top_first ^ asc)) {
+            sk[first] = kb; sk[second] = kt;
+            sr[first] = rb; sr[second] = rt;
+          }
+        } else {
+          const T mx = xmax(kt, kb), mn = xmin(kt, kb);
+          sk[first] = asc ? mn : mx;
+          sk[second] = asc ? mx : mn;
+        }
+      }
+      PROF(1, t_cas);
+      PROF_START(t_bar);
+      __syncthreads();
+      PROF(2, t_bar);
+      PROF_COUNT(5);
+    }
+  }
+#else
   bitonic_smem<T, KV, DESC>(sk, sr, logc);
+#endif
+  PROF_START(t_store);
   for (int j = threadIdx.x; j < c; j += blockDim.x) {
     kout[row + j] = sk[j];
     if (KV) rout[row + j] = sr[j];
   }
+  PROF(3, t_store);
+  PROF(4, t_total);
+  PROF_FLUSH();
 }
 
 template <typename T, bool KV, bool DESC>
@@ -73,3 +182,26 @@ extern "C" int flims_bitonic_rows(int dtype, int kv, int desc, const void* kin, 
   if (dtype == kFloat32) return dispatch<float>(kv, desc, kin, rin, kout, rout, m, c, st);
   return cudaErrorInvalidValue;
 }
+
+#ifdef K1_PROFILE
+extern "C" int k1_prof_layout(int* ctas, int* warps, int* counters) {
+  *ctas = K1_PROF_CTAS;
+  *warps = kProfWarps;
+  *counters = kProfCounters;
+  return 0;
+}
+extern "C" int k1_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k1_prof, sizeof(k1_prof));
+}
+extern "C" int k1_prof_zero() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, k1_prof);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(k1_prof));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, k1_when);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(k1_when));
+}
+// (start ns, end ns, SM) per CTA
+extern "C" int k1_when_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k1_when, sizeof(k1_when));
+}
+#endif
