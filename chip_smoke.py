@@ -34,15 +34,17 @@ the CUDA toolkit. It
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
-   -inf; K8's plain version runs on the card at the main path's shapes (one
-   fan-8 group of 2^20-key runs, the fan-2 pass over two 2^26-key runs)
-   and on host copies of the inputs at small shapes up to fan 16 (there it
-   is millions of small tensor operations, launch-bound on the card), and
-   K8 is held to one plain result under several CTA counts (``_ctas=``):
-   spans of many blocks starting mid-group, one block a span, and one CTA
-   taking two groups of a fan-16 KV pass in turn; K4 likewise on ragged runs
-   at unaligned starts under forced CTA counts (1, 2, 7 and the card's own),
-   the output whole and cut below the group total;
+   -inf; K1 also on rows holding NaNs of several payloads and at a width of
+   4096 (stages through shared memory); K8's plain version runs on the card
+   at the main path's shapes (one fan-8 group of 2^20-key runs, the fan-2
+   pass over two 2^26-key runs) and on host copies of the inputs at small
+   shapes up to fan 16 (there it is millions of small tensor operations,
+   launch-bound on the card), and K8 is held to one plain result under
+   several CTA counts (``_ctas=``): spans of many blocks starting mid-group,
+   one block a span, and one CTA taking two groups of a fan-16 KV pass in
+   turn; K4 likewise on ragged runs at unaligned starts under forced CTA
+   counts (1, 2, 7 and the card's own), the output whole and cut below the
+   group total;
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
@@ -51,7 +53,10 @@ the CUDA toolkit. It
    the combine, and the out-of-core sort's between run formation and each
    merge pass; records one K8 pass and the whole out-of-core sort at fan-in
    2, 4, 8 and 16, K4 at engine.sort's first and last pass, engine.sort /
-   engine.argsort split per launch, and both at 2 and 3 fused levels a pass.
+   engine.argsort split per launch, and both at 2 and 3 fused levels a pass;
+   times K1 / K1kv at run formation's (524288, 256) and records the chunk
+   sweep: K1 / K1kv alone, engine.sort, engine.argsort and the out-of-core
+   run formation with the plan's chunk at 256, 512, 1024, 2048 and 4096.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -161,6 +166,17 @@ def dup_keys(n: int, gen) -> torch.Tensor:
     """float32 keys with heavy duplicates, +0.0, -0.0 and -inf among them."""
     pool = torch.tensor([float("-inf"), -3.0, -1.0, -0.0, 0.0, 0.5, 2.0,
                          7.0, 11.0, 12.5], device="cuda")
+    return pool[torch.randint(0, pool.numel(), (n,), generator=gen,
+                              device="cuda")]
+
+
+def nan_keys(n: int, gen) -> torch.Tensor:
+    """float32 keys with NaNs of several payloads (quiet, negative,
+    another mantissa) among +0.0, -0.0, -inf and duplicates: K1's exact
+    path, where a NaN operand of XLA's max / min wins both outputs."""
+    pool = torch.tensor([0x7fc00000, -0x00400000, 0x7fc00001, 0, -2 ** 31,
+                         -0x00800000, 0x3f800000, -0x40800000, 0x40200000],
+                        dtype=torch.int32, device="cuda").view(torch.float32)
     return pool[torch.randint(0, pool.numel(), (n,), generator=gen,
                               device="cuda")]
 
@@ -316,6 +332,16 @@ def phase_kernels_vs_plain(mods, gen):
                      device=dev).reshape(8192, 256)
     for d in (True, False):
         both(k1.sort_chunks_kv, kf, r, descending=d)
+    # K1 on rows holding NaNs (the exact path), and at a width past one
+    # warp's 256 keys (4096: stages at d >= 256 in shared memory)
+    for rows, c in ((8192, 256), (256, 4096)):
+        rk = torch.arange(rows * c, dtype=torch.int32,
+                          device=dev).reshape(rows, c)
+        for keys in (nan_keys, dup_keys):
+            x = keys(rows * c, gen).reshape(rows, c)
+            both(k1.sort_chunks, x)
+            for d in (True, False):
+                both(k1.sort_chunks_kv, x, rk, descending=d)
 
     na, nb = (1 << 20) + 12345, (1 << 20) - 777
     ra = torch.arange(na, dtype=torch.int32, device=dev)
@@ -453,6 +479,11 @@ def phase_times(mods, launches, errs, data):
                          plain(*args, **kw))
         bound_ms, bound_by = _bound(nbytes, ops)
         extra = {}
+        if fn in (k1.sort_chunks, k1.sort_chunks_kv):
+            kv = name.endswith("_kv")
+            extra = {"smem_bytes": k1.rows_smem(torch.float32, kv, True, 256),
+                     "ctas": k1.resident_ctas(torch.float32, kv, True, 256,
+                                              dev)}
         if fn in (k4.merge_tree_runs, k4.merge_tree_runs_kv):
             kv = name.endswith("_kv")
             extra = {"smem_bytes": k4.tree_smem(torch.float32, kv, True, 2,
@@ -493,6 +524,90 @@ def phase_times(mods, launches, errs, data):
                            "ms": time_ms(lambda: fn(*args, st, ln, **kw))})
     print(json.dumps({"k4_passes": passes}), flush=True)
     return table
+
+
+SWEEP_CHUNKS = (256, 512, 1024, 2048, 4096)
+
+
+def phase_k1_sweep(engine, kernels, k1, slice3, data, ext):
+    """K1 and K1kv at run formation's (524288, 256) beside their plain
+    versions, torch.sort and the bound; then the chunk sweep (recorded; the
+    planner keeps 256): at each width, K1 / K1kv alone over 2^24 keys, and
+    ``engine.sort`` / ``engine.argsort`` of 2^24 keys and the out-of-core
+    sort's run formation of 2^27 with the plan's chunk forced to it, each
+    result bit-for-bit torch, with its launches."""
+    from repro_torch.engine import planner
+    external = slice3[1]
+    dev = "cuda"
+    xf, kt = data["xf"], data["kt"]
+    n = xf.shape[0]
+    # run formation's rows: float32 key-only, and the stable sort's int32
+    # keys with their ranks
+    rows = ext["xf"].reshape(-1, 256)
+    krows, rrows = ext["xk"].reshape(-1, 256), ext["rank"].reshape(-1, 256)
+    big = []
+    for fn, args, nbytes, lib in (
+            (k1.sort_chunks, (rows,), 2 * N_EXT * 4,
+             lambda: torch.sort(rows, dim=-1, descending=True)),
+            (k1.sort_chunks_kv, (krows, rrows), 2 * N_EXT * 8,
+             lambda: torch.sort(krows, dim=-1, descending=True,
+                                stable=True))):
+        plain = plain_of(fn)
+        check_same(f"{fn.__name__} at (524288, 256)", fn(*args),
+                   plain(*args))
+        lg = math.log2(256)
+        bound_ms, bound_by = _bound(nbytes, N_EXT / 2 * lg * (lg + 1) / 2)
+        big.append({"name": fn.__name__, "rows": rows.shape[0], "c": 256,
+                    "keys": str(args[0].dtype), "ms": time_ms(lambda: fn(
+                        *args)),
+                    "plain_ms": time_ms(lambda: plain(*args), warmup=1,
+                                        reps=3),
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": time_ms(lib)})
+    print(json.dumps({"k1_run_formation": big}), flush=True)
+    rank = torch.arange(n, dtype=torch.int32, device=dev)
+    R, T = N_EXT >> 20, 1 << 20
+    ext_plan = external.resolve_dofs(planner.heuristic_plan(
+        "external_sort", planner.plan_key("external_sort", n=N_EXT,
+                                          dtype=ext["xf"].dtype,
+                                          backend="cuda")), N_EXT)
+    form_ref = torch.sort(ext["xf"].reshape(R, T), dim=1,
+                          descending=True).values.reshape(-1)
+    kv_ref = torch.sort(ext["xk"].reshape(R, T), dim=1, descending=True,
+                        stable=True)
+    kv_ref = (kv_ref.values.reshape(-1), ext["rank"].reshape(R, T).gather(
+        1, kv_ref.indices).reshape(-1))
+    s_ref = torch.sort(xf, descending=True).values
+    a_ref = torch.argsort(kt, descending=True, stable=True)
+    sweep = []
+    for c in SWEEP_CHUNKS:
+        row = {"chunk": c}
+        rk = rank.reshape(-1, c)
+        for name, fn in (("k1_ms", lambda: k1.sort_chunks(xf.reshape(-1, c))),
+                         ("k1kv_ms", lambda: k1.sort_chunks_kv(
+                             xf.reshape(-1, c), rk))):
+            row[name] = time_ms(fn)
+        plans = {op: planner.heuristic_plan(op, planner.plan_key(
+            op, n=n, dtype=x.dtype, backend="cuda")).replace(chunk=c)
+            for op, x in (("sort", xf), ("argsort", kt))}
+        form = lambda kv: external._form_runs_cuda(
+            ext["xk"] if kv else ext["xf"], ext["rank"] if kv else None, R,
+            T, w=ext_plan.w, chunk=c, levels=ext_plan.levels,
+            block_out=ext_plan.block_out, descending=True)
+        calls = (("sort", lambda: engine.sort(xf, plan=plans["sort"]),
+                  s_ref),
+                 ("argsort", lambda: engine.argsort(kt, plan=plans["argsort"]),
+                  a_ref.to(torch.int32)),
+                 ("run_form", lambda: form(False)[0], form_ref),
+                 ("run_form_kv", lambda: form(True), kv_ref))
+        for name, fn, ref in calls:
+            out, launches = counted(kernels, fn)
+            check_same(f"{name} at chunk {c}", out, ref)
+            row[name + "_ms"] = time_ms(fn)
+            row[name + "_launches"] = launches
+        sweep.append(row)
+        print(json.dumps({"chunk_sweep_row": row}), flush=True)
+    print(json.dumps({"chunk_sweep": sweep}), flush=True)
 
 
 def sorter_split(engine, x, kv: bool):
@@ -1341,6 +1456,8 @@ def main() -> int:
     timed("e2e times", phase_e2e_times, engine, data)
     timed("sorter split", phase_sorter_split, engine, data)
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
+    timed("K1 shapes and chunk sweep", phase_k1_sweep, engine, kernels, k1,
+          slice3, data, ext)
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

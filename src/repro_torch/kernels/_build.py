@@ -37,6 +37,8 @@ DTYPE_CODES = {torch.int32: 0, torch.float32: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "flims_bitonic_rows": (_I, [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
+    "flims_bitonic_rows_smem": (_LL, [_I, _I, _I, _I]),
+    "flims_bitonic_rows_occupancy": (_I, [_I, _I, _I, _I]),
     "flims_merge_blocks": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                 _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "flims_merge_tree": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,

@@ -8,6 +8,11 @@ launch ``csrc/bitonic_sort.cu`` for a CUDA tensor and run the plain version
 (the same network, vectorised over rows) for a CPU tensor.
 ``sort_chunks_plain`` / ``sort_chunks_kv_plain`` run the plain version on any
 device (how ``chip_smoke.py`` holds the kernel against it).
+
+The CUDA kernel runs the same network in registers: a warp holds 256 keys
+(8 a thread), rows up to 256 wide sort within one warp with shuffles and
+no barrier, wider rows span a CTA and take their stages at d >= 256
+through shared memory (:func:`rows_smem`, :func:`resident_ctas`).
 """
 from __future__ import annotations
 
@@ -17,7 +22,7 @@ from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flims_merge import xla_max, xla_min
 
-#: rows above this width do not fit one CTA's shared memory
+#: rows above this width do not fit one CTA (1024 threads of 16 keys)
 MAX_CHUNK = 16384
 
 
@@ -89,6 +94,33 @@ def _launch(name, k, r, descending):
                   int(descending), P(k), P(r), P(ok), P(orr), m, c,
                   _build.stream(k.device))
     return ok, orr
+
+
+def rows_smem(dtype, kv: bool, descending: bool, c: int) -> int:
+    """Shared-memory bytes of one CTA of the CUDA kernel for rows of ``c``
+    keys, read from the compiled kernel on the card: 0 up to c = 256, the
+    row (4 bytes a key, 8 with ranks) above."""
+    code = _build.dtype_code("sort_chunks", dtype)
+    nbytes = _build.library().flims_bitonic_rows_smem(
+        code, int(kv), int(descending), c)
+    if nbytes < 0:
+        raise _build.KernelError(
+            f"sort_chunks: footprint query failed ({nbytes}) at c={c}")
+    return nbytes
+
+
+def resident_ctas(dtype, kv: bool, descending: bool, c: int,
+                  device) -> int:
+    """CTAs the card holds at once for rows of ``c`` keys: SMs times the
+    kernel's occupancy query."""
+    code = _build.dtype_code("sort_chunks", dtype)
+    per_sm = _build.library().flims_bitonic_rows_occupancy(
+        code, int(kv), int(descending), c)
+    if per_sm <= 0:
+        raise _build.KernelError(
+            f"sort_chunks: occupancy query failed ({per_sm}) at c={c}")
+    return per_sm * torch.cuda.get_device_properties(
+        device).multi_processor_count
 
 
 def _sort_chunks(x, cuda: bool):

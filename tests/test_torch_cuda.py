@@ -118,6 +118,62 @@ def test_cuda_kernels_match_plain(card, descending):
                       descending=descending)
 
 
+# K1 / K1kv: widths from one key a row (a row within one thread) through
+# one warp's 256 to 16384 (one CTA of 1024 threads, stages at d >= 256 in
+# shared memory); row counts that leave the last CTA's warps partly idle
+K1_WIDTHS = [1, 2, 32, 64, 128, 256, 512, 1024, 4096, 16384]
+K1_ROWS = [1, 3, 4099]
+K1_NAN_POOL = np.array([np.nan, -np.nan, 0.0, -0.0, -np.inf, 1.0, -1.0],
+                       np.float32)
+K1_INT_POOL = np.array([np.iinfo(np.int32).min, -7, 0, 3, 3, 9,
+                        np.iinfo(np.int32).max], np.int32)
+
+
+def k1_keys(n, dtype, kind, device):
+    """Duplicate-heavy keys (float: +0.0, -0.0, -inf among them), float rows
+    holding +NaN and -NaN besides, or random int32."""
+    if kind == "random":
+        x = RNG.integers(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
+        return torch.from_numpy(x.astype(np.int32)).to(device)
+    pool = {"dup": FPOOL if dtype == torch.float32 else K1_INT_POOL,
+            "nan": K1_NAN_POOL}[kind]
+    return torch.from_numpy(RNG.choice(pool, n)).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", K1_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k1_matches_plain(card, dtype, c):
+    """K1 and K1kv (both directions) against their plain versions bit for
+    bit at every width and row count, on duplicate-heavy keys, float rows
+    holding NaNs, +0.0, -0.0 and -inf (the exact path), and ranks that
+    repeat INVALID_RANK as padding does."""
+    kinds = ("dup", "nan") if dtype == torch.float32 else ("dup", "random")
+    for m in K1_ROWS:
+        r = torch.arange(m * c, dtype=torch.int32, device=card).reshape(m, c)
+        r = torch.where(r % 7 == 3, torch.iinfo(torch.int32).max, r)
+        for kind in kinds:
+            k = k1_keys(m * c, dtype, kind, card).reshape(m, c)
+            _same_on_card(TB.sort_chunks, k)
+            for d in (True, False):
+                _same_on_card(TB.sort_chunks_kv, k, r, descending=d)
+
+
+@pytest.mark.cuda
+def test_k1_refuses_past_max_chunk(card):
+    """Rows wider than MAX_CHUNK raise ``KernelError`` before any launch."""
+    from repro_torch.kernels import KernelError, launch_counts
+    c = 2 * TB.MAX_CHUNK
+    k = torch.zeros(2, c, device=card)
+    r = torch.zeros(2, c, dtype=torch.int32, device=card)
+    before = dict(launch_counts())
+    with pytest.raises(KernelError, match=f"rows of {c}"):
+        TB.sort_chunks(k)
+    with pytest.raises(KernelError, match=f"rows of {c}"):
+        TB.sort_chunks_kv(k, r)
+    assert dict(launch_counts()) == before
+
+
 # (run lengths, group, w, block_out) of K4 under forced CTA counts: runs at
 # starts off 16 bytes (after the 5-key run) and on them (the 4096-key runs
 # at multiples of 4 keys), partial last rows, empty runs and an empty group;

@@ -110,6 +110,33 @@ def test_nan_sort_last(op):
         tfn(x, nan="raise", device="cpu")
 
 
+NAN_PAYLOADS = np.array([0x7fc00000, 0xffc12345, 0x7fc00001, 0x7fa00000],
+                        np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("payloads", [1, 4])
+def test_sort_nan_payloads_unsafe(payloads):
+    """``engine.sort`` under ``nan="unsafe"`` on float32 keys holding NaNs
+    (one pattern, or four payloads), +0.0, -0.0 and -inf: the ``cuda``
+    variant on the CPU against JAX ``pallas``. With one NaN pattern, bit for
+    bit; with several, the NaNs land at the same places and every other key
+    is bit for bit, but the payloads differ where XLA's max / min meets two
+    NaNs (ROADMAP queue 3)."""
+    x = FPOOL[RNG.integers(0, FPOOL.size, 300)]
+    hit = RNG.random(300) < 0.05
+    x[hit] = NAN_PAYLOADS[RNG.integers(0, payloads, int(hit.sum()))]
+    j = np.asarray(JE.sort(jnp.array(x), variant="pallas", nan="unsafe"))
+    t = TE.sort(x, variant="cuda", device="cpu", nan="unsafe")
+    if payloads == 1:
+        same(j, t)
+    else:
+        t = t.numpy()
+        np.testing.assert_array_equal(np.isnan(j), np.isnan(t))
+        keep = ~np.isnan(j)
+        np.testing.assert_array_equal(j[keep].view(np.int32),
+                                      t[keep].view(np.int32))
+
+
 @pytest.mark.parametrize("descending", [True, False])
 def test_merge_keys_and_values(descending):
     a, b = runs([90])[0], runs([70])[0]

@@ -70,21 +70,68 @@ def ragged(lens, dtype=np.float32, descending=True):
 # K1
 # --------------------------------------------------------------------------
 
+# (m, c) of K1 / K1kv: single-key rows, rows within one thread of the CUDA
+# kernel (8), a warp tile of several rows (64), a row wider than a warp (512)
+K1_SHAPES = [(8, 64), (3, 1), (5, 8), (2, 512)]
+
+
+@pytest.mark.parametrize("m,c", K1_SHAPES)
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-def test_k1_sort_chunks(dtype):
-    x = keys(8 * 64, dtype).reshape(8, 64)
+def test_k1_sort_chunks(dtype, m, c):
+    x = keys(m * c, dtype).reshape(m, c)
     same(JB.sort_chunks_pallas(jnp.array(x)), TB.sort_chunks(T(x)))
 
 
+@pytest.mark.parametrize("m,c", [(4, 32), (3, 1), (2, 512)])
 @pytest.mark.parametrize("descending", [True, False])
-def test_k1kv_sort_chunks_kv(descending):
-    k = keys(4 * 32).reshape(4, 32)
-    r = np.arange(k.size, dtype=np.int32).reshape(4, 32)
+def test_k1kv_sort_chunks_kv(descending, m, c):
+    k = keys(m * c).reshape(m, c)
+    r = np.arange(k.size, dtype=np.int32).reshape(m, c)
+    r[:, -c // 4:] = np.iinfo(np.int32).max      # padding ranks repeat
     jk, jr = JB.sort_chunks_kv_pallas(jnp.array(k), jnp.array(r),
                                       descending=descending)
     tk, tr = TB.sort_chunks_kv(T(k), T(r), descending=descending)
     same(jk, tk)
     same(jr, tr)
+
+
+# NaNs of differing payloads (quiet, negative, signalling), +0.0, -0.0,
+# -inf: a NaN operand of XLA's max / min wins both outputs, so which keys
+# survive depends on the network
+NAN_PAYLOADS = np.array([0x7fc00000, 0xffc12345, 0x7fc00001, 0x7fa00000],
+                        np.uint32).view(np.float32)
+NAN_ROW_KEYS = np.array([0.0, -0.0, -np.inf, 1.0, -2.5], np.float32)
+
+
+def nan_keys(n, payloads):
+    """float32 keys over ``NAN_ROW_KEYS`` and the first ``payloads`` NaN
+    patterns, each as likely as any key."""
+    pool = np.concatenate([NAN_PAYLOADS[:payloads], NAN_ROW_KEYS])
+    return RNG.choice(pool, n).astype(np.float32)
+
+
+def same_but_nan_payloads(j, t):
+    """NaNs at the same places and every other key bit for bit."""
+    j, t = np.asarray(j), t.numpy()
+    np.testing.assert_array_equal(np.isnan(j), np.isnan(t))
+    keep = ~np.isnan(j)
+    np.testing.assert_array_equal(j[keep].view(np.int32),
+                                  t[keep].view(np.int32))
+
+
+@pytest.mark.parametrize("payloads", [1, 4])
+def test_k1_nan_payloads_match_jax(payloads):
+    """K1's plain version against the JAX kernel (interpret mode) on rows
+    holding NaNs, +0.0, -0.0 and -inf. With one NaN pattern the rows agree
+    bit for bit. With several, the NaNs survive at the same places, but
+    where XLA's max / min meets two NaNs the payload it keeps is not the
+    top operand's, which the port keeps (ROADMAP queue 3)."""
+    x = nan_keys(4 * 64, payloads).reshape(4, 64)
+    j, t = JB.sort_chunks_pallas(jnp.array(x)), TB.sort_chunks(T(x))
+    if payloads == 1:
+        same(j, t)
+    else:
+        same_but_nan_payloads(j, t)
 
 
 # --------------------------------------------------------------------------
