@@ -22,8 +22,8 @@
 // loads and ~3k on all 36 stages (1.8k of them the 15 shuffle stages; 4.7k
 // KV, whose keys shuffle as 64 bits), 32 registers, 16 CTAs (64 warps) an
 // SM, and 2^27 keys take ~1.9x (KV ~2.3x) the byte bound: the loads' latency
-// and the shuffle stages' issue (a shuffle, a max, a min and a select per
-// shuffled key) between them. 16 or 32 keys a thread (10 or 6 shuffle
+// and the shuffle stages' instructions (a shuffle, a max, a min and a
+// select per shuffled key) between them. 16 or 32 keys a thread (10 or 6 shuffle
 // stages) and prefetching the next tile into registers were measured and
 // gained nothing: they cost residency (9 and 5 CTAs an SM KV) for the
 // instructions they save.
