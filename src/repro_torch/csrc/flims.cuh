@@ -40,22 +40,25 @@ template <typename T, bool DESC> __device__ __forceinline__ T last_key() {
 }
 
 // XLA's maximum/minimum, which the key-only JAX kernels use: a NaN operand
-// wins (the first if both are), and of a +0/-0 pair max gives +0 and min
-// gives -0 whatever the order. fmaxf promises neither, so the rule is
-// spelled out, as selects: a branch per lane would diverge the warp.
+// wins, and of a +0/-0 pair max gives +0 and min gives -0 whatever the
+// order. Of two NaNs, max(a, b) is a if a's sign bit is set, else b, and
+// min(a, b) is b if a's sign bit is set, else a: the rule jnp.maximum /
+// jnp.minimum follow on the CPU (jax 0.9.0), in the JAX kernels too. fmaxf
+// promises none of it, so the rule is spelled out, as selects: a branch per
+// lane would diverge the warp. Callers keep the JAX kernels' operand order.
 __device__ __forceinline__ int32_t xmax(int32_t a, int32_t b) { return a > b ? a : b; }
 __device__ __forceinline__ int32_t xmin(int32_t a, int32_t b) { return a < b ? a : b; }
 __device__ __forceinline__ float xmax(float a, float b) {
   float r = a > b ? a : b;
   r = a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : r;
   r = b != b ? b : r;
-  return a != a ? a : r;
+  return a != a && (b == b || __float_as_int(a) < 0) ? a : r;
 }
 __device__ __forceinline__ float xmin(float a, float b) {
   float r = a < b ? a : b;
   r = a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : r;
   r = b != b ? b : r;
-  return a != a ? a : r;
+  return a != a && (b == b || __float_as_int(a) >= 0) ? a : r;
 }
 
 // One lane: a key and, on KV lanes, its int32 rank.

@@ -25,7 +25,7 @@
 // log2(c)(log2(c)+1)/2 barrier-separated stages over c lanes. Shared memory
 // is c * 4 B (K5) or c * 8 B (K6) per CTA, so c <= 32768 (K5) and
 // c <= 16384 (K6) fit the 227 KB a CTA may use; the wrapper refuses more.
-#include "flims.cuh"
+#include "bitonic_net.cuh"
 
 namespace flims {
 
@@ -33,32 +33,58 @@ template <typename T, bool KV, bool DESC>
 __global__ void segment_sort_kernel(const T* __restrict__ kin, const int32_t* __restrict__ offsets,
                                     T* __restrict__ kout, int32_t* __restrict__ pout, int logcap) {
   extern __shared__ __align__(16) unsigned char smem[];
+  PROF_INIT();
+  PROF_START(t_total);
   const long long o0 = offsets[blockIdx.x];
   // A cap below the segment's length (engine.segment_sort refuses one)
   // sorts its first cap keys and leaves the rest unwritten: the kernel
   // never steps past its shared memory.
   int len = (int)(offsets[blockIdx.x + 1] - o0);
   if (len > (1 << logcap)) len = 1 << logcap;
-  if (len == 0) return;  // uniform over the CTA: no barrier is skipped by half of it
+  if (len == 0) {  // uniform over the CTA: no barrier is skipped by half of it
+    PROF(5, t_total);
+    PROF_FLUSH();
+    return;
+  }
+  PROF_START(t_load);
   int logc = logcap;
   if (KV) {
     logc = 0;
     while ((1 << logc) < len) ++logc;
   }
-  const int c = 1 << logc;
   T* sk = reinterpret_cast<T*>(smem);
-  int32_t* sr = reinterpret_cast<int32_t*>(sk + c);
-  for (int j = threadIdx.x; j < c; j += blockDim.x) {
+  int32_t* sr = reinterpret_cast<int32_t*>(sk + (1 << logcap));
+  bool nan = false;
+  for (int j = threadIdx.x; j < (1 << logc); j += blockDim.x) {
     const bool valid = j < len;
-    sk[j] = valid ? kin[o0 + j] : last_key<T, DESC>();
+    const T v = valid ? kin[o0 + j] : last_key<T, DESC>();
+    nan |= v != v;
+    sk[j] = v;
     if (KV) sr[j] = valid ? j : kInvalidRank;
   }
-  __syncthreads();
+  // A KV segment holding a NaN sorts over the whole cap, padding included,
+  // as the JAX kernel does: the compound compare is no total order there.
+  if (__syncthreads_or(nan) && logc < logcap) {
+    PROF_COUNT(6);
+    for (int j = (1 << logc) + threadIdx.x; j < (1 << logcap); j += blockDim.x) {
+      sk[j] = last_key<T, DESC>();
+      sr[j] = kInvalidRank;
+    }
+    logc = logcap;
+    __syncthreads();
+  }
+  PROF(0, t_load);
+  PROF_START(t_net);
   bitonic_smem<T, KV, DESC>(sk, sr, logc);
+  PROF(3, t_net);
+  PROF_START(t_store);
   for (int j = threadIdx.x; j < len; j += blockDim.x) {
     kout[o0 + j] = sk[j];
     if (KV) pout[o0 + j] = sr[j];
   }
+  PROF(4, t_store);
+  PROF(5, t_total);
+  PROF_FLUSH();
 }
 
 template <typename T, bool KV, bool DESC>
@@ -98,3 +124,31 @@ extern "C" int flims_segment_sort(int dtype, int kv, int desc, const void* kin,
   if (dtype == kFloat32) return dispatch<float>(kv, desc, kin, offsets, kout, pout, S, cap, st);
   return cudaErrorInvalidValue;
 }
+
+#ifdef K56_PROFILE
+// load (the segment's keys into shared memory and the NaN vote), regs,
+// shfl (stages in registers and across lanes: none here), smem (the
+// network's shared-memory stages and their barriers), store, total, exact
+// (count of warps on the full-cap NaN path)
+extern "C" const char* k56_prof_names() { return "load,regs,shfl,smem,store,total,exact"; }
+extern "C" int k56_prof_layout(int* ctas, int* warps, int* counters) {
+  *ctas = NET_PROF_CTAS;
+  *warps = kProfWarps;
+  *counters = kProfCounters;
+  return 0;
+}
+extern "C" int k56_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, net_prof, sizeof(net_prof));
+}
+extern "C" int k56_prof_zero() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, net_prof);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(net_prof));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, net_when);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(net_when));
+}
+// (start ns, end ns, SM) per CTA
+extern "C" int k56_when_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, net_when, sizeof(net_when));
+}
+#endif

@@ -37,28 +37,37 @@ _INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64,
 _RANK_LO = -2 ** 31
 
 
+def _keeps_a(a: torch.Tensor, b: torch.Tensor, on_sign: bool):
+    """Where the result is ``a`` for a NaN ``a``: always against a number;
+    against a NaN ``b``, where ``a``'s sign bit is ``on_sign``."""
+    neg = a.view(_INT_VIEW[a.dtype]) < 0
+    return torch.isnan(a) & (~torch.isnan(b) | (neg if on_sign else ~neg))
+
+
 def xla_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.maximum`` as XLA computes it: a NaN operand wins, and of a
     +0/-0 pair the result is +0 in either order (``torch.maximum`` returns
-    its first operand there)."""
+    its first operand there). Of two NaNs: ``a`` if its sign bit is set,
+    else ``b`` (XLA on the CPU, jax 0.9.0)."""
     if not a.dtype.is_floating_point:
         return torch.maximum(a, b)
     it = _INT_VIEW[a.dtype]
     eq = (a.view(it) & b.view(it)).view(a.dtype)
     out = torch.where(a > b, a, torch.where(b > a, b, eq))
     out = torch.where(torch.isnan(b), b, out)
-    return torch.where(torch.isnan(a), a, out)
+    return torch.where(_keeps_a(a, b, True), a, out)
 
 
 def xla_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``jnp.minimum`` as XLA computes it (-0 for a +0/-0 pair)."""
+    """``jnp.minimum`` as XLA computes it (-0 for a +0/-0 pair; of two NaNs,
+    ``b`` if ``a``'s sign bit is set, else ``a``)."""
     if not a.dtype.is_floating_point:
         return torch.minimum(a, b)
     it = _INT_VIEW[a.dtype]
     eq = (a.view(it) | b.view(it)).view(a.dtype)
     out = torch.where(a < b, a, torch.where(b < a, b, eq))
     out = torch.where(torch.isnan(b), b, out)
-    return torch.where(torch.isnan(a), a, out)
+    return torch.where(_keeps_a(a, b, False), a, out)
 
 
 def bound_keys(dtype, descending: bool = True):

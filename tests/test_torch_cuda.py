@@ -73,7 +73,12 @@ def _same_on_card(fn, *args, **kw):
     got = got if isinstance(got, tuple) else (got,)
     exp = exp if isinstance(exp, tuple) else (exp,)
     for g, e in zip(got, exp):
-        assert torch.equal(_bits(g), _bits(e))
+        assert g.shape == e.shape and g.dtype == e.dtype
+        bad = (_bits(g) != _bits(e)).flatten().nonzero()
+        assert not bad.numel(), (
+            f"{fn.__name__} {kw}: {bad.shape[0]} of {tuple(g.shape)} differ, "
+            f"first at {int(bad[0, 0])}: {g.flatten()[int(bad[0, 0])].item()}"
+            f" vs {e.flatten()[int(bad[0, 0])].item()}")
 
 
 @pytest.mark.cuda
@@ -357,21 +362,87 @@ def test_engine_on_card_edge_sizes(card, dtype):
                            torch.sort(x, descending=True).values)
 
 
+# NaNs of several payloads, +0.0, -0.0, ties and -inf (float32), and
+# int32 keys with their extremes
+SEG_NAN_POOL = np.concatenate([
+    np.array([0x7fc00000, 0xffc12345, 0x7fa00000], np.uint32).view(
+        np.float32), np.array([0.0, -0.0, 1.0, 2.0, -np.inf], np.float32)])
+SEG_ZERO_POOL = np.array([0.0, -0.0, 0.0, -0.0, 1.0], np.float32)
+SEG_INT_POOL = np.array([np.iinfo(np.int32).min, np.iinfo(np.int32).max, -1,
+                         0, 0, 7], np.int32)
+
+
+def seg_lens(cap):
+    """Every edge length up to ``cap``: 0, 1, 2, around a warp (31-33) and
+    its tile (255-257), and 2^k - 1, 2^k, 2^k + 1; a 3-key segment first,
+    so that the later starts sit off 16 bytes."""
+    edge = {0, 1, 2, 31, 32, 33, 255, 256, 257}
+    edge |= {(1 << k) + d for k in range(16) for d in (-1, 0, 1)}
+    return [min(3, cap)] + sorted(n for n in edge if 0 <= n <= cap)
+
+
+def seg_keys(lens, kind, dtype, device):
+    """Keys for ``lens`` on the card, in a buffer that starts 4 bytes past
+    a 16-byte boundary. ``kind``: ``mixed`` (ties, +0.0 / -0.0, -inf),
+    ``nan`` (NaNs in every other segment), ``zeros`` (dense in +0.0 /
+    -0.0)."""
+    n = sum(lens)
+    if dtype == torch.int32:
+        k = RNG.choice(SEG_INT_POOL if kind != "zeros" else
+                       np.array([0, -1], np.int32), n).astype(np.int32)
+    else:
+        pool = {"mixed": FPOOL, "nan": SEG_NAN_POOL,
+                "zeros": SEG_ZERO_POOL}[kind]
+        k = RNG.choice(pool, n).astype(np.float32)
+        if kind == "nan":
+            starts = np.concatenate([[0], np.cumsum(lens)])
+            for s in range(0, len(lens), 2):
+                seg = k[starts[s]:starts[s + 1]]
+                seg[np.isnan(seg)] = 1.0
+    buf = torch.empty(n + 1, dtype=dtype, device=device)
+    buf[1:] = T(k).to(device)
+    offs = T(np.concatenate([[0], np.cumsum(lens)]).astype(np.int32))
+    return buf[1:], offs.to(device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
 def test_segment_kernels_match_plain(card, dtype):
     """K5 (with the +0/-0 sign rule of XLA's max/min) and K6 against their
-    plain versions: empty, one-key and full-cap segments, both caps."""
-    n = sum(SEG_LENS)
-    k = T(keys(n)).to(card)
-    if dtype == torch.int32:
-        k = (k.clamp(-5, 5) * 3).to(torch.int32)
-    offs = T(np.concatenate([[0], np.cumsum(SEG_LENS)]).astype(
-        np.int32)).to(card)
-    for cap in (256, 1024):
-        _same_on_card(TS.segment_sort, k, offs, cap=cap)
-        for d in (True, False):
-            _same_on_card(TS.segment_sort_kv, k, offs, cap=cap, descending=d)
+    plain versions at every cap from 1 to 32768 (K5) / 16384 (K6), on
+    segments of every edge length (empty, one key, around a warp, its tile
+    and every power of two), with ties, dense +0.0 / -0.0, NaNs of several
+    payloads, starts off 16 bytes, both directions (K6)."""
+    for logcap in range(16):
+        cap = 1 << logcap
+        lens = seg_lens(cap)
+        for kind in ("mixed", "nan", "zeros"):
+            k, offs = seg_keys(lens, kind, dtype, card)
+            _same_on_card(TS.segment_sort, k, offs, cap=cap)
+            if cap <= TS.MAX_CAP_KV:
+                for d in (True, False):
+                    _same_on_card(TS.segment_sort_kv, k, offs, cap=cap,
+                                  descending=d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descending", [True, False])
+def test_k6_nan_segments_match_plain(card, descending):
+    """K6 on float segments holding a NaN sorts over the whole cap, padding
+    included, as its plain version and the JAX kernel do (with a NaN the
+    compound compare is no total order, so the network decides): the pinned
+    cases of a narrower network's fault, then NaN segments at every cap."""
+    for seg, cap in (([np.nan, 1.0, 2.0], 8), ([2.0, np.nan, 1.0, 3.0, 0.0],
+                                               16)):
+        k = T(np.array(seg, np.float32)).to(card)
+        offs = torch.tensor([0, len(seg)], dtype=torch.int32, device=card)
+        _same_on_card(TS.segment_sort_kv, k, offs, cap=cap,
+                      descending=descending)
+    for logcap in range(1, 15):
+        cap = 1 << logcap
+        k, offs = seg_keys(seg_lens(cap), "nan", torch.float32, card)
+        _same_on_card(TS.segment_sort_kv, k, offs, cap=cap,
+                      descending=descending)
 
 
 @pytest.mark.cuda

@@ -118,6 +118,92 @@ def test_k6_segment_sort_kv(descending, lens):
                                 descending=descending))
 
 
+# NaNs of several payloads among ties, +0.0 and -0.0: with a NaN the
+# compound compare of K6 is no total order, so the network decides
+NAN_POOL = np.concatenate([
+    np.array([0x7fc00000, 0xffc12345, 0x7fa00000], np.uint32).view(
+        np.float32),
+    np.array([0.0, -0.0, 1.0, 2.0, -np.inf], np.float32)])
+
+
+@pytest.mark.parametrize("descending", [True, False])
+@pytest.mark.parametrize("cap,lens", [(8, [3, 8, 0, 5, 1, 7, 2]),
+                                      (64, [7, 0, 40, 64, 13, 33])])
+def test_k6_nan_segments_match_jax(cap, lens, descending):
+    """K6 on float segments holding NaNs: the port's ``segment_sort_kv``
+    against ``segment_sort_kv_pallas`` (the network over the whole ``cap``,
+    padding included), keys and permutation bit for bit."""
+    vals = RNG.choice(NAN_POOL, sum(lens)).astype(np.float32)
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    jk, jp = JS.segment_sort_kv_pallas(jnp.array(vals), jnp.array(offs),
+                                       cap=cap, descending=descending)
+    tk, tp = TS.segment_sort_kv(T(vals), T(offs), cap=cap,
+                                descending=descending)
+    same(jk, tk)
+    same(jp, tp)
+
+
+def _prefix_sorts(keys, cap, width, kv, descending):
+    """Each row of ``keys`` (a list of 1-D segments) padded with the last key
+    to ``width(len)`` lanes and run through the port's plain network; the
+    valid prefixes, flat (keys, and ranks on KV lanes)."""
+    from repro_torch.kernels.bitonic_sort import (_bitonic_rows_desc,
+                                                  _bitonic_rows_kv)
+    from repro_torch.kernels.flims_merge import bound_keys
+    outk, outr = [], []
+    for seg in keys:
+        n, c = len(seg), width(len(seg))
+        last = bound_keys(T(seg).dtype, descending)[1]
+        k = torch.full((1, c), last, dtype=T(seg).dtype)
+        k[0, :n] = T(seg)
+        if kv:
+            r = torch.full((1, c), np.iinfo(np.int32).max,
+                           dtype=torch.int32)
+            r[0, :n] = torch.arange(n, dtype=torch.int32)
+            k, r = _bitonic_rows_kv(k, r, descending)
+            outr.append(r[0, :n])
+        else:
+            k = _bitonic_rows_desc(k)
+        outk.append(k[0, :n])
+    return torch.cat(outk), (torch.cat(outr) if kv else None)
+
+
+@pytest.mark.parametrize("kind", ["f32", "i32", "kv_f32_desc", "kv_f32_asc",
+                                  "kv_i32_asc"])
+def test_narrow_network_equals_full_cap_without_nan(kind):
+    """What K5 / K6's fast paths rest on: without a NaN the network over
+    ``next_pow2(len)`` lanes leaves the same valid prefix as the network
+    over the whole ``cap`` (XLA's max/min on +0.0 / -0.0 is the order of the
+    monotone int32 bits, and distinct ranks make the compound compare a
+    total order), on segments dense in ties, +0.0 and -0.0."""
+    cap = 64
+    dtype = np.int32 if "i32" in kind else np.float32
+    kv, descending = kind.startswith("kv"), not kind.endswith("asc")
+    segs = [keys(n, dtype) for n in list(range(1, cap + 1)) * 2]
+    full = _prefix_sorts(segs, cap, lambda n: cap, kv, descending)
+    narrow = _prefix_sorts(segs, cap, lambda n: 1 << (n - 1).bit_length(),
+                           kv, descending)
+    for f, n in zip(full, narrow):
+        if f is not None:
+            same(f.numpy(), n)
+
+
+def test_narrow_network_differs_on_nan_kv_segment():
+    """Why K6's NaN path runs the whole ``cap``: on ``[nan, 1.0, 2.0]`` at
+    cap 8 (descending) the narrow network (4 lanes) puts rank 0 third, the
+    full network, as JAX's kernel, the padding's INVALID_RANK."""
+    seg = np.array([np.nan, 1.0, 2.0], np.float32)
+    inv = np.iinfo(np.int32).max
+    _, full = _prefix_sorts([seg], 8, lambda n: 8, True, True)
+    _, narrow = _prefix_sorts([seg], 8, lambda n: 4, True, True)
+    assert full.tolist() == [2, 1, inv]
+    assert narrow.tolist() == [2, 1, 0]
+    offs = np.array([0, 3], np.int32)
+    _, jp = JS.segment_sort_kv_pallas(jnp.array(seg), jnp.array(offs), cap=8)
+    same(jp, full)
+    same(jp, TS.segment_sort_kv(T(seg), T(offs), cap=8)[1])
+
+
 @pytest.mark.parametrize("levels", [1, 2])
 @pytest.mark.parametrize("dtype", [np.float32, np.int32])
 def test_two_phase_sort(levels, dtype):
