@@ -35,7 +35,11 @@ the CUDA toolkit. It
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
    -inf; K1 also on rows holding NaNs of several payloads and at a width of
-   4096 (stages through shared memory); K8's plain version runs on the card
+   4096 (stages through shared memory); K5 / K6 also at the
+   many-short-segments shape and on segments holding NaNs or dense in
+   +0.0/-0.0 at caps 16384 and 32768 (K5), counted by route (warp, wide,
+   K5's shared-memory network at c = 32768, exact lanes); K8's plain
+   version runs on the card
    at the main path's shapes (one fan-8 group of 2^20-key runs, the fan-2
    pass over two 2^26-key runs) and on host copies of the inputs at small
    shapes up to fan 16 (there it is millions of small tensor operations,
@@ -56,7 +60,11 @@ the CUDA toolkit. It
    engine.argsort split per launch, and both at 2 and 3 fused levels a pass;
    times K1 / K1kv at run formation's (524288, 256) and records the chunk
    sweep: K1 / K1kv alone, engine.sort, engine.argsort and the out-of-core
-   run formation with the plan's chunk at 256, 512, 1024, 2048 and 4096.
+   run formation with the plan's chunk at 256, 512, 1024, 2048 and 4096;
+   times K5 / K6 also at 2^20 keys in 4096 segments of [0, 512] (cap 512,
+   the buckets of a grouped Moonlight-16B-A3B dispatch), and
+   engine.segment_sort / segment_argsort end to end at both shapes for the
+   ``cuda_fused``, ``cuda_two_phase`` and ``torch`` variants.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -80,6 +88,11 @@ N_MAIN = 1 << 24
 N_SEG = 1 << 22                # keys of the segmented-ops phase
 N_EXT = 1 << 27                # keys of the out-of-core phase (README's)
 SEG_MAX = 16384                # longest segment there (K6's largest cap)
+# many short segments: the (group x expert) buckets of a grouped
+# Moonlight-16B-A3B dispatch (64 experts, 2048 x 6 pairs a group, ~192 a
+# bucket), 4096 segments of [0, 512] keys, cap 512
+N_SHORT = 1 << 20
+SHORT_MAX = 512
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 # K7's weights against torch.softmax: exp(v - max) / sum on both sides,
 # CUDA's expf (within 2 ulps of exp) against torch's exp and its own order
@@ -745,10 +758,10 @@ def counted(kernels, fn):
     return out, kernels.launch_counts()
 
 
-def seg_offsets(total: int, gen):
-    """Ragged segment lengths in [0, SEG_MAX] summing to ``total``, every
+def seg_offsets(total: int, gen, longest: int = SEG_MAX):
+    """Ragged segment lengths in [0, longest] summing to ``total``, every
     17th segment empty; returns the lengths and int32 offsets on the card."""
-    draws = torch.randint(0, SEG_MAX + 1, (4 * total // SEG_MAX + 64,),
+    draws = torch.randint(0, longest + 1, (4 * total // longest + 64,),
                           generator=gen, device="cuda").tolist()
     lens, rem = [], total
     for i, n in enumerate(draws):
@@ -758,7 +771,7 @@ def seg_offsets(total: int, gen):
         lens.append(n)
         rem -= n
     while rem:
-        lens.append(min(rem, SEG_MAX))
+        lens.append(min(rem, longest))
         rem -= lens[-1]
     offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0)
     return lens, offs.to(device="cuda", dtype=torch.int32)
@@ -811,7 +824,9 @@ def phase_segments(engine, kernels, gen):
           f"({sum(1 for n in lens if not n)} empty, longest {max(lens)}), "
           "every cuda variant bit-for-bit torch; launches "
           + json.dumps(launches), flush=True)
-    return launches, dict(kf=kf, ki=ki, offs=offs, lens=lens)
+    short_lens, short_offs = seg_offsets(N_SHORT, gen, SHORT_MAX)
+    short = dict(kf=tie_keys(N_SHORT, gen), offs=short_offs, lens=short_lens)
+    return launches, dict(kf=kf, ki=ki, offs=offs, lens=lens, short=short)
 
 
 def _chunk_logits(moe, p, x, mode: str):
@@ -961,13 +976,22 @@ def phase_slice2_vs_plain(slice2, seg, route_logits, gen):
     small_offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0).to(
         device="cuda", dtype=torch.int32)
     small = dup_keys(sum(lens), gen)
+    short = seg["short"]
+    wide = [(nan_segments(WIDE_LENS[cap], gen), cap) for cap in WIDE_LENS]
     for x, offs, cap in ((seg["kf"], seg["offs"], SEG_MAX),
                          (seg["ki"], seg["offs"], SEG_MAX),
+                         (short["kf"], short["offs"], SHORT_MAX),
                          (small, small_offs, 1024),
-                         (small, small_offs, 4096)):
+                         (small, small_offs, 4096),
+                         *((x, o, cap) for (x, o), cap in wide)):
         both(k56.segment_sort, x, offs, cap=cap)
+        if cap > k56.MAX_CAP_KV:
+            continue
         for d in (True, False):
             both(k56.segment_sort_kv, x, offs, cap=cap, descending=d)
+    routes = {f"cap {cap}": seg_routes(WIDE_LENS[cap], x, offs, cap,
+                                       k56.MAX_CAP_KV)
+              for (x, offs), cap in wide}
     ulp_max = 0
     tied = []
     for G, T, E, k in ((1, 64, 8, 2), (3, 33, 5, 2), (2, 128, 16, 6),
@@ -984,10 +1008,53 @@ def phase_slice2_vs_plain(slice2, seg, route_logits, gen):
         errs["moe_route"] = max(errs["moe_route"], err)
         ulp_max = max(ulp_max, u)
     torch.cuda.synchronize()
-    print("slice 2 kernels vs plain: K5/K6 bit-for-bit, K7 integer lanes "
-          f"bit-for-bit, weights within {ulp_max} ulps "
+    print("slice 2 kernels vs plain: K5/K6 bit-for-bit (NaN and +-0 "
+          "segments by route, K5 then K6: " + json.dumps(routes) + "), K7 "
+          f"integer lanes bit-for-bit, weights within {ulp_max} ulps "
           + json.dumps(errs), flush=True)
     return errs
+
+
+# NaN and +-0 segments at the largest caps: every width class, starts off
+# 16 bytes (the 3-key segment first)
+WIDE_LENS = {16384: [3, 16384, 16383, 9000, 0, 1, 257, 8193, 4096, 33,
+                     16384, 12000],
+             32768: [3, 32768, 20000, 16385, 16384, 100, 0, 5, 32767,
+                     30000]}
+
+
+def nan_segments(lens, gen):
+    """Keys for ``lens``: even segments from ``nan_keys`` (NaNs of several
+    payloads among +-0), odd ones from ``dup_keys`` (+-0, no NaN)."""
+    parts = [(nan_keys if i % 2 == 0 else dup_keys)(n, gen)
+             for i, n in enumerate(lens)]
+    offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0).to(
+        device="cuda", dtype=torch.int32)
+    return torch.cat(parts), offs
+
+
+def seg_routes(lens, x, offs, cap, kv_cap):
+    """Segments of a batch by K5 / K6's route: empty; warp (c <= 256 or
+    512); wide (WideNet); smem (K5 at c = 32768); a NaN sends a segment to
+    the cap's route; "exact" marks the float lanes (a NaN, or on K6 a
+    -0.0). K6 is counted only up to ``kv_cap``."""
+    nan = [bool(torch.isnan(x[a:b]).any()) for a, b in
+           zip(offs[:-1].tolist(), offs[1:].tolist())]
+    negz = [bool((x[a:b].view(torch.int32) == -2 ** 31).any()) for a, b in
+            zip(offs[:-1].tolist(), offs[1:].tolist())]
+    tile = 256 if cap <= 8192 else 512
+    out = {}
+    for kv in (False, True)[:1 + (cap <= kv_cap)]:
+        cnt = {}
+        for n, h, z in zip(lens, nan, negz):
+            c = cap if h else 1 << max(n - 1, 0).bit_length()
+            r = ("empty" if not n else "warp" if c <= tile else
+                 "smem" if c == 32768 and not kv else "wide")
+            if h or (kv and z):
+                r += " exact"
+            cnt[r] = cnt.get(r, 0) + 1
+        out["K6" if kv else "K5"] = cnt
+    return out
 
 
 def _network_ops(lens) -> float:
@@ -1003,37 +1070,43 @@ def _network_ops(lens) -> float:
 
 def phase_slice2_times(slice2, launches, errs, seg, route_logits):
     """K5, K6 and K7 at their paths' shapes beside the plain versions, a
-    library call and the bound."""
+    library call and the bound; K5 / K6 also at the many-short-segments
+    shape (printed, not in the table)."""
     _, _, _, k7, k56, _ = slice2
-    kf, offs, lens = seg["kf"], seg["offs"], seg["lens"]
-    n, S = kf.numel(), len(lens)
-    bank = k56.padded_bank(kf, offs, SEG_MAX)
-    net = _network_ops(lens)
     lg, k, cap = route_logits[0]
     G, T, E = lg.shape
     Np = 1 << max(3, (T * k - 1).bit_length())
     lnp = Np.bit_length() - 1
-    cases = [
-        (k56.segment_sort, "segment_sort.cu", "segmented_merge.py:422",
-         (kf, offs), dict(cap=SEG_MAX), lambda: torch.sort(bank, dim=-1),
-         "torch.sort over the padded (S, cap) bank",
-         2 * n * 4 + (S + 1) * 4, net),
-        (k56.segment_sort_kv, "segment_sort.cu", "segmented_merge.py:521",
-         (kf, offs), dict(cap=SEG_MAX),
-         lambda: torch.sort(bank, dim=-1, stable=True),
-         "torch.sort(stable=True) over the padded (S, cap) bank",
-         3 * n * 4 + (S + 1) * 4, net),
+
+    def seg_cases(sh, cap):
+        kf, offs, lens = sh["kf"], sh["offs"], sh["lens"]
+        n, S = kf.numel(), len(lens)
+        bank = k56.padded_bank(kf, offs, cap)
+        net = _network_ops(lens)
+        return [
+            (k56.segment_sort, "segment_sort.cu", "segmented_merge.py:422",
+             (kf, offs), dict(cap=cap), lambda: torch.sort(bank, dim=-1),
+             "torch.sort over the padded (S, cap) bank",
+             2 * n * 4 + (S + 1) * 4, net),
+            (k56.segment_sort_kv, "segment_sort.cu",
+             "segmented_merge.py:521", (kf, offs), dict(cap=cap),
+             lambda: torch.sort(bank, dim=-1, stable=True),
+             "torch.sort(stable=True) over the padded (S, cap) bank",
+             3 * n * 4 + (S + 1) * 4, net)]
+
+    cases = seg_cases(seg, SEG_MAX) + [
         (k7.moe_route, "route_fuse.cu", "route_fuse.py:181", (lg, k, cap),
          {}, lambda: k7.moe_route_torch(lg, k, cap),
          "moe_route_torch, the torch variant: no single torch call routes",
          G * T * E * 4 + 6 * G * T * k * 4,
-         G * (T * E * k + Np / 2 * lnp * (lnp + 1) / 2)),
-    ]
+         G * (T * E * k + Np / 2 * lnp * (lnp + 1) / 2))]
+    short = seg_cases(seg["short"], SHORT_MAX)
     table = []
-    for fn, source, replaces, args, kw, lib, lib_call, nbytes, ops in cases:
+    for i, (fn, source, replaces, args, kw, lib, lib_call, nbytes,
+            ops) in enumerate(cases + short):
         name = fn.__name__
         bound_ms, bound_by = _bound(nbytes, ops)
-        table.append({
+        row = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/" + source,
             "replaces": "src/repro/kernels/" + replaces,
@@ -1043,14 +1116,45 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
             "plain_ms": time_ms(lambda: plain_of(fn)(*args, **kw), warmup=1,
                                 reps=5),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": time_ms(lib), "library_call": lib_call})
-        print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+            "library_ms": time_ms(lib), "library_call": lib_call}
+        if i < len(cases):
+            table.append(row)
+            print(f"time {name}: " + json.dumps(row), flush=True)
+        else:
+            row.update(keys=N_SHORT, segments=len(seg["short"]["lens"]),
+                       cap=SHORT_MAX)
+            print(f"time {name} short: " + json.dumps(row), flush=True)
     for lg2, k2, cap2 in route_logits[1:]:
         print(f"time moe_route {tuple(lg2.shape)} k={k2}: " + json.dumps({
             "ms": time_ms(lambda: k7.moe_route(lg2, k2, cap2)),
             "torch_variant_ms": time_ms(
                 lambda: k7.moe_route_torch(lg2, k2, cap2))}), flush=True)
     return table
+
+
+SEG_VARIANTS = ("cuda_fused", "cuda_two_phase", "torch")
+
+
+def phase_slice2_e2e(engine, seg):
+    """``engine.segment_sort`` / ``segment_argsort`` end to end at the
+    segmented-ops shape and the many-short-segments shape: ``cuda_fused``
+    (K5 / K6), ``cuda_two_phase`` (the planner's default on the card: K1,
+    then K3 / K4 passes) and ``torch``, each result bit-for-bit ``torch``'s
+    (float32 keys 0..999: ties, no signed zeros)."""
+    rows = []
+    for shape, sh in (("seg", seg), ("short", seg["short"])):
+        kf, offs = sh["kf"], sh["offs"]
+        for op in ("segment_sort", "segment_argsort"):
+            fn = getattr(engine, op)
+            ref = fn(kf, offs, variant="torch")
+            row = {"call": f"engine.{op}", "shape": shape, "n": kf.numel(),
+                   "segments": len(sh["lens"])}
+            for v in SEG_VARIANTS:
+                check_same(f"engine.{op} {v} {shape}",
+                           fn(kf, offs, variant=v), ref)
+                row[f"{v}_ms"] = time_ms(lambda: fn(kf, offs, variant=v))
+            rows.append(row)
+    print(json.dumps({"e2e_segments": rows}), flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -1454,6 +1558,7 @@ def main() -> int:
     table += timed("slice 3 times", phase_slice3_times, slice3,
                    ext_launches, errs3, ext)
     timed("e2e times", phase_e2e_times, engine, data)
+    timed("slice 2 e2e times", phase_slice2_e2e, engine, seg)
     timed("sorter split", phase_sorter_split, engine, data)
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
     timed("K1 shapes and chunk sweep", phase_k1_sweep, engine, kernels, k1,
