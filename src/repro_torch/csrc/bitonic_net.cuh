@@ -122,8 +122,8 @@ struct PackedOps {
   __device__ static V shfl(V v, int m) { return __shfl_xor_sync(kFull, v, m); }
 };
 
-// Exact key-only float lanes: XLA's max / min, operand order kept (a NaN
-// operand wins, the top one of two NaNs).
+// Exact key-only float lanes: XLA's max / min (flims.cuh), operand order
+// kept: a NaN operand wins, and of two NaNs the top one's sign bit decides.
 struct FloatOps {
   using V = float;
   static constexpr bool kFlip = false;
@@ -134,7 +134,7 @@ struct FloatOps {
   }
   __device__ static V keep(V own, V p, bool top, bool asc) {
     const V a = top ? own : p, b = top ? p : own;
-    return (top != asc) ? xmax(a, b) : xmin(a, b);
+    return xsel(a, b, top != asc);
   }
   __device__ static V shfl(V v, int m) { return __shfl_xor_sync(kFull, v, m); }
 };

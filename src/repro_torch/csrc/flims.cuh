@@ -46,20 +46,20 @@ template <typename T, bool DESC> __device__ __forceinline__ T last_key() {
 // jnp.minimum follow on the CPU (jax 0.9.0), in the JAX kernels too. fmaxf
 // promises none of it, so the rule is spelled out, as selects: a branch per
 // lane would diverge the warp. Callers keep the JAX kernels' operand order.
-__device__ __forceinline__ int32_t xmax(int32_t a, int32_t b) { return a > b ? a : b; }
-__device__ __forceinline__ int32_t xmin(int32_t a, int32_t b) { return a < b ? a : b; }
-__device__ __forceinline__ float xmax(float a, float b) {
-  float r = a > b ? a : b;
-  r = a == b ? __int_as_float(__float_as_int(a) & __float_as_int(b)) : r;
-  r = b != b ? b : r;
-  return a != a && (b == b || __float_as_int(a) < 0) ? a : r;
+// xsel(a, b, hi) is max(a, b) where `hi`, else min(a, b): one chain of
+// selects for a lane that keeps one side of a compare-exchange.
+__device__ __forceinline__ int32_t xsel(int32_t a, int32_t b, bool hi) {
+  return (hi ? a > b : a < b) ? a : b;
 }
-__device__ __forceinline__ float xmin(float a, float b) {
-  float r = a < b ? a : b;
-  r = a == b ? __int_as_float(__float_as_int(a) | __float_as_int(b)) : r;
+__device__ __forceinline__ float xsel(float a, float b, bool hi) {
+  const int32_t ai = __float_as_int(a), bi = __float_as_int(b);
+  float r = (hi ? a > b : a < b) ? a : b;
+  r = a == b ? __int_as_float(hi ? ai & bi : ai | bi) : r;
   r = b != b ? b : r;
-  return a != a && (b == b || __float_as_int(a) >= 0) ? a : r;
+  return a != a && (b == b || (ai < 0) == hi) ? a : r;
 }
+template <typename T> __device__ __forceinline__ T xmax(T a, T b) { return xsel(a, b, true); }
+template <typename T> __device__ __forceinline__ T xmin(T a, T b) { return xsel(a, b, false); }
 
 // One lane: a key and, on KV lanes, its int32 rank.
 template <typename T> struct Lane {
@@ -148,7 +148,7 @@ __device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* x
       const bool keep = top ? wins<T, KV, DESC>(v, p) : wins<T, KV, DESC>(p, v);
       if (!keep) v = p;
     } else {
-      v.k = top ? xmax(v.k, p.k) : xmin(p.k, v.k);
+      v.k = xsel(top ? v.k : p.k, top ? p.k : v.k, top);
     }
   }
   return v;
@@ -315,7 +315,7 @@ __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
         const bool keep = wins<T, KV, DESC>(pick(top, v[m], p), pick(top, p, v[m]));
         v[m] = pick(keep, v[m], p);
       } else {
-        v[m].k = top ? xmax(v[m].k, p.k) : xmin(p.k, v[m].k);
+        v[m].k = xsel(top ? v[m].k : p.k, top ? p.k : v[m].k, top);
       }
     }
   }

@@ -10,9 +10,11 @@ Counterpart of ``repro/kernels/segmented_merge.py``.
   and ``segmented_merge`` (two ragged batches, by offsets) is one launch of
   it.
 - K5 ``segment_sort`` and K6 ``segment_sort_kv`` (with ``segment_argsort``
-  over it) sort every segment of a ragged batch in one launch, one CTA per
-  segment, each padded to the static power-of-two ``cap``
-  (``csrc/segment_sort.cu``).
+  over it) sort every segment of a ragged batch in one launch, each padded
+  to the static power-of-two ``cap`` (``csrc/segment_sort.cu``: K1's
+  register network, one segment a warp up to cap 256 and a CTA above; a
+  NaN-free segment sorts ``next_pow2(len)`` lanes, which leave the same
+  valid prefix, and a segment holding a NaN the whole cap).
 - ``segment_sort_two_phase`` / ``segment_argsort_two_phase`` are K1 over
   every segment's ``chunk``-wide rows, then a ``tree_cuda`` schedule over
   each segment's ``cap // chunk`` runs (K4, or K3 at one level).
@@ -50,7 +52,7 @@ __all__ = ["padded_bank", "unpad_bank", "segmented_merge_runs",
 
 #: the largest ``cap`` one CTA's shared memory holds: cap * 4 B of keys (K5)
 MAX_CAP = 32768
-#: ... and cap * 8 B of keys and ranks (K6)
+#: ... and cap * 8 B of keys and ranks (K6, at 1024 threads of 16 lanes)
 MAX_CAP_KV = 16384
 
 
@@ -168,7 +170,7 @@ def segmented_merge(a, a_offsets, b, b_offsets, *, w: int = 32,
 
 
 # --------------------------------------------------------------------------
-# K5 / K6: fused segmented sort, one CTA per segment
+# K5 / K6: fused segmented sort in one launch
 # --------------------------------------------------------------------------
 
 def _rank_bank(offsets, cap: int):
