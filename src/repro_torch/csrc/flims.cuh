@@ -15,6 +15,7 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace flims {
 
@@ -289,9 +290,31 @@ __device__ __forceinline__ void cas_regs(Lane<T>& top, Lane<T>& bot) {
 
 // `butterfly` over the warp's M lanes per thread: stages d >= 32 pair
 // registers of one thread (slot m with m ^ d/32), stages d < 32 shuffle.
-// Lanes >= w (w < 32) shuffle too and are ignored.
+// Lanes >= w (w < 32) shuffle too and are ignored. Key-only float lanes
+// without a NaN in the warp run on their monotone int32 bits, whose integer
+// max / min are XLA's there (-0 below +0); a NaN keeps the float selects.
 template <typename T, bool KV, bool DESC, int M>
 __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
+  if constexpr (!KV && std::is_same<T, float>::value) {
+    bool nan = false;
+#pragma unroll
+    for (int m = 0; m < M; ++m) nan |= v[m].k != v[m].k;
+    if (!__any_sync(kFullWarp, nan)) {
+      Lane<int32_t> u[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int32_t b = __float_as_int(v[m].k);
+        u[m] = Lane<int32_t>{b ^ ((b >> 31) & 0x7fffffff), 0};
+      }
+      warp_butterfly<int32_t, false, DESC, M>(u, w);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int32_t b = u[m].k;
+        v[m].k = __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
+      }
+      return;
+    }
+  }
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int dd = M / 2; dd >= 1; dd >>= 1) {

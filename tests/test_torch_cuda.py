@@ -556,6 +556,24 @@ def test_stream_kernel_matches_plain(card, geom, descending):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("runs,run_len,w", [(8, 64, 32), (16, 512, 128)])
+def test_stream_kernel_nan_runs_match_plain(card, runs, run_len, w):
+    """K8's key-only butterfly runs NaN-free warps on monotone integers and
+    a warp holding a NaN on the float selects (XLA's max / min): runs
+    holding +NaN, -NaN of two payloads, +0.0, -0.0 and -inf against the
+    plain version bit for bit. One output block a group, so no partition
+    (its order is not a total one with NaNs)."""
+    pool = np.concatenate([np.array([0x7fc00000, 0xffc12345], np.uint32).view(
+        np.float32), np.array([0.0, -0.0, 1.0, -1.0, -np.inf], np.float32)])
+    k = np.concatenate([np.sort(RNG.choice(pool, run_len))[::-1]
+                        for _ in range(runs)])
+    kw = dict(runs=runs, run_len=run_len, fan_in=8, w=w,
+              block_out=8 * run_len)
+    _same_on_card(TK8.stream_merge_runs, T(k.astype(np.float32)).to(card),
+                  out_slack=5, **kw)
+
+
+@pytest.mark.cuda
 def test_stream_kernel_footprint_guard_raises(card):
     """K8's wrapper refuses, before any launch, what the streaming tree
     cannot run: w past 128 (one warp per node holds at most 4 lanes a

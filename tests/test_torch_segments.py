@@ -132,7 +132,8 @@ NAN_POOL = np.concatenate([
 def test_k6_nan_segments_match_jax(cap, lens, descending):
     """K6 on float segments holding NaNs: the port's ``segment_sort_kv``
     against ``segment_sort_kv_pallas`` (the network over the whole ``cap``,
-    padding included), keys and permutation bit for bit."""
+    padding included), keys and permutation bit for bit; K5 (descending)
+    likewise, NaN payloads included (XLA's max / min on two NaNs)."""
     vals = RNG.choice(NAN_POOL, sum(lens)).astype(np.float32)
     offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
     jk, jp = JS.segment_sort_kv_pallas(jnp.array(vals), jnp.array(offs),
@@ -141,6 +142,10 @@ def test_k6_nan_segments_match_jax(cap, lens, descending):
                                 descending=descending)
     same(jk, tk)
     same(jp, tp)
+    if descending:
+        same(JS.segment_sort_pallas(jnp.array(vals), jnp.array(offs),
+                                    cap=cap),
+             TS.segment_sort(T(vals), T(offs), cap=cap))
 
 
 def _prefix_sorts(keys, cap, width, kv, descending):
