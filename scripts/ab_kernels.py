@@ -7,16 +7,19 @@ in turns on one card.
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Each ``CSRC_DIR`` is a copy of ``src/repro_torch/csrc``
 (this tree's, or an earlier commit's unpacked into a gitignored path). Its
-``flims_merge.cu``, ``stream_merge.cu``, ``bitonic_sort.cu`` and
-``segment_sort.cu`` are built with the port's nvcc flags into
-``build/ab_kernels/<label>/libflims.so``, every nvcc process started
-together. In each round every library is put in turn under the wrappers,
-first to last and then last to first, and each case is timed with CUDA
-events (median of 7 after a warm-up), on float32 keys from a seeded
-generator at the shapes ``chip_smoke.py`` times:
+``flims_merge.cu``, ``stream_merge.cu``, ``bitonic_sort.cu``,
+``segment_sort.cu`` and ``merge_tree.cu`` are built with the port's nvcc
+flags into ``build/ab_kernels/<label>/libflims.so``, every nvcc process
+started together. In each round every library is put in turn under the
+wrappers, first to last and then last to first, and each case is timed
+with CUDA events (median of 7 after a warm-up), on float32 keys from a
+seeded generator at the shapes ``chip_smoke.py`` times:
 
 - ``K2``: ``flims_merge`` of two sorted 2^23 runs (w 128, C 4096);
 - ``K3``: ``segmented_merge_runs`` of the same pair;
+- ``K4``: ``merge_tree_runs``, a pass of engine.sort over 2^24 keys in
+  sorted runs of 4096, groups of 4 (w 128, C 4096), and ``K4 first``, its
+  first pass (runs of 256, C 1024);
 - ``K8``: ``stream_merge_runs``, one fan-8 pass over 128 runs of 2^20;
 - ``K1 nan``: ``sort_chunks`` at (65536, 256) on rows holding NaNs (one
   payload), +0.0 and -0.0 (the exact lanes), ``K1``: NaN-free rows;
@@ -47,11 +50,12 @@ from k56_profile import ragged  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bitonic_sort as k1  # noqa: E402
 from repro_torch.kernels import flims_merge as k2  # noqa: E402
+from repro_torch.kernels import merge_tree as k4  # noqa: E402
 from repro_torch.kernels import segmented_merge as k3  # noqa: E402
 from repro_torch.kernels import stream_merge as k8  # noqa: E402
 
 SOURCES = ("flims_merge.cu", "stream_merge.cu", "bitonic_sort.cu",
-           "segment_sort.cu")
+           "segment_sort.cu", "merge_tree.cu")
 
 
 def build_all(dirs):
@@ -109,7 +113,18 @@ def cases(gen):
     nan_rows = pool[torch.randint(0, pool.numel(), (65536 * 256,),
                                   generator=gen, device=dev)].reshape(-1, 256)
     rows = torch.randn(65536 * 256, generator=gen, device=dev).reshape(-1, 256)
+    n4 = 1 << 24
+    x4 = torch.randn(n4, generator=gen, device=dev)
+    tree = {}
+    for name, rl, bo in (("K4", 4096, 4096), ("K4 first", 256, 1024)):
+        r4 = torch.sort(x4.reshape(-1, rl), dim=-1,
+                        descending=True).values.reshape(-1)
+        st = torch.arange(0, n4, rl, dtype=torch.int32, device=dev)
+        tree[name] = (lambda r4=r4, st=st, bo=bo: k4.merge_tree_runs(
+            r4, st, torch.full_like(st, r4.numel() // st.numel()), group=4,
+            n_out=n4, w=128, block_out=bo))
     out = {
+        **tree,
         "K2": lambda: k2.flims_merge(ma, mb, w=128, block_out=4096),
         "K3": lambda: k3.segmented_merge_runs(
             cat, cat, *pair, n_out=2 * half, w=128, block_out=4096),

@@ -139,10 +139,24 @@ __device__ __forceinline__ Lane<T> partner(const Lane<T>& v, int d, int w,
 
 // Butterfly CAS network over the w live lanes: stages at w/2 .. 1. Key-only
 // lanes take XLA's max (top) / min (bottom), as `_butterfly_desc` does; KV
-// lanes the compound order, as `_butterfly_kv` does.
+// lanes the compound order, as `_butterfly_kv` does. With w >= 32, a warp
+// whose float keys hold no NaN takes its shuffle stages on the monotone
+// int32 bits, whose integer max / min are XLA's there.
 template <typename T, bool KV, bool DESC>
 __device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* xr) {
   for (int d = w >> 1; d >= 1; d >>= 1) {
+    if constexpr (!KV && std::is_same<T, float>::value) {
+      if (d == 16 && w >= 32 && !__any_sync(0xffffffffu, v.k != v.k)) {
+        int32_t u = __float_as_int(v.k);
+        u ^= (u >> 31) & 0x7fffffff;
+        for (; d >= 1; d >>= 1) {
+          const int32_t q = __shfl_xor_sync(0xffffffffu, u, d);
+          u = (threadIdx.x & d) == 0 ? max(u, q) : min(u, q);
+        }
+        v.k = __int_as_float(u ^ ((u >> 31) & 0x7fffffff));
+        return v;
+      }
+    }
     const Lane<T> p = partner<T, KV>(v, d, w, xk, xr);
     const bool top = (threadIdx.x & d) == 0;
     if (KV) {
@@ -290,31 +304,9 @@ __device__ __forceinline__ void cas_regs(Lane<T>& top, Lane<T>& bot) {
 
 // `butterfly` over the warp's M lanes per thread: stages d >= 32 pair
 // registers of one thread (slot m with m ^ d/32), stages d < 32 shuffle.
-// Lanes >= w (w < 32) shuffle too and are ignored. Key-only float lanes
-// without a NaN in the warp run on their monotone int32 bits, whose integer
-// max / min are XLA's there (-0 below +0); a NaN keeps the float selects.
+// Lanes >= w (w < 32) shuffle too and are ignored.
 template <typename T, bool KV, bool DESC, int M>
 __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
-  if constexpr (!KV && std::is_same<T, float>::value) {
-    bool nan = false;
-#pragma unroll
-    for (int m = 0; m < M; ++m) nan |= v[m].k != v[m].k;
-    if (!__any_sync(kFullWarp, nan)) {
-      Lane<int32_t> u[M];
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int32_t b = __float_as_int(v[m].k);
-        u[m] = Lane<int32_t>{b ^ ((b >> 31) & 0x7fffffff), 0};
-      }
-      warp_butterfly<int32_t, false, DESC, M>(u, w);
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int32_t b = u[m].k;
-        v[m].k = __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
-      }
-      return;
-    }
-  }
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int dd = M / 2; dd >= 1; dd >>= 1) {
@@ -338,10 +330,38 @@ __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
         const bool keep = wins<T, KV, DESC>(pick(top, v[m], p), pick(top, p, v[m]));
         v[m] = pick(keep, v[m], p);
       } else {
-        v[m].k = xsel(top ? v[m].k : p.k, top ? p.k : v[m].k, top);
+        v[m].k = top ? xmax(v[m].k, p.k) : xmin(p.k, v[m].k);
       }
     }
   }
+}
+
+// warp_butterfly where key-only float lanes may hold no NaN (K8): a warp
+// without one runs on the monotone int32 bits, whose integer max / min are
+// XLA's there (-0 below +0); a NaN keeps the float selects.
+template <typename T, bool KV, bool DESC, int M>
+__device__ __forceinline__ void warp_butterfly_mono(Lane<T> (&v)[M], int w) {
+  if constexpr (!KV && std::is_same<T, float>::value) {
+    bool nan = false;
+#pragma unroll
+    for (int m = 0; m < M; ++m) nan |= v[m].k != v[m].k;
+    if (!__any_sync(kFullWarp, nan)) {
+      Lane<int32_t> u[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int32_t b = __float_as_int(v[m].k);
+        u[m] = Lane<int32_t>{b ^ ((b >> 31) & 0x7fffffff), 0};
+      }
+      warp_butterfly<int32_t, false, DESC, M>(u, w);
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const int32_t b = u[m].k;
+        v[m].k = __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
+      }
+      return;
+    }
+  }
+  warp_butterfly<T, KV, DESC, M>(v, w);
 }
 
 // mbarriers and 1-D bulk copies (sm_90). A wait spins on try_wait (which

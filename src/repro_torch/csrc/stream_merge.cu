@@ -42,6 +42,10 @@
 //   butterfly stages d >= 32 exchange registers, d < 32 shuffle, every
 //   compare-exchange a select (a branch per lane would split the warp); the
 //   take count is a sum of ballots. No CTA barrier in the cycle loop.
+//   Key-only float rows without a NaN in the warp go through the butterfly
+//   as monotone int32 bits (warp_butterfly_mono): XLA's max / min is their
+//   integer order there, and a NaN rule on every float compare cost a fan-8
+//   pass 1.5x (PERF.md §6, PR 17).
 // - FIFOs in shared memory between nodes: a child writes rows into a ring of
 //   kRingRows rows that its parent warp reads, each slot with a full and an
 //   empty mbarrier. (2^(L+1) - 2) rings, independent of C: 30,592 B
@@ -357,7 +361,7 @@ __device__ void node_stream(Source<T, KV, DESC, M>& A, Source<T, KV, DESC, M>& B
     }
     PROF_START(t_bfly);
 #ifndef K8_NO_BUTTERFLY
-    warp_butterfly<T, KV, DESC, M>(v, w);
+    warp_butterfly_mono<T, KV, DESC, M>(v, w);
 #endif
     PROF(5, t_bfly);
     PROF_START(t_put);
