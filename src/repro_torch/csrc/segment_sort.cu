@@ -49,12 +49,19 @@
 // multiple of 4; the scalar loads of one warp still cover whole sectors).
 //
 // Bound. Each key is read once and written once (twice on KV lanes, with
-// its rank): 0.01 / 0.015 ms at the smoke's 2^22 keys. The network is
-// log2(c)(log2(c)+1)/2 stages over c lanes, the stages above d = 32 E with
-// a barrier each, and the CTA's shared memory (cap x 4 B, cap x 8 B KV) and
-// 1024 threads' registers are held for the CTA's life, so a CTA whose
-// segment is short idles most of its SM share: the kernel is bound by the
-// network's stages of the longest segments and the CTAs an SM holds.
+// its rank): 0.010 / 0.015 ms at 2^22 keys (3.35 TB/s). The network is
+// log2(c)(log2(c)+1)/2 stages over c lanes, those above d = 32 E behind a
+// barrier each. The first version ran them all in shared memory, a barrier
+// a stage, K5 over the whole cap for every segment: 91% of a warp's clocks
+// in those stages, 0.64 / 0.62 ms at the smoke's 528 segments
+// (scripts/k56_profile.py; PERF.md §6). Now a c = 16384 segment's warp
+// spends ~28% of its clocks in the shared-memory stages and their
+// barriers, ~24% in the shuffle stages, the rest in register stages, the
+// stores (scalar at unaligned starts) and the loads: the network's stages
+// bound it, ~0.17 / 0.34 ms. A CTA holds its 1024 threads' registers and
+// cap x 4 B (K5) or cap x 8 B (K6) of shared memory for its life, so at cap
+// 16384 an SM runs one segment at a time, and the c = 16384 segments set
+// the span.
 #include "bitonic_net.cuh"
 
 namespace flims {
