@@ -44,13 +44,17 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.kernels import _build, bitonic_sort as k1  # noqa: E402
 
 
-def build(source: Path, label: str):
-    """(plain library, instrumented library, ptxas lines) of ``source``."""
+def build(source: Path, label: str, kernel: str = "k1"):
+    """(plain library, instrumented library, ptxas lines) of ``source``,
+    built as is and with ``-D<KERNEL>_PROFILE`` under
+    ``build/<kernel>_profile/<label>/`` (``kernel``: the counters' prefix,
+    ``k1`` or ``k56``)."""
     csrc = ROOT / "src" / "repro_torch" / "csrc"
-    d = ROOT / "build" / "k1_profile" / label
+    d = ROOT / "build" / f"{kernel}_profile" / label
     d.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name, extra in (("plain", []), ("prof", ["-DK1_PROFILE"])):
+    for name, extra in (("plain", []),
+                        ("prof", [f"-D{kernel.upper()}_PROFILE"])):
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-I", str(csrc),
                "-shared", "-o", str(d / f"{name}.so"), str(source)]
         procs.append((name, subprocess.Popen(
@@ -60,7 +64,7 @@ def build(source: Path, label: str):
     for name, p in procs:
         out, _ = p.communicate()
         if p.returncode:
-            raise SystemExit(f"k1_profile: nvcc failed:\n{out}")
+            raise SystemExit(f"{kernel}_profile: nvcc failed:\n{out}")
         if name == "plain":
             log = out
         lib = ctypes.CDLL(str(d / f"{name}.so"))
@@ -70,9 +74,9 @@ def build(source: Path, label: str):
                 fn.restype, fn.argtypes = res, args
         libs[name] = lib
     prof = libs["prof"]
-    prof.k1_prof_names.restype = ctypes.c_char_p
-    prof.k1_prof_read.argtypes = [ctypes.c_void_p]
-    prof.k1_when_read.argtypes = [ctypes.c_void_p]
+    getattr(prof, f"{kernel}_prof_names").restype = ctypes.c_char_p
+    getattr(prof, f"{kernel}_prof_read").argtypes = [ctypes.c_void_p]
+    getattr(prof, f"{kernel}_when_read").argtypes = [ctypes.c_void_p]
     return libs["plain"], prof, ptxas_lines(log)
 
 

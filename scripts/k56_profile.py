@@ -46,43 +46,11 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "scripts"))
 sys.path.insert(0, str(ROOT / "src"))
-from k1_profile import ptxas_lines, residency, time_ms  # noqa: E402
+from k1_profile import build, residency, time_ms  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import segmented_merge as k56  # noqa: E402
 
 SHAPES = {"seg": (1 << 22, 16384, 16384), "short": (1 << 20, 512, 512)}
-
-
-def build(source: Path, label: str):
-    """(plain library, instrumented library, ptxas lines) of ``source``."""
-    csrc = ROOT / "src" / "repro_torch" / "csrc"
-    d = ROOT / "build" / "k56_profile" / label
-    d.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name, extra in (("plain", []), ("prof", ["-DK56_PROFILE"])):
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *extra, "-I", str(csrc),
-               "-shared", "-o", str(d / f"{name}.so"), str(source)]
-        procs.append((name, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    libs, log = {}, ""
-    for name, p in procs:
-        out, _ = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"k56_profile: nvcc failed:\n{out}")
-        if name == "plain":
-            log = out
-        lib = ctypes.CDLL(str(d / f"{name}.so"))
-        for fn_name, (res, args) in _build._SIGNATURES.items():
-            if hasattr(lib, fn_name):
-                fn = getattr(lib, fn_name)
-                fn.restype, fn.argtypes = res, args
-        libs[name] = lib
-    prof = libs["prof"]
-    prof.k56_prof_names.restype = ctypes.c_char_p
-    prof.k56_prof_read.argtypes = [ctypes.c_void_p]
-    prof.k56_when_read.argtypes = [ctypes.c_void_p]
-    return libs["plain"], prof, ptxas_lines(log)
 
 
 def ragged(total: int, longest: int, gen) -> list:
@@ -135,7 +103,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k56_profile: no CUDA device", file=sys.stderr)
         return 1
-    plain_lib, prof, ptxas = build(Path(args.source), args.label)
+    plain_lib, prof, ptxas = build(Path(args.source), args.label, "k56")
     print(json.dumps({"label": args.label, "ptxas": ptxas}), flush=True)
     names = prof.k56_prof_names().decode().split(",")
     ctas, warps, counters = (ctypes.c_int() for _ in range(3))

@@ -364,8 +364,8 @@ __device__ __forceinline__ bool needs_exact(const T (&k)[E]) {
   }
 }
 
-// float bits <-> monotone int32 (its own inverse); int32 keys as they are
-__device__ __forceinline__ int32_t mono(int32_t b) { return b ^ ((b >> 31) & 0x7fffffff); }
+// the fast path's integer keys: float bits as monotone int32 (`mono`,
+// flims.cuh), int32 keys as they are
 template <typename T> __device__ __forceinline__ int32_t order_key(T k) {
   return std::is_same<T, float>::value ? mono(to_bits(k)) : to_bits(k);
 }

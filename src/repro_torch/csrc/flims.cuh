@@ -62,6 +62,10 @@ __device__ __forceinline__ float xsel(float a, float b, bool hi) {
 template <typename T> __device__ __forceinline__ T xmax(T a, T b) { return xsel(a, b, true); }
 template <typename T> __device__ __forceinline__ T xmin(T a, T b) { return xsel(a, b, false); }
 
+// float bits <-> monotone int32 (its own inverse). On NaN-free floats the
+// integer max / min of these are XLA's max / min, -0 below +0.
+__device__ __forceinline__ int32_t mono(int32_t b) { return b ^ ((b >> 31) & 0x7fffffff); }
+
 // One lane: a key and, on KV lanes, its int32 rank.
 template <typename T> struct Lane {
   T k;
@@ -147,13 +151,12 @@ __device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* x
   for (int d = w >> 1; d >= 1; d >>= 1) {
     if constexpr (!KV && std::is_same<T, float>::value) {
       if (d == 16 && w >= 32 && !__any_sync(0xffffffffu, v.k != v.k)) {
-        int32_t u = __float_as_int(v.k);
-        u ^= (u >> 31) & 0x7fffffff;
+        int32_t u = mono(__float_as_int(v.k));
         for (; d >= 1; d >>= 1) {
           const int32_t q = __shfl_xor_sync(0xffffffffu, u, d);
           u = (threadIdx.x & d) == 0 ? max(u, q) : min(u, q);
         }
-        v.k = __int_as_float(u ^ ((u >> 31) & 0x7fffffff));
+        v.k = __int_as_float(mono(u));
         return v;
       }
     }
@@ -348,16 +351,10 @@ __device__ __forceinline__ void warp_butterfly_mono(Lane<T> (&v)[M], int w) {
     if (!__any_sync(kFullWarp, nan)) {
       Lane<int32_t> u[M];
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int32_t b = __float_as_int(v[m].k);
-        u[m] = Lane<int32_t>{b ^ ((b >> 31) & 0x7fffffff), 0};
-      }
+      for (int m = 0; m < M; ++m) u[m] = Lane<int32_t>{mono(__float_as_int(v[m].k)), 0};
       warp_butterfly<int32_t, false, DESC, M>(u, w);
 #pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int32_t b = u[m].k;
-        v[m].k = __int_as_float(b ^ ((b >> 31) & 0x7fffffff));
-      }
+      for (int m = 0; m < M; ++m) v[m].k = __int_as_float(mono(u[m].k));
       return;
     }
   }
