@@ -45,7 +45,7 @@
 //   Key-only float rows without a NaN in the warp go through the butterfly
 //   as monotone int32 bits (warp_butterfly_mono): XLA's max / min is their
 //   integer order there, and a NaN rule on every float compare cost a fan-8
-//   pass 1.5x (PERF.md §6, PR 17).
+//   pass 1.5x (PERF.md §6).
 // - FIFOs in shared memory between nodes: a child writes rows into a ring of
 //   kRingRows rows that its parent warp reads, each slot with a full and an
 //   empty mbarrier. (2^(L+1) - 2) rings, independent of C: 30,592 B
