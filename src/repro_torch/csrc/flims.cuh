@@ -172,6 +172,13 @@ __device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* x
   return v;
 }
 
+// Clock hooks of K2 / K3's counters (csrc/flims_merge.cu, -DK23_PROFILE);
+// empty in every other source.
+#ifndef K23_T
+#define K23_T(t)
+#define K23_ACC(c, t) do { } while (0)
+#endif
+
 // One windowed FLiMS dataflow producing `cycles` w-wide chunks.
 //   read_a(r, c) / read_b(r, c): element c of relative row r of a side
 //     (the reader masks past the end);
@@ -192,16 +199,26 @@ __device__ void merge_stream(RA read_a, RB read_b, int lA, int lB, int cycles,
   }
   int rA = 2, rB = 2;
   for (int t = 0; t < cycles; ++t) {
+    K23_T(t_ld);
     Lane<T> na{}, nb{};
     if (live) { na = read_a(rA, i); nb = read_b(rB, j); }
+    K23_ACC(1, t_ld);
+    K23_T(t_sel);
     const Lane<T> ca = i < lA ? a1 : a0;
     const Lane<T> cb = j < lB ? b1 : b0;
     const bool take = live && wins<T, KV, DESC>(ca, cb);
     Lane<T> v = take ? ca : cb;
     if (SEL_MAX) v.k = xmax(ca.k, cb.k);
+    K23_ACC(2, t_sel);
+    K23_T(t_bf);
     v = butterfly<T, KV, DESC>(v, w, xk, xr);
+    K23_ACC(3, t_bf);
+    K23_T(t_st);
     if (live) write(t, i, v);
+    K23_ACC(5, t_st);
+    K23_T(t_cnt);
     const int k = __syncthreads_count(take);
+    K23_ACC(4, t_cnt);
     int l2 = lA + k;
     if (l2 >= w) { a0 = a1; a1 = na; lA = l2 - w; ++rA; } else { lA = l2; }
     l2 = lB + (w - k);

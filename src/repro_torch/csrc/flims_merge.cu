@@ -16,6 +16,65 @@
 // Bound: device memory. Each element is read once from each side's window
 // and written once; the selector and butterfly are a few dozen integer
 // operations per element, far below the card's rate.
+// Clock counters for scripts/k23_profile.py, compiled in only under
+// -DK23_PROFILE: per warp, summed by its lane 0 in shared memory and
+// written to k23_prof[cta][warp][counter] at the CTA's end for the first
+// K23_PROF_CTAS CTAs, with each CTA's start, end (globaltimer) and SM in
+// k23_when. Without the define every K23_* macro is empty.
+#ifdef K23_PROFILE
+#include <cstdint>
+#ifndef K23_PROF_CTAS
+#define K23_PROF_CTAS 8192
+#endif
+constexpr int kK23Counters = 8;
+constexpr int kK23Warps = 8;
+__device__ unsigned long long k23_prof[K23_PROF_CTAS * kK23Warps * kK23Counters];
+__device__ unsigned long long k23_when[K23_PROF_CTAS * 3];
+__shared__ unsigned long long s_k23[kK23Warps][kK23Counters];
+__device__ __forceinline__ unsigned long long k23_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define K23_T(t) const long long t = clock64()
+#define K23_ACC(c, t)                                                         \
+  do {                                                                        \
+    if ((threadIdx.x & 31) == 0 && (threadIdx.x >> 5) < kK23Warps)           \
+      s_k23[threadIdx.x >> 5][c] += clock64() - (t);                          \
+  } while (0)
+#define K23_COUNT(c)                                                          \
+  do {                                                                        \
+    if ((threadIdx.x & 31) == 0 && (threadIdx.x >> 5) < kK23Warps) s_k23[threadIdx.x >> 5][c] += 1; \
+  } while (0)
+#define K23_INIT()                                                            \
+  do {                                                                        \
+    if (threadIdx.x == 0 && blockIdx.x < K23_PROF_CTAS) {                     \
+      unsigned s_;                                                            \
+      asm volatile("mov.u32 %0, %%smid;" : "=r"(s_));                         \
+      k23_when[blockIdx.x * 3] = k23_now();                                   \
+      k23_when[blockIdx.x * 3 + 2] = s_;                                      \
+    }                                                                         \
+    for (int i_ = threadIdx.x; i_ < kK23Warps * kK23Counters; i_ += blockDim.x) \
+      s_k23[i_ / kK23Counters][i_ % kK23Counters] = 0;                        \
+    __syncthreads();                                                          \
+  } while (0)
+#define K23_FLUSH()                                                           \
+  do {                                                                        \
+    __syncthreads();                                                          \
+    if ((threadIdx.x & 31) == 0 && (threadIdx.x >> 5) < kK23Warps &&         \
+        blockIdx.x < K23_PROF_CTAS)                                           \
+      for (int k_ = 0; k_ < kK23Counters; ++k_)                               \
+        k23_prof[((size_t)blockIdx.x * kK23Warps + (threadIdx.x >> 5)) * kK23Counters + k_] = \
+            s_k23[threadIdx.x >> 5][k_];                                      \
+    if (threadIdx.x == 0 && blockIdx.x < K23_PROF_CTAS)                       \
+      k23_when[blockIdx.x * 3 + 1] = k23_now();                               \
+  } while (0)
+#else
+#define K23_COUNT(c) do { } while (0)
+#define K23_INIT() do { } while (0)
+#define K23_FLUSH() do { } while (0)
+#endif
+
 #include "flims.cuh"
 
 namespace flims {
@@ -36,14 +95,17 @@ __global__ void merge_blocks_kernel(const T* __restrict__ a, const int32_t* __re
   int32_t* xr = reinterpret_cast<int32_t*>(xk + blockDim.x);
 
   const int g = blockIdx.x;
-  if (g >= blk0[R]) return;  // tail CTAs of the static grid
+  K23_INIT();
+  K23_T(t_total);
+  if (g >= blk0[R]) { K23_FLUSH(); return; }  // tail CTAs of the static grid
+  K23_T(t_search);
   const int s = find_segment(blk0, R + 1, g);
   const int la = a_lens[s], lb = b_lens[s];
   const long long o = (long long)(g - blk0[s]) * C;
   // a block never writes past its segment, nor past the output
   const int valid = (int)min(min((long long)C, (long long)la + lb - o),
                              (long long)n_out - out_off[s] - o);
-  if (valid <= 0) return;
+  if (valid <= 0) { K23_FLUSH(); return; }
 
   RunReader<T, KV, DESC> A{a, ra, a_starts[s], la, 0, w};
   RunReader<T, KV, DESC> B{b, rb, b_starts[s], lb, 0, w};
@@ -52,6 +114,7 @@ __global__ void merge_blocks_kernel(const T* __restrict__ a, const int32_t* __re
     return wins<T, KV, DESC>(A.at(m - 1), B.at(oi - m));
   });
   const int bcut = oi - acut;
+  K23_ACC(0, t_search);
   A.base = acut - acut % w;
   B.base = bcut - bcut % w;
 
@@ -66,6 +129,9 @@ __global__ void merge_blocks_kernel(const T* __restrict__ a, const int32_t* __re
   };
   merge_stream<T, KV, DESC, !KV>(A, B, acut % w, bcut % w, (valid + w - 1) / w,
                                  write, w, xk, xr);
+  K23_COUNT(7);
+  K23_ACC(6, t_total);
+  K23_FLUSH();
 }
 
 template <typename T, bool KV, bool DESC>
@@ -114,3 +180,33 @@ extern "C" int flims_merge_blocks(int dtype, int kv, int desc, const void* a, co
                            I(b_lens), I(out_off), I(blk0), out, out_r, R, n_out, G, C, w, st);
   return cudaErrorInvalidValue;
 }
+
+#ifdef K23_PROFILE
+// search (the segment and the co-rank), loads (issuing a row's loads),
+// select (the selector; it waits on the row loaded a cycle before), bfly
+// (the butterfly, its shared-memory stages and barriers), count (the
+// selector count, a CTA barrier), store, total, blocks (count)
+extern "C" const char* k23_prof_names() {
+  return "search,loads,select,bfly,count,store,total,blocks";
+}
+extern "C" int k23_prof_layout(int* ctas, int* warps, int* counters) {
+  *ctas = K23_PROF_CTAS;
+  *warps = kK23Warps;
+  *counters = kK23Counters;
+  return 0;
+}
+extern "C" int k23_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k23_prof, sizeof(k23_prof));
+}
+extern "C" int k23_prof_zero() {
+  void* p = nullptr;
+  cudaError_t e = cudaGetSymbolAddress(&p, k23_prof);
+  if (e == cudaSuccess) e = cudaMemset(p, 0, sizeof(k23_prof));
+  if (e == cudaSuccess) e = cudaGetSymbolAddress(&p, k23_when);
+  return e != cudaSuccess ? e : cudaMemset(p, 0, sizeof(k23_when));
+}
+// (start ns, end ns, SM) per CTA
+extern "C" int k23_when_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k23_when, sizeof(k23_when));
+}
+#endif

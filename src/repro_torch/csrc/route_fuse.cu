@@ -8,8 +8,12 @@
 //     runs k arg-max sweeps over the token's E logits, compared as the
 //     monotone int32 transform of their bits (b ^ ((b >> 31) & 0x7fffffff)),
 //     so -0.0 ranks below +0.0 as in `lax.top_k`; ties go to the lower
-//     expert. Sweep j takes the largest (key, -expert) strictly after sweep
-//     j-1's pick, so no mask is kept;
+//     expert. `_topk_softmax` masks each pick's key to INT32_MIN and takes
+//     the lowest expert among the maximum. Sweep j takes the largest (key,
+//     -expert) strictly after sweep j-1's pick, which is that rule while the
+//     maximum is above INT32_MIN; once it is INT32_MIN (the logit bits
+//     0xFFFFFFFF) the masked row is INT32_MIN throughout, so this sweep and
+//     every later one pick expert 0 with the key INT32_MIN;
 //  2. softmax of the k picked values, `jax.nn.softmax` op for op:
 //     expf(v - max) / sum, the sum taken in pick order (expf, never __expf;
 //     the source builds without --use_fast_math);
@@ -35,9 +39,49 @@
 // the wrapper refuses more, and a group above that needs a multi-CTA sort.
 #include "flims.cuh"
 
+// Clock counters for scripts/k7_profile.py, compiled in only under
+// -DK7_PROFILE: each thread sums SM clocks per phase in registers; at a
+// warp's end its lane 0 adds them to k7_prof and counts the warp, and each
+// kernel's earliest CTA start and latest warp end (globaltimer, ns) go to
+// k7_span. Without the define every K7_* macro is empty.
+#ifdef K7_PROFILE
+constexpr int kK7Counters = 6;
+constexpr int kK7Kernels = 3;
+__device__ unsigned long long k7_prof[kK7Counters + 1];  // clocks per phase, then warps
+__device__ unsigned long long k7_span[2 * kK7Kernels];
+__device__ __forceinline__ unsigned long long k7_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ void k7_open(int kid) {
+  if (threadIdx.x == 0) atomicMin(&k7_span[2 * kid], k7_now());
+}
+__device__ __forceinline__ void k7_close(int kid, const unsigned long long* c) {
+  if ((threadIdx.x & 31) == 0) {
+    for (int i = 0; i < kK7Counters; ++i)
+      if (c[i]) atomicAdd(&k7_prof[i], c[i]);
+    atomicAdd(&k7_prof[kK7Counters], 1ull);
+    atomicMax(&k7_span[2 * kid + 1], k7_now());
+  }
+}
+#define K7_CLOCKS unsigned long long k7c_[kK7Counters] = {}
+#define K7_T(t) const long long t = clock64()
+#define K7_ACC(c, t) k7c_[c] += clock64() - (t)
+#define K7_OPEN(kid) k7_open(kid)
+#define K7_CLOSE(kid) k7_close(kid, k7c_)
+#else
+#define K7_CLOCKS
+#define K7_T(t)
+#define K7_ACC(c, t) do { } while (0)
+#define K7_OPEN(kid) do { } while (0)
+#define K7_CLOSE(kid) do { } while (0)
+#endif
+
 namespace flims {
 
 __device__ __forceinline__ int32_t untwist(int32_t b) { return b ^ ((b >> 31) & 0x7fffffff); }
+constexpr int32_t kKeyMin = -0x7fffffff - 1;
 
 __global__ void route_kernel(const float* __restrict__ logits, int T, int E, int k, int cap,
                              int logNp, int32_t* __restrict__ experts,
@@ -51,8 +95,12 @@ __global__ void route_kernel(const float* __restrict__ logits, int T, int E, int
   int32_t* sr = sk + Np;
   const long long g = blockIdx.x;
   const float* lg = logits + g * (long long)T * E;
+  K7_CLOCKS;
+  K7_OPEN(0);
+  K7_T(t_total);
 
   for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    K7_T(t_sweeps);
     const int32_t* row = reinterpret_cast<const int32_t*>(lg + (long long)t * E);
     int32_t prev_key = 0;
     int prev_e = -1;
@@ -67,12 +115,18 @@ __global__ void route_kernel(const float* __restrict__ logits, int T, int E, int
           best_e = e;
         }
       }
+      if (best_e < 0 || best_key == kKeyMin) {  // the masked row is all INT32_MIN
+        best_key = kKeyMin;
+        best_e = 0;
+      }
       prev_key = best_key;
       prev_e = best_e;
       const int p = t * k + j;
       sk[p] = best_e * Np + p;
       sr[p] = untwist(best_key);  // the picked logit's bits, for now
     }
+    K7_ACC(0, t_sweeps);
+    K7_T(t_soft);
     // softmax over this token's k picks (pick 0 is the maximum)
     const float vmax = __int_as_float(sr[t * k]);
     float sum = 0.f;
@@ -81,14 +135,20 @@ __global__ void route_kernel(const float* __restrict__ logits, int T, int E, int
       const float u = expf(__int_as_float(sr[t * k + j]) - vmax);
       sr[t * k + j] = __float_as_int(u / sum);
     }
+    K7_ACC(1, t_soft);
   }
+  K7_T(t_pad);
   for (int i = N + threadIdx.x; i < Np; i += blockDim.x) {
     sk[i] = 0x7fffffff;
     sr[i] = kInvalidRank;
   }
   __syncthreads();
+  K7_ACC(2, t_pad);
+  K7_T(t_net);
   bitonic_smem<int32_t, true, false>(sk, sr, logNp);
+  K7_ACC(3, t_net);
 
+  K7_T(t_cut);
   const long long out0 = g * (long long)N;
   for (int i = threadIdx.x; i < N; i += blockDim.x) {
     const int32_t key = sk[i];
@@ -109,6 +169,9 @@ __global__ void route_kernel(const float* __restrict__ logits, int T, int E, int
     slabs[out0 + i] = kept ? e * cap + pos : E * cap;
     keep[out0 + i] = kept ? 1 : 0;
   }
+  K7_ACC(4, t_cut);
+  K7_ACC(5, t_total);
+  K7_CLOSE(0);
 }
 
 }  // namespace flims
@@ -131,3 +194,33 @@ extern "C" int flims_moe_route(const void* logits, int G, int T, int E, int k, i
       (int32_t*)perm, (float*)weights, (int32_t*)slabs, (int32_t*)keep);
   return cudaGetLastError();
 }
+
+#ifdef K7_PROFILE
+// sweeps (the k arg-max sweeps over a thread's tokens), softmax, pad (the
+// padding lanes and the barrier), network (`bitonic_smem`), cut (the
+// first-occurrence search and the six lanes' stores), total
+extern "C" const char* k7_prof_names() { return "sweeps,softmax,pad,network,cut,total"; }
+extern "C" int k7_prof_layout(int* counters, int* kernels) {
+  *counters = kK7Counters;
+  *kernels = kK7Kernels;
+  return 0;
+}
+extern "C" int k7_prof_zero() {
+  unsigned long long span[2 * kK7Kernels];
+  for (int i = 0; i < kK7Kernels; ++i) {
+    span[2 * i] = ~0ull;
+    span[2 * i + 1] = 0;
+  }
+  const unsigned long long zero[kK7Counters + 1] = {};
+  cudaError_t e = cudaMemcpyToSymbol(k7_prof, zero, sizeof(zero));
+  return e != cudaSuccess ? e : cudaMemcpyToSymbol(k7_span, span, sizeof(span));
+}
+// clocks per phase summed over warps, then the warps counted
+extern "C" int k7_prof_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k7_prof, sizeof(k7_prof));
+}
+// per kernel: (earliest CTA start, latest warp end) in ns
+extern "C" int k7_when_read(void* dst) {
+  return cudaMemcpyFromSymbol(dst, k7_span, sizeof(k7_span));
+}
+#endif

@@ -469,6 +469,49 @@ def test_route_kernel_matches_plain(card, G, n_tok, E, k, cap):
                 assert torch.equal(g, e), i
 
 
+def _route_same(got, ref, what):
+    """Routing lanes: integers bit for bit, weights NaN at the same places
+    and within ROUTE_WEIGHT_ULPS elsewhere."""
+    names = ("experts", "tokens", "perm", "weights", "slabs", "keep")
+    for name, g, e in zip(names, got, ref):
+        assert g.shape == e.shape and g.dtype == e.dtype, (what, name)
+        if name == "weights":
+            nan = torch.isnan(g)
+            assert torch.equal(nan, torch.isnan(e)), f"{what}: NaN weights"
+            d = (g[~nan].view(torch.int32).long()
+                 - e[~nan].view(torch.int32).long())
+            assert not d.numel() or int(d.abs().max()) <= ROUTE_WEIGHT_ULPS
+            continue
+        bad = (g != e).flatten().nonzero()
+        assert not bad.numel(), (
+            f"{what} {name}: {bad.shape[0]} of {tuple(g.shape)} differ, "
+            f"first at {int(bad[0, 0])}: {g.flatten()[int(bad[0, 0])].item()}"
+            f" vs {e.flatten()[int(bad[0, 0])].item()}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n_tok,E,k,cap,per_row", [
+    (1, 1, 4, 4, 8, None), (2, 16, 8, 6, 5, 3), (1, 24, 8, 8, 7, 5),
+    (3, 9, 5, 5, 2, 4), (1, 2048, 64, 6, 241, 60), (1, 4096, 8, 2, 1281, 7)])
+def test_k7_int_min_logits_match_plain(card, G, n_tok, E, k, cap, per_row):
+    """K7 on logits whose monotone key is INT32_MIN (the bits 0xFFFFFFFF):
+    once every expert not yet picked reads INT32_MIN, ``moe_route_plain``
+    and the JAX kernel pick expert 0 again (``[1.0, 0xFFFFFFFF, 2.0,
+    0xFFFFFFFF]`` at k = 4 routes to ``[0, 0, 0, 2]``), and so must the
+    kernel."""
+    if per_row is None:
+        lg = np.array([[[1.0, 0.0, 2.0, 0.0]]], np.float32)
+        lg.view(np.int32)[0, 0, [1, 3]] = -1
+    else:
+        rng = np.random.default_rng(G * n_tok + E + k)
+        lg = rng.standard_normal((G, n_tok, E)).astype(np.float32)
+        pick = np.argsort(rng.random((G, n_tok, E)), axis=-1)[..., :per_row]
+        np.put_along_axis(lg.view(np.int32), pick, -1, axis=-1)
+    x = T(lg).to(card)
+    _route_same(TR.moe_route(x, k, cap), TR.moe_route_plain(x, k, cap),
+                f"moe_route {tuple(x.shape)} k={k} cap={cap}")
+
+
 @pytest.mark.cuda
 def test_shared_memory_limits_raise(card):
     """Above one CTA's shared memory the wrappers refuse, with the limit in

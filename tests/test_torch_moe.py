@@ -107,6 +107,73 @@ def test_route_matches_jax(G, T, E, k, cap, tied):
             check_route(got, ref, f"{name} vs {rname}")
 
 
+# logits whose monotone int32 key is INT32_MIN: the float bits 0xFFFFFFFF
+INT_MIN_BITS = np.int32(-1)
+
+
+def int_min_logits(G, T, E, per_row, seed):
+    """Random logits with ``per_row`` entries of each row set to the bits
+    0xFFFFFFFF (a negative NaN with a full payload), at random experts."""
+    rng = np.random.default_rng(seed)
+    lg = rng.standard_normal((G, T, E)).astype(np.float32)
+    bits = lg.view(np.int32)
+    for g in range(G):
+        for t in range(T):
+            bits[g, t, rng.choice(E, per_row, replace=False)] = INT_MIN_BITS
+    return lg
+
+
+# (G, T, E, k, cap, INT32_MIN keys a row): the four-expert row of the
+# repair, then rows with several such experts and k up to E
+INT_MIN_CASES = [(1, 1, 4, 4, 8, None), (2, 16, 8, 6, 5, 3),
+                 (1, 24, 8, 8, 7, 5), (3, 9, 5, 5, 2, 4), (1, 32, 16, 6, 9, 12)]
+
+
+def check_route_nan(got, ref, what):
+    """``check_route`` where a weight may be NaN: NaN at the same places,
+    the others within WEIGHT_ULPS."""
+    for name, g, r in zip(LANES, got, ref):
+        g = g.numpy() if isinstance(g, torch.Tensor) else np.asarray(g)
+        r = np.asarray(r)
+        assert g.shape == r.shape, (what, name, g.shape, r.shape)
+        if name == "weights":
+            nan = np.isnan(g)
+            np.testing.assert_array_equal(nan, np.isnan(r),
+                                          err_msg=f"{what}: NaN weights")
+            assert ulps(g[~nan], r[~nan]) <= WEIGHT_ULPS, what
+        else:
+            np.testing.assert_array_equal(g, r.astype(g.dtype),
+                                          err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("G,T,E,k,cap,per_row", INT_MIN_CASES)
+def test_route_int_min_logits_match_jax(G, T, E, k, cap, per_row):
+    """Logits whose monotone key is INT32_MIN. ``_topk_softmax`` masks a
+    picked expert's key to INT32_MIN and takes the lowest index among the
+    maximum, so once every expert not yet picked reads INT32_MIN it picks
+    expert 0 again (the row ``[1.0, 0xFFFFFFFF, 2.0, 0xFFFFFFFF]`` at k = 4
+    gives the experts ``[0, 0, 0, 2]``); ``moe_route_plain`` (K7's plain
+    version, what the CUDA kernel is held to) must do the same. The XLA
+    pipeline ``moe_route_xla`` (``lax.top_k``), and so the port's ``torch``
+    variant, never picks an expert twice and gives ``[0, 1, 2, 3]`` there:
+    a property of the reference, so ``test_route_matches_jax`` keeps inputs
+    without these keys."""
+    if per_row is None:
+        lg = np.array([[[1.0, 0.0, 2.0, 0.0]]], np.float32)
+        lg.view(np.int32)[0, 0, [1, 3]] = INT_MIN_BITS
+    else:
+        lg = int_min_logits(G, T, E, per_row, seed=G * T + E + k)
+    ref = moe_route_pallas(jnp.asarray(lg), k, cap)
+    for name, fn in (("plain", TR.moe_route_plain), ("wrapper", TR.moe_route)):
+        check_route_nan(fn(torch.from_numpy(lg), k, cap), ref,
+                        f"{name} vs fused")
+    if per_row is None:
+        np.testing.assert_array_equal(np.asarray(ref[0])[0], [0, 0, 0, 2])
+        np.testing.assert_array_equal(
+            TR.moe_route_torch(torch.from_numpy(lg), k, cap)[0][0].numpy(),
+            [0, 1, 2, 3])
+
+
 def test_topk_softmax_is_lax_top_k():
     lg = _logits(1, 50, 7, seed=3, tied=True)[0]
     w, idx = TR.topk_softmax(torch.from_numpy(lg), 3)
