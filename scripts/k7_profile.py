@@ -22,9 +22,10 @@ router logits from a seeded generator at the smoke's three route shapes:
 each at the layer's capacity (``models.moe.expert_capacity(1.25, ...)``).
 Each line printed is one JSON object: the call's median time with the plain
 build and with the instrumented one (CUDA events), whether both builds
-gave the same lanes, the warps counted, the mean SM clocks per phase of a
-warp (the phases' names come from the source, ``k7_prof_names``) and the
-span on the card of each launch of the call. Before them, ptxas's
+gave the same lanes, the warps of each launch of the call, the SM clocks
+per phase summed over the warps (the phases' names come from the source,
+``k7_prof_names``; divide by the warps of the launch that runs the phase
+for a warp's mean) and the span on the card of each launch. Before them, ptxas's
 registers, spills and shared memory per kernel; last, the card's name,
 power limit and SM clock.
 """
@@ -87,20 +88,20 @@ def main() -> int:
         torch.cuda.synchronize()
         same = all(torch.equal(g.view(torch.int32), e.view(torch.int32))
                    for g, e in zip(got, expect))
-        raw = (ctypes.c_ulonglong * (counters + 1))()
+        raw = (ctypes.c_ulonglong * (counters + kernels))()
         prof.k7_prof_read(ctypes.addressof(raw))
         P = np.frombuffer(raw, dtype=np.uint64).astype(np.float64)
         wraw = (ctypes.c_ulonglong * (2 * kernels))()
         prof.k7_when_read(ctypes.addressof(wraw))
         W = np.frombuffer(wraw, dtype=np.uint64).reshape(kernels, 2)
-        warps = max(int(P[counters]), 1)
+        warps = [int(x) for x in P[counters:counters + kernels]]
         spans = [float(e - s) / 1e3 for s, e in W if e >= s > 0]
         print(json.dumps({
             "label": args.label, "shape": shape, "T": T, "E": E, "k": k,
             "cap": cap, "ms": ms, "ms_instrumented": ms_prof,
-            "same_as_plain_build": same, "warps": int(P[counters]),
-            "clocks_per_warp": dict(zip(names, (
-                round(float(v) / warps, 1) for v in P[:counters]))),
+            "same_as_plain_build": same, "warps_per_launch": warps,
+            "clocks_summed_over_warps": dict(zip(names, (
+                int(v) for v in P[:counters]))),
             "launch_span_us": spans}), flush=True)
     _build._lib = None
     print(subprocess.run(

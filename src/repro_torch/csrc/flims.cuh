@@ -1,16 +1,11 @@
 // Shared FLiMS routines for the Hopper kernels: key bounds, XLA's max/min,
-// the compound (key, rank) order, the butterfly, the cooperative co-rank
-// search and one windowed FLiMS dataflow (selector, butterfly, two-row
-// window advance); for K4 and K8, the same butterfly run by one warp,
-// mbarriers, 1-D bulk copies and 4-byte cp.async.
+// the compound (key, rank) order, the shared-memory bitonic network, the
+// FLiMS butterfly run by one warp (K2 / K3, K4, K8), mbarriers, 1-D bulk
+// copies and cp.async.
 //
 // Counterpart of what the JAX package shares between `_merge_kernel` /
 // `_merge_kv_kernel` (kernels/flims_merge.py) and `tree_dataflow`
-// (kernels/merge_tree.py). In `merge_stream` one CTA runs one dataflow:
-// lane i < w owns head i of A and head w-1-i of B, so the MAX selector
-// pairs a_i with b_{w-1-i} without a reversal. Every control value
-// (rotations, row pointers, the count k taken from A) is uniform across the
-// CTA.
+// (kernels/merge_tree.py).
 #pragma once
 
 #include <cstdint>
@@ -91,143 +86,8 @@ __device__ __forceinline__ Lane<T> pick(bool keep, const Lane<T>& a, const Lane<
   return v;
 }
 
-template <typename T, bool DESC>
-__device__ __forceinline__ Lane<T> guard(Lane<T> v, long long i, long long len) {
-  if (i < 0) { v.k = first_key<T, DESC>(); v.r = kRankLo; }
-  if (i >= len) { v.k = last_key<T, DESC>(); v.r = kInvalidRank; }
-  return v;
-}
-
-// Largest m in [lo, hi] with pred(m) (pred monotone: true up to the answer,
-// lo feasible). All threads of the CTA call it; each round every thread
-// tests one of blockDim.x evenly spaced candidates and __syncthreads_count
-// narrows the range, so a range of 2^21 takes three rounds at 128 threads.
-// Gives the same answer as the JAX kernels' fixed-step binary search.
-template <class Pred>
-__device__ int coop_search(int lo, int hi, Pred pred) {
-  const long long T = blockDim.x, t = threadIdx.x;
-  while (lo < hi) {
-    const long long span = hi - lo;
-    auto cand = [&](long long j) { return (int)(lo + 1 + (j * span) / T); };
-    const int cnt = __syncthreads_count(pred(cand(t)));
-    if (cnt == 0) break;
-    const int nlo = cand(cnt - 1);
-    hi = cnt < T ? cand(cnt) - 1 : hi;
-    lo = nlo;
-  }
-  return lo;
-}
-
-// Exchange with lane i ^ d: warp shuffles below 32, shared memory above.
-// Lanes >= w (a CTA of 32 threads with w < 32) do not take part.
-template <typename T, bool KV>
-__device__ __forceinline__ Lane<T> partner(const Lane<T>& v, int d, int w,
-                                           T* xk, int32_t* xr) {
-  Lane<T> p;
-  if (d >= 32) {
-    __syncthreads();
-    xk[threadIdx.x] = v.k;
-    if (KV) xr[threadIdx.x] = v.r;
-    __syncthreads();
-    p.k = xk[threadIdx.x ^ d];
-    p.r = KV ? xr[threadIdx.x ^ d] : 0;
-  } else if ((int)threadIdx.x < w) {
-    const unsigned mask = w >= 32 ? 0xffffffffu : ((1u << w) - 1u);
-    p.k = __shfl_xor_sync(mask, v.k, d);
-    p.r = KV ? __shfl_xor_sync(mask, v.r, d) : 0;
-  } else {
-    p = v;
-  }
-  return p;
-}
-
-// Butterfly CAS network over the w live lanes: stages at w/2 .. 1. Key-only
-// lanes take XLA's max (top) / min (bottom), as `_butterfly_desc` does; KV
-// lanes the compound order, as `_butterfly_kv` does. With w >= 32, a warp
-// whose float keys hold no NaN takes its shuffle stages on the monotone
-// int32 bits, whose integer max / min are XLA's there.
-template <typename T, bool KV, bool DESC>
-__device__ __forceinline__ Lane<T> butterfly(Lane<T> v, int w, T* xk, int32_t* xr) {
-  for (int d = w >> 1; d >= 1; d >>= 1) {
-    if constexpr (!KV && std::is_same<T, float>::value) {
-      if (d == 16 && w >= 32 && !__any_sync(0xffffffffu, v.k != v.k)) {
-        int32_t u = mono(__float_as_int(v.k));
-        for (; d >= 1; d >>= 1) {
-          const int32_t q = __shfl_xor_sync(0xffffffffu, u, d);
-          u = (threadIdx.x & d) == 0 ? max(u, q) : min(u, q);
-        }
-        v.k = __int_as_float(mono(u));
-        return v;
-      }
-    }
-    const Lane<T> p = partner<T, KV>(v, d, w, xk, xr);
-    const bool top = (threadIdx.x & d) == 0;
-    if (KV) {
-      const bool keep = top ? wins<T, KV, DESC>(v, p) : wins<T, KV, DESC>(p, v);
-      if (!keep) v = p;
-    } else {
-      v.k = xsel(top ? v.k : p.k, top ? p.k : v.k, top);
-    }
-  }
-  return v;
-}
-
-// Clock hooks of K2 / K3's counters (csrc/flims_merge.cu, -DK23_PROFILE);
-// empty in every other source.
-#ifndef K23_T
-#define K23_T(t)
-#define K23_ACC(c, t) do { } while (0)
-#endif
-
-// One windowed FLiMS dataflow producing `cycles` w-wide chunks.
-//   read_a(r, c) / read_b(r, c): element c of relative row r of a side
-//     (the reader masks past the end);
-//   write(t, c, v): element c of chunk t.
-// SEL_MAX picks the key-only selector of `_merge_kernel` (jnp.maximum of
-// the heads); otherwise the heads are selected by `wins`, as
-// `tree_dataflow` and the KV kernels do.
-template <typename T, bool KV, bool DESC, bool SEL_MAX, class RA, class RB, class W>
-__device__ void merge_stream(RA read_a, RB read_b, int lA, int lB, int cycles,
-                             W write, int w, T* xk, int32_t* xr) {
-  const int i = threadIdx.x;
-  const bool live = i < w;
-  const int j = w - 1 - i;  // this lane's B column
-  Lane<T> a0{}, a1{}, b0{}, b1{};
-  if (live) {
-    a0 = read_a(0, i); a1 = read_a(1, i);
-    b0 = read_b(0, j); b1 = read_b(1, j);
-  }
-  int rA = 2, rB = 2;
-  for (int t = 0; t < cycles; ++t) {
-    K23_T(t_ld);
-    Lane<T> na{}, nb{};
-    if (live) { na = read_a(rA, i); nb = read_b(rB, j); }
-    K23_ACC(1, t_ld);
-    K23_T(t_sel);
-    const Lane<T> ca = i < lA ? a1 : a0;
-    const Lane<T> cb = j < lB ? b1 : b0;
-    const bool take = live && wins<T, KV, DESC>(ca, cb);
-    Lane<T> v = take ? ca : cb;
-    if (SEL_MAX) v.k = xmax(ca.k, cb.k);
-    K23_ACC(2, t_sel);
-    K23_T(t_bf);
-    v = butterfly<T, KV, DESC>(v, w, xk, xr);
-    K23_ACC(3, t_bf);
-    K23_T(t_st);
-    if (live) write(t, i, v);
-    K23_ACC(5, t_st);
-    K23_T(t_cnt);
-    const int k = __syncthreads_count(take);
-    K23_ACC(4, t_cnt);
-    int l2 = lA + k;
-    if (l2 >= w) { a0 = a1; a1 = na; lA = l2 - w; ++rA; } else { lA = l2; }
-    l2 = lB + (w - k);
-    if (l2 >= w) { b0 = b1; b1 = nb; lB = l2 - w; ++rB; } else { lB = l2; }
-  }
-}
-
 // The static bitonic network over the c = 2^logc lanes of shared memory
-// (K1's row sort, K5/K6's segment sort, K7's expert sort): every thread of
+// (K5's segment sort at c = 32768): every thread of
 // the CTA runs compare-exchanges j = threadIdx.x, += blockDim.x, with a
 // barrier after each stage. The direction rule (first // k) % 2 is the TPU
 // kernels' (`_stage_masks`). Key-only lanes sort descending with XLA's
@@ -270,44 +130,17 @@ __host__ cudaError_t allow_smem(K kern, size_t bytes) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// A run read in place: element p of the run is buf[start + p] for p < len
-// and the last key (with INVALID_RANK) past the end. `base` is the aligned
-// run offset of relative row 0.
-template <typename T, bool KV, bool DESC> struct RunReader {
-  const T* k;
-  const int32_t* r;
-  long long start, len, base;
-  int w;
-  __device__ Lane<T> operator()(int row, int c) const {
-    const long long p = base + (long long)row * w + c;
-    Lane<T> v;
-    if (p < len) {
-      v.k = k[start + p];
-      v.r = KV ? r[start + p] : 0;
-    } else {
-      v.k = last_key<T, DESC>();
-      v.r = kInvalidRank;
-    }
-    return v;
-  }
-  // element i of the run, with the co-rank guards before 0 and past the end
-  __device__ Lane<T> at(long long i) const {
-    Lane<T> v{};
-    if (i >= 0 && i < len) {
-      v.k = k[start + i];
-      v.r = KV ? r[start + i] : 0;
-    }
-    return guard<T, DESC>(v, i, len);
-  }
-};
-
-// Warp-synchronous FLiMS (K4, K8): one warp runs one w-wide dataflow,
-// thread t holding lanes t, t + 32, ... (M = w/32 of them; lane t < w for
-// w < 32).
+// Warp-synchronous FLiMS (K2 / K3, K4, K8): one warp runs one w-wide
+// dataflow, thread t holding lanes t, t + 32, ... (M = w/32 of them; lane
+// t < w for w < 32). Lane i owns head i of A and head w-1-i of B, so the
+// MAX selector pairs a_i with b_{w-1-i} without a reversal; every control
+// value (rotations, rows, the count taken from A) is uniform across the
+// warp.
 constexpr unsigned kFullWarp = 0xffffffffu;
 
 // One compare-exchange of lanes (top, bottom) within a thread's registers:
-// the rule `butterfly` applies across threads.
+// key-only lanes take XLA's max (top) / min (bottom), as `_butterfly_desc`
+// does; KV lanes the compound order, as `_butterfly_kv` does.
 template <typename T, bool KV, bool DESC>
 __device__ __forceinline__ void cas_regs(Lane<T>& top, Lane<T>& bot) {
   if (KV) {
@@ -322,9 +155,10 @@ __device__ __forceinline__ void cas_regs(Lane<T>& top, Lane<T>& bot) {
   }
 }
 
-// `butterfly` over the warp's M lanes per thread: stages d >= 32 pair
-// registers of one thread (slot m with m ^ d/32), stages d < 32 shuffle.
-// Lanes >= w (w < 32) shuffle too and are ignored.
+// The butterfly CAS network over the warp's M lanes per thread, stages at
+// w/2 .. 1: stages d >= 32 pair registers of one thread (slot m with m ^
+// d/32), stages d < 32 shuffle. Lanes >= w (w < 32) shuffle too and are
+// ignored.
 template <typename T, bool KV, bool DESC, int M>
 __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
   const int lane = threadIdx.x & 31;
@@ -356,7 +190,7 @@ __device__ __forceinline__ void warp_butterfly(Lane<T> (&v)[M], int w) {
   }
 }
 
-// warp_butterfly where key-only float lanes may hold no NaN (K8): a warp
+// warp_butterfly where key-only float lanes may hold no NaN (K2, K8): a warp
 // without one runs on the monotone int32 bits, whose integer max / min are
 // XLA's there (-0 below +0); a NaN keeps the float selects.
 template <typename T, bool KV, bool DESC, int M>
@@ -449,6 +283,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 // issued so far is complete (counting as one of the barrier's arrivals).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+// 16 bytes, both addresses 16-byte aligned (K2 / K3's whole aligned rows)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_u32(dst)), "l"(src)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {

@@ -447,7 +447,7 @@ __device__ __forceinline__ void give_up(Handshake& hs, int c, uint32_t given) {
 // Heap node h's dataflow over one span: up to `cycles` chunks from sides A
 // (left child) and B (right child) at rotations lA, lB, each chunk handed
 // to put(t, v), which returns false once the parent wants no more. The
-// selector, the butterfly and the window advance are `merge_stream`'s, run
+// selector, the butterfly and the window advance are K2 / K3's (csrc/flims_merge.cu), run
 // by one warp: the take count k is a ballot sum and every branch on it is
 // uniform across the warp. A side's next row is taken when the window
 // advances onto it, so a node starts on two rows a side.

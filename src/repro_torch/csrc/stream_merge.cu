@@ -336,7 +336,7 @@ __device__ __forceinline__ void give_up(Handshake& hs, int c, uint32_t given) {
 // Heap node h's dataflow over one span: up to `cycles` chunks from sides A
 // (left child) and B (right child) at rotations lA, lB, each chunk handed
 // to put(t, v), which returns false once the parent wants no more. The
-// selector, the butterfly and the window advance are `merge_stream`'s, run
+// selector, the butterfly and the window advance are K2 / K3's (csrc/flims_merge.cu), run
 // by one warp: the take count k is a ballot sum and every branch on it is
 // uniform across the warp. Row rA (rB) of a side is taken once, right after
 // the window advances past row rA - 1.

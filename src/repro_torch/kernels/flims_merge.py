@@ -29,7 +29,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["flims_merge", "flims_merge_kv", "flims_merge_plain",
            "flims_merge_kv_plain", "bound_keys", "plus_inf_for", "lane_first",
-           "xla_max", "xla_min"]
+           "xla_max", "xla_min", "corank_rounds"]
 
 _INT_VIEW = {torch.float32: torch.int32, torch.float64: torch.int64,
              torch.float16: torch.int16, torch.bfloat16: torch.int16}
@@ -181,6 +181,37 @@ def _corank_runs(o, la, lb, astart, bstart, a, ra, b, rb, steps: int,
     return lo
 
 
+def corank_rounds(pred, lo: int, hi: int, steps: int,
+                  levels: int = 5) -> int:
+    """Python twin of the card's co-rank search (``corank`` in
+    ``csrc/flims_merge.cu``): ``steps`` steps of the binary search ``lo, hi
+    = (mid, hi) if pred(mid) else (lo, mid - 1)``, ``mid = (lo + hi + 1) //
+    2``, taken ``levels`` a round. A round probes every node of its search
+    tree (a warp lane each; node n's range replayed from the path bits of
+    n), then walks the path: the binary search's own probes, whatever
+    ``pred`` is."""
+    def mid(lo, hi):
+        return lo + (hi - lo + 1) // 2
+
+    while steps > 0 and lo < hi:
+        lv = min(steps, levels)
+        took = 0
+        for n in range(1, 1 << lv):
+            nlo, nhi = lo, hi
+            for d in range(n.bit_length() - 2, -1, -1):
+                m = mid(nlo, nhi)
+                nlo, nhi = (m, nhi) if (n >> d) & 1 else (nlo, m - 1)
+            took |= int(bool(pred(mid(nlo, nhi)))) << (n - 1)
+        node = 1
+        for _ in range(lv):
+            m = mid(lo, hi)
+            t = (took >> (node - 1)) & 1
+            lo, hi = (m, hi) if t else (lo, m - 1)
+            node = 2 * node + t
+        steps -= lv
+    return lo
+
+
 def run_rows(buf, rbuf, start, ln, base, w: int, descending: bool):
     """Row reader over runs read in place: ``read(r)`` gives, for each block,
     elements ``base + r*w .. + w`` of its run, the last key (and
@@ -296,12 +327,33 @@ def merge_blocks_plain(a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
     return tuple(x[gg, pos % C] for x in out)
 
 
+_per_sm = {}
+
+
+def resident_ctas(code: int, kv: bool, descending: bool, w: int,
+                  device) -> int:
+    """CTAs of the merge kernel the card holds at once: SMs times its
+    occupancy at w."""
+    key = (code, kv, descending, w, torch.device(device).index)
+    if key not in _per_sm:
+        per_sm = _build.library().flims_merge_blocks_occupancy(
+            code, int(kv), int(descending), w)
+        if per_sm <= 0:
+            raise _build.KernelError(
+                f"flims_merge: occupancy query failed ({per_sm}) at w={w}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _per_sm[key] = per_sm * sms
+    return _per_sm[key]
+
+
 def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
                       *, n_out: int, C: int, w: int, G: int,
-                      descending: bool):
-    """Launch ``csrc/flims_merge.cu`` over R run pairs; block prefix sums and
-    output offsets are computed on the device, the kernel finds its own
-    segment and co-rank."""
+                      descending: bool, ctas: int = 0):
+    """Launch ``csrc/flims_merge.cu`` over R run pairs (``a_starts`` ..
+    ``b_lens`` None: the one pair ``a``, ``b``). The pairs' output offsets
+    and first blocks are computed on the card; each block finds its pair
+    and co-rank. ``ctas`` (tests only) forces the CTA count, else the card
+    holds every CTA launched."""
     kv = ra is not None
     _build.check_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens)
     code = _build.dtype_code(name, a.dtype)
@@ -311,24 +363,28 @@ def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
                                  for t in (ra, rb, a_starts, a_lens,
                                            b_starts, b_lens)):
         raise _build.KernelError(f"{name}: keys of one dtype, int32 lanes")
-    R = a_starts.shape[0]
-    if not (a_lens.shape[0] == b_starts.shape[0] == b_lens.shape[0] == R):
+    R = 1 if a_starts is None else a_starts.shape[0]
+    if a_starts is not None and not (
+            a_lens.shape[0] == b_starts.shape[0] == b_lens.shape[0] == R):
         raise _build.KernelError(f"{name}: run vectors of one length")
-    lo_len = a_lens + b_lens
-    out_off = _exclusive_cumsum(lo_len)
-    blk0 = _exclusive_cumsum((lo_len + (C - 1)) // C)
-    out = torch.empty(n_out, dtype=a.dtype, device=a.device)
-    out_r = torch.empty(n_out, dtype=torch.int32, device=a.device) \
-        if kv else None
+    dev = a.device
+    # out_off and blk0 of the pairs, written on the card
+    meta = torch.empty(2 * (R + 1), dtype=torch.int32, device=dev) \
+        if R > 1 else None
+    out = torch.empty(n_out, dtype=a.dtype, device=dev)
+    out_r = torch.empty(n_out, dtype=torch.int32, device=dev) if kv else None
+    ctas = ctas or resident_ctas(code, kv, descending, w, dev)
     P = _build.ptr
     _build.launch(name, "flims_merge_blocks", code, int(kv), int(descending),
                   P(a), P(ra), P(b), P(rb), P(a_starts), P(a_lens),
-                  P(b_starts), P(b_lens), P(out_off), P(blk0), P(out),
-                  P(out_r), R, n_out, G, C, w, _build.stream(a.device))
+                  P(b_starts), P(b_lens), a.shape[0], b.shape[0], P(meta),
+                  P(out), P(out_r), R, n_out, G, C, w, search_steps(n_out),
+                  ctas, _build.stream(dev))
     return (out,) if not kv else (out, out_r)
 
 
-def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, cuda):
+def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, cuda,
+               ctas=0):
     if a.ndim != 1 or b.ndim != 1 or a.dtype != b.dtype:
         raise ValueError(f"{name}: two 1-D key tensors of one dtype")
     if w & (w - 1):
@@ -338,18 +394,16 @@ def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, cuda):
     G = -(-n_out // C)
     dev = a.device
     if cuda:
-        run = torch.tensor([0, a.shape[0], 0, b.shape[0]], dtype=torch.int32,
-                           device=dev)
-        return merge_blocks_cuda(name, a, ra, b, rb, run[0:1], run[1:2],
-                                 run[2:3], run[3:4], n_out=n_out, C=C, w=w,
-                                 G=G, descending=descending)
+        return merge_blocks_cuda(name, a, ra, b, rb, None, None, None, None,
+                                 n_out=n_out, C=C, w=w, G=G,
+                                 descending=descending, ctas=ctas)
     zero = torch.zeros(1, dtype=torch.int64, device=dev)
     return merge_blocks_plain(a, ra, b, rb, zero, zero + a.shape[0], zero,
                               zero + b.shape[0], n_out=n_out, C=C, w=w, G=G,
                               descending=descending)
 
 
-def _flims_merge(a, b, w, block_out, cuda):
+def _flims_merge(a, b, w, block_out, cuda, ctas=0):
     if a.shape[0] + b.shape[0] == 0:
         return a.new_zeros((0,))
     if a.shape[0] == 0:
@@ -357,10 +411,11 @@ def _flims_merge(a, b, w, block_out, cuda):
     if b.shape[0] == 0:
         return a
     return _merge_one("flims_merge", a, None, b, None, w=w,
-                      block_out=block_out, descending=True, cuda=cuda)[0]
+                      block_out=block_out, descending=True, cuda=cuda,
+                      ctas=ctas)[0]
 
 
-def _flims_merge_kv(a, ra, b, rb, w, block_out, descending, cuda):
+def _flims_merge_kv(a, ra, b, rb, w, block_out, descending, cuda, ctas=0):
     if ra.shape != a.shape or rb.shape != b.shape:
         raise ValueError("flims_merge_kv: rank lanes shaped like the keys")
     if a.shape[0] + b.shape[0] == 0:
@@ -372,15 +427,16 @@ def _flims_merge_kv(a, ra, b, rb, w, block_out, descending, cuda):
         return a, ra
     return _merge_one("flims_merge_kv", a, ra.to(torch.int32), b,
                       rb.to(torch.int32), w=w, block_out=block_out,
-                      descending=descending, cuda=cuda)
+                      descending=descending, cuda=cuda, ctas=ctas)
 
 
 @obs.scoped("kernels.flims_merge")
 def flims_merge(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
-                block_out: int = 4096) -> torch.Tensor:
+                block_out: int = 4096, _ctas: int = 0) -> torch.Tensor:
     """Merge two descending 1-D tensors with the partitioned FLiMS kernel
-    (counterpart of ``flims_merge_pallas``)."""
-    return _flims_merge(a, b, w, block_out, a.is_cuda)
+    (counterpart of ``flims_merge_pallas``). ``_ctas`` (tests only) forces
+    the CUDA kernel's CTA count."""
+    return _flims_merge(a, b, w, block_out, a.is_cuda, _ctas)
 
 
 def flims_merge_plain(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
@@ -391,11 +447,13 @@ def flims_merge_plain(a: torch.Tensor, b: torch.Tensor, *, w: int = 128,
 
 @obs.scoped("kernels.flims_merge_kv")
 def flims_merge_kv(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,
-                   descending: bool = True) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
+                   descending: bool = True,
+                   _ctas: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stable partitioned FLiMS merge of (key, int32 rank) lanes (counterpart
-    of ``flims_merge_kv_pallas``). Returns ``(keys, ranks)``."""
-    return _flims_merge_kv(a, ra, b, rb, w, block_out, descending, a.is_cuda)
+    of ``flims_merge_kv_pallas``). Returns ``(keys, ranks)``. ``_ctas``
+    (tests only) forces the CUDA kernel's CTA count."""
+    return _flims_merge_kv(a, ra, b, rb, w, block_out, descending, a.is_cuda,
+                           _ctas)
 
 
 def flims_merge_kv_plain(a, ra, b, rb, *, w: int = 128, block_out: int = 4096,

@@ -1,12 +1,15 @@
-"""K7: fused MoE routing, router logits -> capacity slabs in one launch.
+"""K7: fused MoE routing, router logits -> capacity slabs in one call.
 
-Counterpart of ``repro/kernels/route_fuse.py``. Per token group (one CTA):
-``k`` arg-max sweeps over the monotone int32 transform of the logits' bits
-(``lax.top_k``'s order: ties to the lower expert, -0.0 below +0.0), the
-softmax of the ``k`` picks, one stable ascending sort of the distinct
-compound keys ``e * Np + p`` (``p = t * k + j`` the pair's position) with
-the weight's bits riding the rank lane, and the GShard capacity cut by
-first-occurrence rank (``csrc/route_fuse.cu``).
+Counterpart of ``repro/kernels/route_fuse.py``. Per token group: ``k``
+arg-max sweeps over the monotone int32 transform of the logits' bits
+(``lax.top_k``'s order: ties to the lower expert, -0.0 below +0.0; a picked
+expert's key masked to INT32_MIN, as ``_topk_softmax`` does), the softmax
+of the ``k`` picks, the pairs in the ascending order of the distinct
+compound keys ``e * Np + p`` (``p = t * k + j`` the pair's position) and
+the GShard capacity cut by first-occurrence rank. On the card
+(``csrc/route_fuse.cu``) the sweeps run a CTA per tile of ``tile`` tokens
+and the sort is a counting sort (tile counts, one scan, a scatter), three
+launches behind one C call.
 
 ``moe_route`` launches the kernel for a CUDA tensor and runs
 ``moe_route_plain`` (a torch transcription of ``_route_kernel``: the same
@@ -34,9 +37,12 @@ from repro_torch.kernels.bitonic_sort import _bitonic_rows_kv
 __all__ = ["moe_route", "moe_route_plain", "moe_route_torch", "topk_softmax",
            "untwist", "MAX_PAIRS"]
 
-#: the most (padded) pairs one CTA's shared memory sorts: Np * 8 B of keys
-#: and weight bits in 227 KB
+#: the most (padded) pairs a token group may have: the JAX kernel's
+#: VMEM-resident sort and the port's first, one-CTA kernel (Np * 8 B of
+#: keys and weight bits in 227 KB) set it; the counting sort keeps it
 MAX_PAIRS = 16384
+#: tokens per tile of the card's top-k and scatter launches
+ROUTE_TILE = 16
 
 _I32_MAX = 2 ** 31 - 1
 _I32_MIN = -2 ** 31
@@ -65,21 +71,31 @@ def _geometry(logits, k: int, capacity: int):
     return G, T, E, N, Np
 
 
-def _route_cuda(logits, k, cap, G, T, E, N, Np):
+def _route_cuda(logits, k, cap, G, T, E, N, Np, tile):
     if Np > MAX_PAIRS:
         raise _build.KernelError(
             f"moe_route: T*k = {N} pairs pad to Np = {Np}, whose keys and "
             f"weights take {Np * 8} bytes of shared memory; one CTA holds "
             f"Np <= {MAX_PAIRS}; shrink the token group")
+    lanes = min(32, next_pow2(E))
+    tile = tile or min(ROUTE_TILE, 1024 // lanes)
+    if not 1 <= tile * lanes <= 1024:
+        raise _build.KernelError(
+            f"moe_route: a tile of {tile} tokens at {lanes} lanes a token "
+            f"passes 1024 threads")
     logits = logits.contiguous()
     _build.check_cuda("moe_route", logits)
     dev = logits.device
     outs = [torch.empty((G, N), dtype=dt, device=dev)
             for dt in (torch.int32, torch.int32, torch.int32, torch.float32,
                        torch.int32, torch.int32)]
+    # pair experts, pair weights, per-(expert, tile) counts, first[e]
+    tiles = -(-T // tile)
+    scratch = torch.empty(G * (2 * N + E * tiles + E), dtype=torch.int32,
+                          device=dev)
     P = _build.ptr
     _build.launch("moe_route", "flims_moe_route", P(logits), G, T, E, k, cap,
-                  Np, *(P(o) for o in outs), _build.stream(dev))
+                  tile, *(P(o) for o in outs), P(scratch), _build.stream(dev))
     return tuple(outs)
 
 
@@ -118,20 +134,22 @@ def _route_plain(logits, k, cap, G, T, E, N, Np):
         e_s, p_s // k, p_s, w_s, slab, keep.to(torch.int32)))
 
 
-def _moe_route(logits, k, capacity, cuda):
+def _moe_route(logits, k, capacity, cuda, tile=0):
     G, T, E, N, Np = _geometry(logits, k, int(capacity))
     if cuda:
-        return _route_cuda(logits, k, int(capacity), G, T, E, N, Np)
+        return _route_cuda(logits, k, int(capacity), G, T, E, N, Np, tile)
     return _route_plain(logits, k, int(capacity), G, T, E, N, Np)
 
 
 @obs.scoped("kernels.route_fuse")
-def moe_route(logits: torch.Tensor, k: int, capacity: int):
-    """Fused routing of (G, T, E) float32 router logits, one CTA per group
-    (counterpart of ``moe_route_pallas``). Returns, each (G, T*k) in stable
-    sorted pair order: ``(experts, tokens, perm, weights, slabs, keep)``.
-    On the card T*k pads to at most ``MAX_PAIRS``."""
-    return _moe_route(logits, k, capacity, logits.is_cuda)
+def moe_route(logits: torch.Tensor, k: int, capacity: int, *,
+              _tile: int = 0):
+    """Fused routing of (G, T, E) float32 router logits (counterpart of
+    ``moe_route_pallas``). Returns, each (G, T*k) in stable sorted pair
+    order: ``(experts, tokens, perm, weights, slabs, keep)``. On the card
+    T*k pads to at most ``MAX_PAIRS``; ``_tile`` (tests only) forces the
+    tokens per tile."""
+    return _moe_route(logits, k, capacity, logits.is_cuda, _tile)
 
 
 def moe_route_plain(logits: torch.Tensor, k: int, capacity: int):

@@ -81,7 +81,7 @@ def unpad_bank(bank, offsets, total: int):
 
 
 def _segmented(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
-               n_out, w, block_out, descending, cuda):
+               n_out, w, block_out, descending, cuda, ctas=0):
     if a_starts.shape[0] == 0 or n_out == 0:
         empty = a.new_zeros((n_out,))
         return (empty,) if ra is None else (
@@ -99,7 +99,8 @@ def _segmented(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
         i32 = lambda t: t.to(torch.int32).contiguous()
         return merge_blocks_cuda(
             name, a, ra, b, rb, i32(a_starts), i32(a_lens), i32(b_starts),
-            i32(b_lens), n_out=n_out, C=C, w=w, G=G, descending=descending)
+            i32(b_lens), n_out=n_out, C=C, w=w, G=G, descending=descending,
+            ctas=ctas)
     return merge_blocks_plain(a, ra, b, rb, a_starts, a_lens, b_starts,
                               b_lens, n_out=n_out, C=C, w=w, G=G,
                               descending=descending)
@@ -107,14 +108,16 @@ def _segmented(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
 
 @obs.scoped("kernels.segmented_merge_runs")
 def segmented_merge_runs(a, b, a_starts, a_lens, b_starts, b_lens, *,
-                         n_out: int, w: int = 32, block_out: int = 1024):
+                         n_out: int, w: int = 32, block_out: int = 1024,
+                         _ctas: int = 0):
     """Merge R descending run pairs in one launch. Returns the (n_out,)
-    concatenation of the merged runs in run order; ``n_out`` must equal
-    ``sum(a_lens) + sum(b_lens)``."""
+    concatenation of the merged runs in run order, cut at ``n_out`` (at
+    most ``sum(a_lens) + sum(b_lens)``). ``_ctas`` (tests only) forces the
+    CUDA kernel's CTA count."""
     return _segmented("segmented_merge_runs", a, None, b, None, a_starts,
                       a_lens, b_starts, b_lens, n_out=n_out, w=w,
                       block_out=block_out, descending=True,
-                      cuda=a.is_cuda)[0]
+                      cuda=a.is_cuda, ctas=_ctas)[0]
 
 
 def segmented_merge_runs_plain(a, b, a_starts, a_lens, b_starts, b_lens, *,
@@ -129,13 +132,14 @@ def segmented_merge_runs_plain(a, b, a_starts, a_lens, b_starts, b_lens, *,
 @obs.scoped("kernels.segmented_merge_runs_kv")
 def segmented_merge_runs_kv(a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
                             *, n_out: int, w: int = 32, block_out: int = 1024,
-                            descending: bool = True):
+                            descending: bool = True, _ctas: int = 0):
     """Stable KV form of ``segmented_merge_runs`` over (key, int32 rank)
-    lanes under the compound order. Returns ``(keys, ranks)``."""
+    lanes under the compound order. Returns ``(keys, ranks)``. ``_ctas``
+    (tests only) forces the CUDA kernel's CTA count."""
     return _segmented("segmented_merge_runs_kv", a, ra, b, rb, a_starts,
                       a_lens, b_starts, b_lens, n_out=n_out, w=w,
                       block_out=block_out, descending=descending,
-                      cuda=a.is_cuda)
+                      cuda=a.is_cuda, ctas=_ctas)
 
 
 def segmented_merge_runs_kv_plain(a, ra, b, rb, a_starts, a_lens, b_starts,

@@ -69,7 +69,9 @@ def _bits(t):
 
 def _same_on_card(fn, *args, **kw):
     plain = getattr(sys.modules[fn.__module__], fn.__name__ + "_plain")
-    got, exp = fn(*args, **kw), plain(*args, **kw)
+    got = fn(*args, **kw)
+    kw.pop("_ctas", None)      # the plain version has no CTAs
+    exp = plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     exp = exp if isinstance(exp, tuple) else (exp,)
     for g, e in zip(got, exp):
@@ -121,6 +123,56 @@ def test_cuda_kernels_match_plain(card, descending):
         _same_on_card(TT.merge_tree_runs_kv, buf, rk, st, ln, group=group,
                       n_out=buf.numel(), w=32, block_out=256,
                       descending=descending)
+
+
+MERGE_NAN_POOL = np.array([np.nan, 0.0, -0.0, 1.5, -1.0, -np.inf, 4.0, 4.0],
+                          np.float32)
+
+
+def nan_run(n, descending=True):
+    """A run of ``n`` keys with NaNs of two payloads, +0.0/-0.0 and ties,
+    sorted by numpy (NaNs at the descending run's head)."""
+    x = RNG.choice(MERGE_NAN_POOL, n).astype(np.float32)
+    x.view(np.int32)[RNG.random(n) < 0.1] = np.int32(-4194304)  # -NaN
+    x = np.sort(x)
+    return (x[::-1] if descending else x).copy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 32, 128])
+def test_merge_blocks_match_plain(card, w):
+    """K2 / K2kv / K3 / K3kv against their plain versions under forced CTA
+    counts (1, 7, the card's own): runs holding NaNs of two payloads and
+    +0.0/-0.0; ragged pairs with empty and one-sided runs at starts off 16
+    bytes; the output whole and cut below the pairs' total; KV both ways."""
+    bo = 16 * w
+    for d in (True, False):
+        a = T(nan_run(3001, d)).to(card)
+        b = T(nan_run(1003, d)).to(card)
+        ra = torch.arange(3001, dtype=torch.int32, device=card)
+        rb = 3001 + torch.arange(1003, dtype=torch.int32, device=card)
+        lens = (PAIR_LENS + [2 * bo + 5, 3, 0, bo - 1]) * 6
+        parts = [nan_run(n, d) for n in lens]
+        buf = T(np.concatenate(parts)).to(card)
+        offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+        st, ln = T(offs[:-1].copy()).to(card), T(np.array(lens, np.int32)).to(card)
+        pairs = tuple(t.contiguous() for t in (st[0::2], ln[0::2], st[1::2],
+                                               ln[1::2]))
+        rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+        n = buf.numel()
+        for ctas in (1, 7, 0):
+            if d:
+                _same_on_card(TF.flims_merge, a, b, w=w, block_out=bo,
+                              _ctas=ctas)
+            _same_on_card(TF.flims_merge_kv, a, ra, b, rb, w=w, block_out=bo,
+                          descending=d, _ctas=ctas)
+            for n_out in (n, 3 * n // 4):
+                if d:
+                    _same_on_card(TS.segmented_merge_runs, buf, buf, *pairs,
+                                  n_out=n_out, w=w, block_out=bo, _ctas=ctas)
+                _same_on_card(TS.segmented_merge_runs_kv, buf, rk, buf, rk,
+                              *pairs, n_out=n_out, w=w, block_out=bo,
+                              descending=d, _ctas=ctas)
 
 
 # K1 / K1kv: widths from one key a row (a row within one thread) through
@@ -449,24 +501,32 @@ def test_k6_nan_segments_match_plain(card, descending):
 @pytest.mark.parametrize("G,n_tok,E,k,cap", [
     (1, 64, 8, 2, 10), (2, 64, 8, 2, 10), (1, 100, 6, 3, 5),
     (1, 16, 4, 1, 2), (3, 33, 5, 2, 1), (1, 32, 8, 4, 1000),
-    (2, 128, 16, 6, 20), (1, 2048, 8, 2, 641), (1, 2048, 64, 6, 241)])
+    (2, 128, 16, 6, 20), (1, 2048, 8, 2, 641), (1, 2048, 64, 6, 241),
+    (1, 4096, 8, 2, 1281), (2, 300, 160, 6, 20), (1, 64, 8, 8, 9),
+    (1, 40, 64, 64, 50), (1, 50, 300, 4, 3)])
 def test_route_kernel_matches_plain(card, G, n_tok, E, k, cap):
     """K7 against ``moe_route_plain`` and ``moe_route_torch``: integer lanes
-    bit for bit, weights within ROUTE_WEIGHT_ULPS; ties with +0.0/-0.0."""
+    bit for bit, weights within ROUTE_WEIGHT_ULPS; ties with +0.0/-0.0.
+    Each shape also under forced tiles: one token a tile, 7 (a partial last
+    tile), and a CTA's most (1024 threads)."""
     rng = np.random.default_rng(G * n_tok + E + k)
     lg = np.round(rng.standard_normal((G, n_tok, E)).astype(np.float32)
                   * 2) / 2
     lg[lg == 0.0] = np.where(rng.random((lg == 0.0).sum()) < 0.5, -0.0, 0.0)
     x = T(lg.astype(np.float32)).to(card)
-    got = TR.moe_route(x, k, cap)
-    for ref in (TR.moe_route_plain(x, k, cap), TR.moe_route_torch(x, k, cap)):
-        for i, (g, e) in enumerate(zip(got, ref)):
-            assert g.shape == e.shape and g.dtype == e.dtype
-            if i == 3:
-                d = (g.view(torch.int32).long() - e.view(torch.int32).long())
-                assert int(d.abs().max()) <= ROUTE_WEIGHT_ULPS
-            else:
-                assert torch.equal(g, e), i
+    refs = (TR.moe_route_plain(x, k, cap), TR.moe_route_torch(x, k, cap))
+    most = 1024 // min(32, 1 << (E - 1).bit_length())
+    for tile in (0, 1, 7, most):
+        got = TR.moe_route(x, k, cap, _tile=tile)
+        for ref in refs:
+            for i, (g, e) in enumerate(zip(got, ref)):
+                assert g.shape == e.shape and g.dtype == e.dtype
+                if i == 3:
+                    d = (g.view(torch.int32).long()
+                         - e.view(torch.int32).long())
+                    assert int(d.abs().max()) <= ROUTE_WEIGHT_ULPS
+                else:
+                    assert torch.equal(g, e), (tile, i)
 
 
 def _route_same(got, ref, what):

@@ -191,6 +191,55 @@ def test_k3kv_segmented_merge_runs_kv(descending):
     same(jr, tr)
 
 
+# NaN runs: the co-rank predicate is not monotone there, so only the binary
+# search's own sequence of probes gives its answer
+NAN_POOL = np.array([np.nan, 0.0, -0.0, 1.5, -1.0, -np.inf, 4.0], np.float32)
+
+
+@pytest.mark.parametrize("kv,descending", [(False, True), (True, True),
+                                           (True, False)])
+def test_k23_corank_rounds_match_jax(kv, descending):
+    """The card's co-rank search (``corank_rounds``, five binary-search
+    steps a round over a warp) against JAX ``_corank_runs`` /
+    ``_corank_runs_kv`` at every C-wide block of ragged run pairs holding
+    NaNs, +0.0/-0.0 and empty runs, at the step count of the output size."""
+    import jax
+    lens = PAIR_LENS + [64, 3, 0, 40]
+    runs = []
+    for n in lens:
+        x = np.sort(RNG.choice(NAN_POOL, n).astype(np.float32))
+        runs.append(x[::-1].copy() if descending else x)
+    buf = np.concatenate(runs)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    rk = np.arange(buf.shape[0], dtype=np.int32)
+    n_out, C = buf.shape[0], 16
+    steps = TF.search_steps(n_out)
+    wins = TF.wins_fn(kv, descending)
+    tb, tr = T(buf), T(rk) if kv else None
+    if kv:
+        ref = jax.jit(lambda *a: JS._corank_runs_kv(*a, steps, descending))
+    else:
+        ref = jax.jit(lambda *a: JS._corank_runs(*a, steps))
+    checked = 0
+    for s in range(0, len(lens), 2):
+        la, lb = lens[s], lens[s + 1]
+        sa, sb = int(offs[s]), int(offs[s + 1])
+        for o in range(0, la + lb, C):
+            def pred(m):
+                x = TF.run_elem(tb, tr, torch.tensor(sa), torch.tensor(la),
+                                torch.tensor(m - 1), descending)
+                y = TF.run_elem(tb, tr, torch.tensor(sb), torch.tensor(lb),
+                                torch.tensor(o - m), descending)
+                return bool(wins(x, y))
+            got = TF.corank_rounds(pred, max(0, o - lb), min(o, la), steps)
+            args = (o, la, lb, sa, sb, jnp.array(buf))
+            args += (jnp.array(rk), jnp.array(buf), jnp.array(rk)) if kv \
+                else (jnp.array(buf),)
+            assert got == int(ref(*args)), (s, o)
+            checked += 1
+    assert checked > 10
+
+
 # --------------------------------------------------------------------------
 # K4
 # --------------------------------------------------------------------------
