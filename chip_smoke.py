@@ -16,7 +16,8 @@ the CUDA toolkit. It
      16384, 8 experts, top-2, bf16, random weights from the seed) through
      ``models.moe.moe_apply``, grouped at (4, 2048) and sorted at
      (1, 4096), and the same layer of Moonlight-16B-A3B (d 2048, d_ff 1408,
-     64 experts, top-6) at (4, 2048) (K7). Every chunk's routing lanes are
+     64 experts, top-6) at (4, 2048) (K7, four launches a grouped layer,
+     one a sorted one). Every chunk's routing lanes are
      held against the ``torch`` variant, the layer output of the fused route
      against the ``torch`` route's, and, with a capacity that drops
      nothing, the grouped output against ``moe_apply_dense``;
@@ -34,9 +35,14 @@ the CUDA toolkit. It
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
-   -inf; K1 also on rows holding NaNs of several payloads and at a width of
-   4096 (stages through shared memory); K5 / K6 also at the
-   many-short-segments shape and on segments holding NaNs or dense in
+   -inf; K2 / K3 also at w 8, 32 and 128 on runs holding NaNs of several
+   payloads and +0.0/-0.0, ragged pairs with empty runs at starts off 16
+   bytes, the output whole and cut below the total, KV both ways, under
+   forced CTA counts (1, 7 and the card's own); K7 also at its three route
+   shapes, on tied logits and on logits whose monotone key is INT32_MIN
+   (the top-k repair); K1 also on rows holding NaNs of several payloads
+   and at a width of 4096 (stages through shared memory); K5 / K6 also at
+   the many-short-segments shape and on segments holding NaNs or dense in
    +0.0/-0.0 at caps 16384 and 32768 (K5), counted by route (warp, wide,
    K5's shared-memory network at c = 32768, exact lanes); K8's plain
    version runs on the card
@@ -52,10 +58,11 @@ the CUDA toolkit. It
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
-   the float32 rate, whichever is larger), splits the Mixtral layer's
-   time between the router, K7, the slab scatter, the expert products and
-   the combine, and the out-of-core sort's between run formation and each
-   merge pass; records one K8 pass and the whole out-of-core sort at fan-in
+   the float32 rate, whichever is larger), splits the MoE layer's time
+   between the router, K7, the slab scatter, the expert products and the
+   combine (Mixtral-8x22B and Moonlight-16B-A3B), times K7 at its three
+   route shapes, splits the out-of-core sort's between run formation and
+   each merge pass; records one K8 pass and the whole out-of-core sort at fan-in
    2, 4, 8 and 16, K4 at engine.sort's first and last pass, engine.sort /
    engine.argsort split per launch, and both at 2 and 3 fused levels a pass;
    times K1 / K1kv at run formation's (524288, 256) and records the chunk
@@ -320,8 +327,10 @@ def phase_main_path(engine, kernels, gen):
                           vb=vb, rbuf=rbuf, roffs=roffs)
 
 
-# CTA counts K4 is forced to against its plain version (0: the card's own)
+# CTA counts K4 and K2 / K3 are forced to against their plain versions (0:
+# the card's own)
 K4_CTAS = (1, 2, 7, 0)
+K23_CTAS = (1, 7, 0)
 
 
 def phase_kernels_vs_plain(mods, gen):
@@ -381,6 +390,44 @@ def phase_kernels_vs_plain(mods, gen):
                  n_out=buf.shape[0], w=128, block_out=4096)
         both(k3.segmented_merge_runs_kv, buf, rk, buf, rk, *pairs,
              n_out=buf.shape[0], w=128, block_out=4096, descending=d)
+
+    # K2 / K3 at w 8 / 32 / 128 on runs holding NaNs of several payloads
+    # and +-0, ragged pairs with empty runs at starts off 16 bytes, the
+    # output whole and cut below the total, KV both ways, each against one
+    # plain result under forced CTA counts (one CTA taking every block in
+    # turn, 7, the card's own count)
+    def forced(fn, *args, **kw):
+        exp = plain_of(fn)(*args, **kw)
+        for ctas in K23_CTAS:
+            err = check_same(f"{fn.__name__} {kw} ctas={ctas}",
+                             fn(*args, _ctas=ctas, **kw), exp)
+            errs[fn.__name__] = max(errs.get(fn.__name__, 0.0), err)
+
+    for w in (8, 32, 128):
+        bo = 32 * w
+        for d in (True, False):
+            a, b = (sorted_runs([n], gen, descending=d, keys=nan_keys)[0]
+                    for n in ((1 << 18) + 123, (1 << 18) - 77))
+            ra = torch.arange(a.numel(), dtype=torch.int32, device=dev)
+            rb = a.numel() + torch.arange(b.numel(), dtype=torch.int32,
+                                          device=dev)
+            if d:
+                forced(k2.flims_merge, a, b, w=w, block_out=bo)
+            forced(k2.flims_merge_kv, a, ra, b, rb, w=w, block_out=bo,
+                   descending=d)
+            lens = ragged_lens(258, 1 << 19, gen)
+            lens[2] = lens[3] = lens[5] = 0
+            buf, st, ln = sorted_runs(lens, gen, descending=d, keys=nan_keys)
+            n = buf.shape[0]
+            rk = torch.arange(n, dtype=torch.int32, device=dev)
+            pairs = (st[0::2].contiguous(), ln[0::2].contiguous(),
+                     st[1::2].contiguous(), ln[1::2].contiguous())
+            for n_out in (n, 3 * n // 4):
+                if d:
+                    forced(k3.segmented_merge_runs, buf, buf, *pairs,
+                           n_out=n_out, w=w, block_out=bo)
+                forced(k3.segmented_merge_runs_kv, buf, rk, buf, rk, *pairs,
+                       n_out=n_out, w=w, block_out=bo, descending=d)
 
     # K4 on ragged runs at unaligned starts with empty runs, each against one
     # plain result under forced CTA counts (one CTA taking every group in
@@ -497,6 +544,11 @@ def phase_times(mods, launches, errs, data):
             extra = {"smem_bytes": k1.rows_smem(torch.float32, kv, True, 256),
                      "ctas": k1.resident_ctas(torch.float32, kv, True, 256,
                                               dev)}
+        if fn in (k2.flims_merge, k2.flims_merge_kv, k3.segmented_merge_runs,
+                  k3.segmented_merge_runs_kv):
+            extra = {"ctas": k2.resident_ctas(
+                k2._build.DTYPE_CODES[torch.float32], name.endswith("_kv"),
+                True, 128, dev)}
         if fn in (k4.merge_tree_runs, k4.merge_tree_runs_kv):
             kv = name.endswith("_kv")
             extra = {"smem_bytes": k4.tree_smem(torch.float32, kv, True, 2,
@@ -735,17 +787,33 @@ def ulps(g: torch.Tensor, e: torch.Tensor) -> int:
 
 def check_route(what: str, got, ref):
     """Routing lanes: experts, tokens, perm, slabs and keep bit for bit, the
-    weights within ROUTE_WEIGHT_ULPS. Returns (max_abs_err, ulps) of the
-    weights."""
+    weights within ROUTE_WEIGHT_ULPS (a NaN weight, which logits whose
+    monotone key is INT32_MIN give, at the same places on both sides).
+    Returns (max_abs_err, ulps) of the weights."""
     names = ("experts", "tokens", "perm", "weights", "slabs", "keep")
     for name, g, e in zip(names, got, ref):
         if name != "weights":
             check_same(f"{what} {name}", g, e)
-    u = ulps(got[3], ref[3])
+    nan = torch.isnan(got[3])
+    if not torch.equal(nan, torch.isnan(ref[3])):
+        raise AssertionError(f"{what} weights: NaN at other places")
+    g, e = got[3][~nan], ref[3][~nan]
+    u = ulps(g, e)
     if u > ROUTE_WEIGHT_ULPS:
         raise AssertionError(f"{what} weights: {u} ulps > "
                              f"{ROUTE_WEIGHT_ULPS}")
-    return max_abs_err(got[3], ref[3]), u
+    return max_abs_err(g, e), u
+
+
+def int_min_logits(G, T, E, per_row, gen):
+    """(G, T, E) router logits with ``per_row`` entries of each row (at
+    random experts) set to the bits 0xFFFFFFFF, whose monotone key is
+    INT32_MIN."""
+    lg = torch.randn((G, T, E), generator=gen, device="cuda")
+    pick = torch.argsort(torch.rand((G, T, E), generator=gen, device="cuda"),
+                         dim=-1)[..., :per_row]
+    lg.view(torch.int32).scatter_(-1, pick, -1)
+    return lg
 
 
 def counted(kernels, fn):
@@ -855,7 +923,7 @@ def phase_moe(engine, kernels, slice2, gen, cfg_name, runs, split=False):
     print(f"{cfg_name}: d {cfg.d_model}, expert d_ff {cfg.moe_d_ff}, "
           f"{E} experts top-{k}, {cfg.param_dtype}; {gb:.3f} GB of weights "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches_all, errs, logits0 = {}, [0.0, 0], None
+    launches_all, errs, routes = {}, [0.0, 0], []
     for mode, B, S in runs:
         x = xs[(B, S)]
         obs.reset()
@@ -884,7 +952,8 @@ def phase_moe(engine, kernels, slice2, gen, cfg_name, runs, split=False):
             errs = [max(errs[0], err), max(errs[1], u)]
             w_same &= torch.equal(rf.weights.to(torch.bfloat16),
                                   rt.weights.to(torch.bfloat16))
-        logits0 = logits0 if logits0 is not None else (lgs[0], k, cap)
+        # the run's first chunk and the K7 launches of the run
+        routes.append((lgs[0], k, cap, launches["moe_route"]))
         # the layer on the torch route: equal where the bf16 weights are
         key = planner.plan_key("moe_route", n=T * k, dtype=torch.float32,
                                backend="cuda", segments=1)
@@ -922,7 +991,7 @@ def phase_moe(engine, kernels, slice2, gen, cfg_name, runs, split=False):
         if split else None
     del p, xs
     torch.cuda.empty_cache()
-    return launches_all, errs, logits0, split_line
+    return launches_all, errs, routes, split_line
 
 
 def moe_split(engine, k7, moe, p, x, cfg):
@@ -1001,7 +1070,18 @@ def phase_slice2_vs_plain(slice2, seg, route_logits, gen):
         sign = torch.randint(0, 2, lg.shape, generator=gen, device="cuda")
         tied.append((torch.where((lg == 0) & (sign == 1), -0.0, lg), k,
                      max(1, T * k // (2 * E))))
-    for lg, k, cap in list(route_logits) + tied:
+    # the top-k repair: once every expert not yet picked reads INT32_MIN
+    # the mask rule picks expert 0 again ([1.0, 0xFFFFFFFF, 2.0,
+    # 0xFFFFFFFF] at k = 4 routes to [0, 0, 0, 2])
+    row = torch.tensor([[[1.0, 0.0, 2.0, 0.0]]], device="cuda")
+    row.view(torch.int32)[0, 0, 1::2] = -1
+    repair = [(row, 4, 8), (int_min_logits(1, 2048, 64, 60, gen), 6, 241),
+              (int_min_logits(1, 4096, 8, 7, gen), 2, 1281),
+              (int_min_logits(2, 512, 8, 5, gen), 8, 600)]
+    first = k7.moe_route(row, 4, 8)[0][0].tolist()
+    if first != [0, 0, 0, 2]:
+        raise AssertionError(f"moe_route repair row: experts {first}")
+    for lg, k, cap in [r[:3] for r in route_logits] + tied + repair:
         got = k7.moe_route(lg, k, cap)
         err, u = check_route(f"moe_route {tuple(lg.shape)} k={k}", got,
                              k7.moe_route_plain(lg, k, cap))
@@ -1010,7 +1090,8 @@ def phase_slice2_vs_plain(slice2, seg, route_logits, gen):
     torch.cuda.synchronize()
     print("slice 2 kernels vs plain: K5/K6 bit-for-bit (NaN and +-0 "
           "segments by route, K5 then K6: " + json.dumps(routes) + "), K7 "
-          f"integer lanes bit-for-bit, weights within {ulp_max} ulps "
+          "integer lanes bit-for-bit at the three route shapes, tied logits "
+          f"and INT32_MIN keys, weights within {ulp_max} ulps "
           + json.dumps(errs), flush=True)
     return errs
 
@@ -1073,10 +1154,16 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
     library call and the bound; K5 / K6 also at the many-short-segments
     shape (printed, not in the table)."""
     _, _, _, k7, k56, _ = slice2
-    lg, k, cap = route_logits[0]
-    G, T, E = lg.shape
-    Np = 1 << max(3, (T * k - 1).bit_length())
-    lnp = Np.bit_length() - 1
+
+    def route_case(lg, k, cap):
+        """K7 at one route shape: bytes of the logits and the six lanes;
+        operations the k sweeps' compares and the counting sort's pairs."""
+        G, T, E = lg.shape
+        return (k7.moe_route, "route_fuse.cu", "route_fuse.py:181",
+                (lg, k, cap), {}, lambda: k7.moe_route_torch(lg, k, cap),
+                "moe_route_torch, the torch variant: no single torch call "
+                "routes", G * T * E * 4 + 6 * G * T * k * 4,
+                G * T * k * (E + 2))
 
     def seg_cases(sh, cap):
         kf, offs, lens = sh["kf"], sh["offs"], sh["lens"]
@@ -1094,16 +1181,14 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
              "torch.sort(stable=True) over the padded (S, cap) bank",
              3 * n * 4 + (S + 1) * 4, net)]
 
-    cases = seg_cases(seg, SEG_MAX) + [
-        (k7.moe_route, "route_fuse.cu", "route_fuse.py:181", (lg, k, cap),
-         {}, lambda: k7.moe_route_torch(lg, k, cap),
-         "moe_route_torch, the torch variant: no single torch call routes",
-         G * T * E * 4 + 6 * G * T * k * 4,
-         G * (T * E * k + Np / 2 * lnp * (lnp + 1) / 2))]
+    cases = seg_cases(seg, SEG_MAX) + [route_case(*route_logits[0][:3])]
     short = seg_cases(seg["short"], SHORT_MAX)
+    # K7 at each route shape, with that run's launches: Mixtral's grouped
+    # chunk (the table's row), its sorted layer, Moonlight's grouped chunk
+    shapes = [route_case(*r[:3]) for r in route_logits]
     table = []
     for i, (fn, source, replaces, args, kw, lib, lib_call, nbytes,
-            ops) in enumerate(cases + short):
+            ops) in enumerate(cases + short + shapes):
         name = fn.__name__
         bound_ms, bound_by = _bound(nbytes, ops)
         row = {
@@ -1120,15 +1205,16 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
         if i < len(cases):
             table.append(row)
             print(f"time {name}: " + json.dumps(row), flush=True)
-        else:
+        elif i < len(cases) + len(short):
             row.update(keys=N_SHORT, segments=len(seg["short"]["lens"]),
                        cap=SHORT_MAX)
             print(f"time {name} short: " + json.dumps(row), flush=True)
-    for lg2, k2, cap2 in route_logits[1:]:
-        print(f"time moe_route {tuple(lg2.shape)} k={k2}: " + json.dumps({
-            "ms": time_ms(lambda: k7.moe_route(lg2, k2, cap2)),
-            "torch_variant_ms": time_ms(
-                lambda: k7.moe_route_torch(lg2, k2, cap2))}), flush=True)
+        else:
+            lg, k = args[:2]
+            row.update(launches=route_logits[i - len(cases) - len(short)][3],
+                       shape=list(lg.shape), k=k)
+            print(f"time moe_route {tuple(lg.shape)} k={k}: "
+                  + json.dumps(row), flush=True)
     return table
 
 
@@ -1528,13 +1614,13 @@ def main() -> int:
     slice2 = _import_slice2()
     seg_launches, seg = timed("segments", phase_segments, engine, kernels,
                               gen)
-    mix_launches, mix_errs, mix_route, split = timed(
+    mix_launches, mix_errs, mix_routes, split = timed(
         "moe mixtral_8x22b", phase_moe, engine, kernels, slice2, gen,
         "mixtral_8x22b", [("grouped", 4, 2048), ("sorted", 1, 4096)],
         split=True)
-    moon_launches, moon_errs, moon_route, _ = timed(
+    moon_launches, moon_errs, moon_routes, _ = timed(
         "moe moonshot_v1_16b_a3b", phase_moe, engine, kernels, slice2, gen,
-        "moonshot_v1_16b_a3b", [(None, 4, 2048)])
+        "moonshot_v1_16b_a3b", [(None, 4, 2048)], split=True)
     slice3 = _import_slice3()
     ext_launches, ext = timed("external", phase_external, engine, kernels,
                               slice3, data, gen)
@@ -1545,7 +1631,9 @@ def main() -> int:
           f"{moon_launches.get('moe_route', 0)})", flush=True)
     mods = (k1, k2, k3, k4)
     errs = timed("kernels vs plain", phase_kernels_vs_plain, mods, gen)
-    route_logits = [mix_route, moon_route]       # (logits, k, cap) each
+    # (logits, k, cap, K7 launches) of Mixtral's grouped and sorted runs
+    # and Moonlight's grouped run
+    route_logits = mix_routes + moon_routes
     errs2 = timed("slice 2 kernels vs plain", phase_slice2_vs_plain, slice2,
                   seg, route_logits, gen)
     errs2["moe_route"] = max(errs2["moe_route"], mix_errs[0], moon_errs[0])
