@@ -119,7 +119,7 @@ __device__ __forceinline__ unsigned long long k23_now() {
 namespace flims {
 namespace k23 {
 
-constexpr int kRing = 4;           // rows a side in a warp's ring
+constexpr int kRing = 4;           // rows a side in a warp's ring (a power of 2)
 constexpr int kMaxWarps = 8;       // warps a CTA
 constexpr int kOffsetThreads = 1024;
 
@@ -270,7 +270,7 @@ template <typename T, bool KV, bool DESC> struct Side {
   __device__ void issue(int row, int lane) {
     if (!has(row)) return;
     K23_T(t_issue);
-    const int s = row % kRing;
+    const int s = row & (kRing - 1);
     T* dk = sk + (size_t)s * w;
     int32_t* dr = KV ? sr + (size_t)s * w : nullptr;
     const long long p0 = base + (long long)row * w;
@@ -292,7 +292,7 @@ template <typename T, bool KV, bool DESC> struct Side {
   __device__ void wait(int row) {
     if (!has(row)) return;
     K23_T(t_wait);
-    const int s = row % kRing;
+    const int s = row & (kRing - 1);
     mbar_wait(&full[s], ((ph >> s) & 1u) ^ 1u);
     K23_ACC(1, t_wait);
   }
@@ -315,7 +315,7 @@ template <typename T, bool KV, bool DESC> struct Side {
   __device__ Lane<T> at(int row, int c) const {
     Lane<T> v;
     if (base + (long long)row * w + c < len) {
-      const int s = row % kRing;
+      const int s = row & (kRing - 1);
       v.k = sk[s * w + c];
       v.r = KV ? sr[s * w + c] : 0;
     } else {

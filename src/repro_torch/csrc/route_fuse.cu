@@ -21,9 +21,11 @@
 //     j-1's pick, which is that rule while the maximum is above INT32_MIN,
 //     and once it is INT32_MIN (the logit bits 0xFFFFFFFF) the masked row is
 //     INT32_MIN throughout, so this sweep and every later one pick expert 0
-//     with the key INT32_MIN. Then `jax.nn.softmax` of the k picks op for
-//     op, expf(v - max) / sum, the sum in pick order (expf, never __expf:
-//     the source builds without --use_fast_math). Each pair's expert and
+//     with the key INT32_MIN. Then `jax.nn.softmax` of the k picks,
+//     expf(v - max) / sum (expf, never __expf: the source builds without
+//     --use_fast_math), the sum taken in pick order in double and rounded
+//     once: a float sum in pick order strays from any other order's by
+//     more than ROUTE_WEIGHT_ULPS at k = 64 (13 ulps). Each pair's expert and
 //     weight go to a pair-order scratch, and the tile's pairs per expert to
 //     cnt[g][e][tile] (atomics on the CTA's own column).
 //  2. scan_kernel, a CTA per group: one exclusive scan over cnt[g] read
@@ -129,7 +131,8 @@ __global__ void __launch_bounds__(1024)
   const long long pbase = (g * T + t) * k;
   int32_t pk = 0;
   int pe_ = -1;
-  float vmax = 0.f, sum = 0.f;
+  float vmax = 0.f;
+  double sum = 0.0;
   for (int j = 0; j < k; ++j) {
     K7_T(t_sweep);
     // this lane's largest (key, -expert) strictly after the last pick
@@ -166,7 +169,7 @@ __global__ void __launch_bounds__(1024)
     pe_ = be;
     const float v = __int_as_float(untwist(bk));
     if (j == 0) vmax = v;
-    sum += expf(v - vmax);
+    sum += (double)expf(v - vmax);
     K7_ACC(1, t_sweep);
     if (live && sub == (j & (L - 1))) {
       K7_T(t_put);
@@ -178,8 +181,9 @@ __global__ void __launch_bounds__(1024)
   }
   K7_T(t_soft);
   // this lane's picks j = sub, sub + L, ...: it stored their values above
+  const float fsum = (float)sum;
   if (live)
-    for (int j = sub; j < k; j += L) pw[pbase + j] = expf(pw[pbase + j] - vmax) / sum;
+    for (int j = sub; j < k; j += L) pw[pbase + j] = expf(pw[pbase + j] - vmax) / fsum;
   K7_ACC(2, t_soft);
   K7_CLOSE(0);
 }

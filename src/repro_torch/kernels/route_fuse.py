@@ -86,16 +86,17 @@ def _route_cuda(logits, k, cap, G, T, E, N, Np, tile):
     logits = logits.contiguous()
     _build.check_cuda("moe_route", logits)
     dev = logits.device
-    outs = [torch.empty((G, N), dtype=dt, device=dev)
-            for dt in (torch.int32, torch.int32, torch.int32, torch.float32,
-                       torch.int32, torch.int32)]
-    # pair experts, pair weights, per-(expert, tile) counts, first[e]
+    # one allocation: the six lanes, then the scratch (pair experts, pair
+    # weights, per-(expert, tile) counts, first[e])
     tiles = -(-T // tile)
-    scratch = torch.empty(G * (2 * N + E * tiles + E), dtype=torch.int32,
-                          device=dev)
+    buf = torch.empty(G * (8 * N + E * tiles + E), dtype=torch.int32,
+                      device=dev)
+    outs = [buf[i * G * N:(i + 1) * G * N].view(G, N) for i in range(6)]
+    outs[3] = outs[3].view(torch.float32)
     P = _build.ptr
     _build.launch("moe_route", "flims_moe_route", P(logits), G, T, E, k, cap,
-                  tile, *(P(o) for o in outs), P(scratch), _build.stream(dev))
+                  tile, *(P(o) for o in outs), P(buf[6 * G * N:]),
+                  _build.stream(dev))
     return tuple(outs)
 
 
