@@ -37,9 +37,9 @@ from repro_torch.kernels.bitonic_sort import _bitonic_rows_kv
 __all__ = ["moe_route", "moe_route_plain", "moe_route_torch", "topk_softmax",
            "untwist", "MAX_PAIRS"]
 
-#: the most (padded) pairs a token group may have: the JAX kernel's
-#: VMEM-resident sort and the port's first, one-CTA kernel (Np * 8 B of
-#: keys and weight bits in 227 KB) set it; the counting sort keeps it
+#: the most (padded) pairs a token group may have on the card, the limit of
+#: the JAX kernel's VMEM-resident sort (a larger group needs the multi-CTA
+#: K7 of ROADMAP queue 2)
 MAX_PAIRS = 16384
 #: tokens per tile of the card's top-k and scatter launches
 ROUTE_TILE = 16

@@ -503,12 +503,14 @@ def test_k6_nan_segments_match_plain(card, descending):
     (1, 16, 4, 1, 2), (3, 33, 5, 2, 1), (1, 32, 8, 4, 1000),
     (2, 128, 16, 6, 20), (1, 2048, 8, 2, 641), (1, 2048, 64, 6, 241),
     (1, 4096, 8, 2, 1281), (2, 300, 160, 6, 20), (1, 64, 8, 8, 9),
-    (1, 40, 64, 64, 50), (1, 50, 300, 4, 3)])
+    (1, 40, 64, 64, 50), (1, 50, 300, 4, 3), (2, 9, 5000, 3, 2)])
 def test_route_kernel_matches_plain(card, G, n_tok, E, k, cap):
     """K7 against ``moe_route_plain`` and ``moe_route_torch``: integer lanes
     bit for bit, weights within ROUTE_WEIGHT_ULPS; ties with +0.0/-0.0.
-    Each shape also under forced tiles: one token a tile, 7 (a partial last
-    tile), and a CTA's most (1024 threads)."""
+    E from 4 to 5000 (experts read again at each sweep above 256, expert
+    counts in place in device memory above 4096), k up to E. Each shape
+    also under forced tiles: one token a tile, 7 (a partial last tile), and
+    a CTA's most (1024 threads)."""
     rng = np.random.default_rng(G * n_tok + E + k)
     lg = np.round(rng.standard_normal((G, n_tok, E)).astype(np.float32)
                   * 2) / 2
