@@ -35,11 +35,11 @@ the CUDA toolkit. It
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
-   -inf; K2 / K3 also at w 8, 32 and 128 on runs holding NaNs of several
-   payloads and +0.0/-0.0, ragged pairs with empty runs at starts off 16
-   bytes, the output whole and cut below the total, KV both ways, under
-   forced CTA counts (1, 7 and the card's own); K7 also at its three route
-   shapes, on tied logits and on logits whose monotone key is INT32_MIN
+   -inf; K2 / K3 also at w 8, 32, 128 and 1024 on runs holding NaNs of
+   several payloads and +0.0/-0.0, ragged pairs with empty runs at starts
+   off 16 bytes, the output whole and cut below the total, KV both ways,
+   under forced CTA counts (1, 7 and the card's own); K7 also at its three
+   route shapes, on tied logits and on logits whose monotone key is INT32_MIN
    (the top-k repair); K1 also on rows holding NaNs of several payloads
    and at a width of 4096 (stages through shared memory); K5 / K6 also at
    the many-short-segments shape and on segments holding NaNs or dense in
@@ -391,7 +391,8 @@ def phase_kernels_vs_plain(mods, gen):
         both(k3.segmented_merge_runs_kv, buf, rk, buf, rk, *pairs,
              n_out=buf.shape[0], w=128, block_out=4096, descending=d)
 
-    # K2 / K3 at w 8 / 32 / 128 on runs holding NaNs of several payloads
+    # K2 / K3 at w 8 / 32 / 128 / 1024 (w / 32 lanes a thread up to 32, a
+    # CTA of one warp at 1024) on runs holding NaNs of several payloads
     # and +-0, ragged pairs with empty runs at starts off 16 bytes, the
     # output whole and cut below the total, KV both ways, each against one
     # plain result under forced CTA counts (one CTA taking every block in
@@ -403,7 +404,7 @@ def phase_kernels_vs_plain(mods, gen):
                              fn(*args, _ctas=ctas, **kw), exp)
             errs[fn.__name__] = max(errs.get(fn.__name__, 0.0), err)
 
-    for w in (8, 32, 128):
+    for w in (8, 32, 128, 1024):
         bo = 32 * w
         for d in (True, False):
             a, b = (sorted_runs([n], gen, descending=d, keys=nan_keys)[0]

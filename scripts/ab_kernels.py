@@ -2,7 +2,7 @@
 card.
 
     python3 scripts/ab_kernels.py LABEL=ROOT [LABEL=ROOT ...] [--rounds 2]
-                                  [--cases K2,K7,...]
+                                  [--cases K2,K7,...] [--split]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. Each ``ROOT`` is a source tree holding
@@ -34,6 +34,17 @@ times:
   at the layers' capacities;
 - ``K8``: ``stream_merge_runs``, one fan-8 pass over 128 runs of 2^20.
 
+With ``--split`` each case's time is also taken apart into host and card
+work (``"<case> split"``, ms a call): ``host``, the wall time of one call
+with the card idle (synchronised before, not after: the Python wrapper,
+the C call and its launches); ``host_py``, the same with the C call
+skipped (``_build.launch`` made a no-op), so ``host - host_py`` is the C
+call and its launches; ``card``, one replay of a CUDA graph captured from
+the call, timed with CUDA events (the kernels alone, no host work; null
+where the call cannot be captured); ``b2b``, 50 calls back to back under
+one synchronisation, the wall time over 50 (the larger of host and card
+work, as a loop of calls runs). Each is the median of 15.
+
 Every result is held against the first version's: bit for bit, but K7's
 weights lane within 8 ulps. Each line printed is one JSON object per
 (round, version): the ms of every case; last, the card's name and power
@@ -45,6 +56,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -136,7 +148,58 @@ def cases(torch, gen, wanted):
     return {k: v for k, v in out.items() if k in wanted}
 
 
-def worker(root: str, label: str, rnd: int, wanted, build_only: bool) -> int:
+def split_ms(torch, _build, fn, reps: int = 15) -> dict:
+    """Host and card time of one call (module docstring, ``--split``)."""
+    def wall(n=1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return (t1 - t0) * 1e3 / n
+
+    def b2b(n=50):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    def med(f):
+        ts = sorted(f() for _ in range(reps))
+        return ts[len(ts) // 2]
+
+    out = {"host": med(wall), "b2b": med(b2b)}
+    launch = _build.launch
+    _build.launch = lambda *args: None
+    try:
+        out["host_py"] = med(wall)
+    finally:
+        _build.launch = launch
+    try:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            fn()
+        g.replay()
+        torch.cuda.synchronize()
+
+        def replay():
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            g.replay()
+            e.record()
+            e.synchronize()
+            return s.elapsed_time(e)
+        out["card"] = med(replay)
+    except RuntimeError:
+        out["card"] = None
+    return out
+
+
+def worker(root: str, label: str, rnd: int, wanted, build_only: bool,
+           split: bool) -> int:
     """One version's turn: build, then time every case and print one JSON
     line with the ms and each result's bits (to compare across turns)."""
     sys.path.insert(0, str(Path(root).resolve() / "src"))
@@ -156,6 +219,8 @@ def worker(root: str, label: str, rnd: int, wanted, build_only: bool) -> int:
         bits[name] = [t.view(torch.int32).cpu() if t.dtype == torch.float32
                       else t.cpu() for t in got]
         line[name] = time_ms(fn)
+        if split:
+            line[name + " split"] = split_ms(torch, _build, fn)
     out = ROOT / "build" / "ab_kernels" / f"{label}.pt"
     out.parent.mkdir(parents=True, exist_ok=True)
     torch.save(bits, out)
@@ -185,11 +250,13 @@ def main() -> int:
     ap.add_argument("--cases", default=ALL)
     ap.add_argument("--worker", nargs=3, metavar=("ROOT", "LABEL", "ROUND"))
     ap.add_argument("--build-only", action="store_true")
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     wanted = args.cases.split(",")
     if args.worker:
         root, label, rnd = args.worker
-        return worker(root, label, int(rnd), wanted, args.build_only)
+        return worker(root, label, int(rnd), wanted, args.build_only,
+                      args.split)
     import torch
     if not torch.cuda.is_available():
         print("ab_kernels: no CUDA device", file=sys.stderr)
@@ -202,7 +269,8 @@ def main() -> int:
     def run(label, rnd, build_only=False):
         cmd = me + ["--cases", args.cases, "--worker", roots[label],
                     label, str(rnd)] + (["--build-only"] if build_only
-                                        else [])
+                                        else []) + (["--split"] if args.split
+                                                    else [])
         return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
 
     for label, p in [(lb, run(lb, 0, True)) for lb in roots]:

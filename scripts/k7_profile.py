@@ -6,8 +6,9 @@ in under ``-DK7_PROFILE``.
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds one K7 source (``--source``, by default
-``src/repro_torch/csrc/route_fuse.cu``; another version of the file, such
-as an earlier commit's, can be given to compare the two on one card) twice
+``src/repro_torch/csrc/route_fuse.cu``; another version of the file with
+the same C interface, such as an earlier commit's, can be given to compare
+the two on one card) twice
 with the port's nvcc flags, as is and with ``-DK7_PROFILE``, which compiles
 in the kernel's ``clock64`` counters (summed per phase over the warps, with
 each of its launches' span from globaltimer stamps), into

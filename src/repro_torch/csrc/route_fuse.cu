@@ -9,7 +9,7 @@
 // stable partition of the pairs by expert, a counting sort, and the TPU
 // kernel's bitonic chunks and merge tree (how a VMEM-resident sort is built
 // there) have nothing to carry over here. Three launches, one C call:
-//  1. topk_kernel, a CTA per (group, tile of `tile` tokens): L =
+//  1. topk_kernel, a CTA per (group, tile of kTile = 16 tokens): L =
 //     min(32, next_pow2(E)) lanes per token, lane l holding experts l, l +
 //     L, ... (in registers up to 8 a lane, read again at each sweep above),
 //     the row read once, coalesced. k arg-max sweeps compare the monotone
@@ -34,8 +34,9 @@
 //     tiles), and first[e] is cnt[g][e][0].
 //  3. scatter_kernel, a warp per (group, tile): the tile's pairs in pair
 //     order, 32 at a time; a pair's rank among the earlier ones of its
-//     expert in the tile is a running count per expert plus the lower lanes
-//     of its __match_any_sync set. Its sorted index i, its rank in the
+//     expert in the tile is a running count per expert (the tile's own
+//     column of cnt, updated in place) plus the lower lanes of its
+//     __match_any_sync set. Its sorted index i, its rank in the
 //     expert pos = i - first[e], the capacity cut keep = pos < cap and slab
 //     = keep ? e*cap + pos : E*cap; the six lanes are written at i.
 //
@@ -94,9 +95,8 @@ namespace route {
 
 __device__ __forceinline__ int32_t untwist(int32_t b) { return b ^ ((b >> 31) & 0x7fffffff); }
 constexpr int32_t kKeyMin = -0x7fffffff - 1;
-// the experts per expert count a scatter warp keeps in shared memory;
-// above it the counts are updated in place in cnt
-constexpr int kSmemExperts = 4096;
+// tokens a tile: at most 16 x 32 lanes = 512 threads a top-k CTA
+constexpr int kTile = 16;
 constexpr int kScanThreads = 1024;
 
 // PER: experts a lane holds in registers (E <= 8 L); 0: read at each sweep.
@@ -105,9 +105,8 @@ constexpr int kScanThreads = 1024;
 // warp) and store nothing.
 template <int PER>
 __global__ void __launch_bounds__(1024)
-    topk_kernel(const float* __restrict__ logits, int T, int E, int k, int logL, int tile,
-                int tiles, int32_t* __restrict__ pe, float* __restrict__ pw,
-                int32_t* __restrict__ cnt) {
+    topk_kernel(const float* __restrict__ logits, int T, int E, int k, int logL, int tiles,
+                int32_t* __restrict__ pe, float* __restrict__ pw, int32_t* __restrict__ cnt) {
   const long long g = blockIdx.x;
   const int tl = blockIdx.y, L = 1 << logL;
   const int sub = threadIdx.x & (L - 1), grp = threadIdx.x >> logL;
@@ -116,8 +115,8 @@ __global__ void __launch_bounds__(1024)
   int32_t* col = cnt + g * E * tiles + tl;  // expert e at col[e * tiles]
   for (int e = threadIdx.x; e < E; e += blockDim.x) col[(long long)e * tiles] = 0;
   __syncthreads();
-  const int t0 = tl * tile;
-  const bool live = grp < tile && t0 + grp < T;
+  const int t0 = tl * kTile;
+  const bool live = grp < kTile && t0 + grp < T;
   const int t = live ? t0 + grp : t0;
   const int32_t* row = reinterpret_cast<const int32_t*>(logits + (g * T + t) * E);
   K7_T(t_load);
@@ -225,36 +224,29 @@ __global__ void __launch_bounds__(kScanThreads)
 __global__ void __launch_bounds__(32)
     scatter_kernel(const int32_t* __restrict__ pe, const float* __restrict__ pw,
                    int32_t* __restrict__ cnt, const int32_t* __restrict__ first, int T, int E,
-                   int k, int cap, int tile, int tiles, int32_t* __restrict__ experts,
+                   int k, int cap, int tiles, int32_t* __restrict__ experts,
                    int32_t* __restrict__ tokens, int32_t* __restrict__ perm,
                    float* __restrict__ weights, int32_t* __restrict__ slabs,
                    int32_t* __restrict__ keep) {
-  __shared__ int32_t s_run[kSmemExperts];
   K7_CLOCKS;
   K7_OPEN(2);
   const long long g = blockIdx.x;
   const int tl = blockIdx.y, lane = threadIdx.x;
   const long long N = (long long)T * k;
-  // the sorted index of the next pair of expert e in this tile
+  // run[e * tiles]: the sorted index of the next pair of expert e in this tile
   int32_t* run = cnt + g * E * tiles + tl;
-  long long stride = tiles;
-  if (E <= kSmemExperts) {
-    for (int e = lane; e < E; e += 32) s_run[e] = run[(long long)e * tiles];
-    __syncwarp();
-    run = s_run;
-    stride = 1;
-  }
   const int32_t* fe = first + g * E;
-  const int p_end = (int)min((long long)(tl + 1) * tile * k, N);
-  for (int p0 = tl * tile * k; p0 < p_end; p0 += 32) {
+  const int p_end = (int)min((long long)(tl + 1) * kTile * k, N);
+  for (int p0 = tl * kTile * k; p0 < p_end; p0 += 32) {
     K7_T(t_rank);
     const int p = p0 + lane;
     const bool live = p < p_end;
     const int e = live ? pe[g * N + p] : -1;
     const unsigned same = __match_any_sync(kFullWarp, e);
-    const int i = live ? run[e * stride] + __popc(same & ((1u << lane) - 1u)) : 0;
+    int32_t* r = run + (long long)(live ? e : 0) * tiles;
+    const int i = live ? *r + __popc(same & ((1u << lane) - 1u)) : 0;
     __syncwarp();
-    if (live && (same >> lane) == 1u) run[e * stride] += __popc(same);  // its highest lane
+    if (live && (same >> lane) == 1u) *r += __popc(same);  // its highest lane
     __syncwarp();
     K7_ACC(4, t_rank);
     K7_T(t_store);
@@ -275,28 +267,28 @@ __global__ void __launch_bounds__(32)
 }
 
 template <int PER>
-static cudaError_t topk(const float* logits, int G, int T, int E, int k, int logL, int tile,
-                        int tiles, int32_t* pe, float* pw, int32_t* cnt, cudaStream_t st) {
-  const int threads = ((tile << logL) + 31) / 32 * 32;
-  topk_kernel<PER><<<dim3(G, tiles), threads, 0, st>>>(logits, T, E, k, logL, tile, tiles, pe,
-                                                       pw, cnt);
+static cudaError_t topk(const float* logits, int G, int T, int E, int k, int logL, int tiles,
+                        int32_t* pe, float* pw, int32_t* cnt, cudaStream_t st) {
+  const int threads = ((kTile << logL) + 31) / 32 * 32;
+  topk_kernel<PER><<<dim3(G, tiles), threads, 0, st>>>(logits, T, E, k, logL, tiles, pe, pw,
+                                                       cnt);
   return cudaGetLastError();
 }
 
 }  // namespace route
 }  // namespace flims
 
-// scratch: G*N pair experts, G*N pair weights, G*E*tiles counts, G*E firsts
+// scratch: G*N pair experts, G*N pair weights, G*E*tiles counts (tiles =
+// ceil(T / 16)), G*E firsts
 extern "C" int flims_moe_route(const void* logits, int G, int T, int E, int k, int cap,
-                               int tile, void* experts, void* tokens, void* perm, void* weights,
+                               void* experts, void* tokens, void* perm, void* weights,
                                void* slabs, void* keep, void* scratch, void* stream) {
   using namespace flims;
   using namespace flims::route;
   int logL = 0;
   while ((1 << logL) < E && logL < 5) ++logL;
-  if (G <= 0 || T <= 0 || k < 1 || k > E || cap < 1 || tile < 1 || (tile << logL) > 1024)
-    return cudaErrorInvalidValue;
-  const int tiles = (T + tile - 1) / tile;
+  if (G <= 0 || T <= 0 || k < 1 || k > E || cap < 1) return cudaErrorInvalidValue;
+  const int tiles = (T + kTile - 1) / kTile;
   const long long N = (long long)T * k;
   int32_t* pe = (int32_t*)scratch;
   float* pw = (float*)(pe + G * N);
@@ -306,17 +298,17 @@ extern "C" int flims_moe_route(const void* logits, int G, int T, int E, int k, i
   const int per = (E + (1 << logL) - 1) >> logL;
   const float* lg = (const float*)logits;
   cudaError_t e;
-  if (per == 1) e = topk<1>(lg, G, T, E, k, logL, tile, tiles, pe, pw, cnt, st);
-  else if (per == 2) e = topk<2>(lg, G, T, E, k, logL, tile, tiles, pe, pw, cnt, st);
-  else if (per <= 4) e = topk<4>(lg, G, T, E, k, logL, tile, tiles, pe, pw, cnt, st);
-  else if (per <= 8) e = topk<8>(lg, G, T, E, k, logL, tile, tiles, pe, pw, cnt, st);
-  else e = topk<0>(lg, G, T, E, k, logL, tile, tiles, pe, pw, cnt, st);
+  if (per == 1) e = topk<1>(lg, G, T, E, k, logL, tiles, pe, pw, cnt, st);
+  else if (per == 2) e = topk<2>(lg, G, T, E, k, logL, tiles, pe, pw, cnt, st);
+  else if (per <= 4) e = topk<4>(lg, G, T, E, k, logL, tiles, pe, pw, cnt, st);
+  else if (per <= 8) e = topk<8>(lg, G, T, E, k, logL, tiles, pe, pw, cnt, st);
+  else e = topk<0>(lg, G, T, E, k, logL, tiles, pe, pw, cnt, st);
   if (e != cudaSuccess) return e;
   scan_kernel<<<G, kScanThreads, 0, st>>>(cnt, first, E, tiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   scatter_kernel<<<dim3(G, tiles), 32, 0, st>>>(
-      pe, pw, cnt, first, T, E, k, cap, tile, tiles, (int32_t*)experts, (int32_t*)tokens,
+      pe, pw, cnt, first, T, E, k, cap, tiles, (int32_t*)experts, (int32_t*)tokens,
       (int32_t*)perm, (float*)weights, (int32_t*)slabs, (int32_t*)keep);
   return cudaGetLastError();
 }

@@ -7,9 +7,9 @@ expert's key masked to INT32_MIN, as ``_topk_softmax`` does), the softmax
 of the ``k`` picks, the pairs in the ascending order of the distinct
 compound keys ``e * Np + p`` (``p = t * k + j`` the pair's position) and
 the GShard capacity cut by first-occurrence rank. On the card
-(``csrc/route_fuse.cu``) the sweeps run a CTA per tile of ``tile`` tokens
-and the sort is a counting sort (tile counts, one scan, a scatter), three
-launches behind one C call.
+(``csrc/route_fuse.cu``) the sweeps run a CTA per tile of ``ROUTE_TILE``
+tokens and the sort is a counting sort (tile counts, one scan, a
+scatter), three launches behind one C call.
 
 ``moe_route`` launches the kernel for a CUDA tensor and runs
 ``moe_route_plain`` (a torch transcription of ``_route_kernel``: the same
@@ -41,7 +41,8 @@ __all__ = ["moe_route", "moe_route_plain", "moe_route_torch", "topk_softmax",
 #: the JAX kernel's VMEM-resident sort (a larger group needs the multi-CTA
 #: K7 of ROADMAP queue 2)
 MAX_PAIRS = 16384
-#: tokens per tile of the card's top-k and scatter launches
+#: tokens per tile of the card's top-k and scatter launches (``kTile`` of
+#: ``csrc/route_fuse.cu``)
 ROUTE_TILE = 16
 
 _I32_MAX = 2 ** 31 - 1
@@ -71,33 +72,26 @@ def _geometry(logits, k: int, capacity: int):
     return G, T, E, N, Np
 
 
-def _route_cuda(logits, k, cap, G, T, E, N, Np, tile):
+def _route_cuda(logits, k, cap, G, T, E, N, Np):
     if Np > MAX_PAIRS:
         raise _build.KernelError(
             f"moe_route: T*k = {N} pairs pad to Np = {Np}, whose keys and "
             f"weights take {Np * 8} bytes of shared memory; one CTA holds "
             f"Np <= {MAX_PAIRS}; shrink the token group")
-    lanes = min(32, next_pow2(E))
-    tile = tile or min(ROUTE_TILE, 1024 // lanes)
-    if not 1 <= tile * lanes <= 1024:
-        raise _build.KernelError(
-            f"moe_route: a tile of {tile} tokens at {lanes} lanes a token "
-            f"passes 1024 threads")
     logits = logits.contiguous()
     _build.check_cuda("moe_route", logits)
     dev = logits.device
     # one allocation: the six lanes, then the scratch (pair experts, pair
     # weights, per-(expert, tile) counts, first[e])
-    tiles = -(-T // tile)
+    tiles = -(-T // ROUTE_TILE)
     buf = torch.empty(G * (8 * N + E * tiles + E), dtype=torch.int32,
                       device=dev)
-    outs = [buf[i * G * N:(i + 1) * G * N].view(G, N) for i in range(6)]
-    outs[3] = outs[3].view(torch.float32)
-    P = _build.ptr
-    _build.launch("moe_route", "flims_moe_route", P(logits), G, T, E, k, cap,
-                  tile, *(P(o) for o in outs), P(buf[6 * G * N:]),
+    base, size = buf.data_ptr(), G * N * 4
+    _build.launch("moe_route", "flims_moe_route", _build.ptr(logits), G, T,
+                  E, k, cap, *(base + i * size for i in range(7)),
                   _build.stream(dev))
-    return tuple(outs)
+    outs = buf[:6 * G * N].view(6, G, N).unbind(0)
+    return outs[:3] + (outs[3].view(torch.float32),) + outs[4:]
 
 
 def _route_plain(logits, k, cap, G, T, E, N, Np):
@@ -135,22 +129,20 @@ def _route_plain(logits, k, cap, G, T, E, N, Np):
         e_s, p_s // k, p_s, w_s, slab, keep.to(torch.int32)))
 
 
-def _moe_route(logits, k, capacity, cuda, tile=0):
+def _moe_route(logits, k, capacity, cuda):
     G, T, E, N, Np = _geometry(logits, k, int(capacity))
     if cuda:
-        return _route_cuda(logits, k, int(capacity), G, T, E, N, Np, tile)
+        return _route_cuda(logits, k, int(capacity), G, T, E, N, Np)
     return _route_plain(logits, k, int(capacity), G, T, E, N, Np)
 
 
 @obs.scoped("kernels.route_fuse")
-def moe_route(logits: torch.Tensor, k: int, capacity: int, *,
-              _tile: int = 0):
+def moe_route(logits: torch.Tensor, k: int, capacity: int):
     """Fused routing of (G, T, E) float32 router logits (counterpart of
     ``moe_route_pallas``). Returns, each (G, T*k) in stable sorted pair
     order: ``(experts, tokens, perm, weights, slabs, keep)``. On the card
-    T*k pads to at most ``MAX_PAIRS``; ``_tile`` (tests only) forces the
-    tokens per tile."""
-    return _moe_route(logits, k, capacity, logits.is_cuda, _tile)
+    T*k pads to at most ``MAX_PAIRS``."""
+    return _moe_route(logits, k, capacity, logits.is_cuda)
 
 
 def moe_route_plain(logits: torch.Tensor, k: int, capacity: int):
