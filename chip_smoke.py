@@ -32,6 +32,18 @@ the CUDA toolkit. It
      ``merge_runs(variant="stream_cuda")`` on the main path's 128 ragged
      runs, every result bit-for-bit ``torch.sort`` /
      ``torch.argsort(stable=True)``;
+   - the reference sorters and the samplers (K9, one launch a
+     ``tree_vmapped`` level): ``serve.RaggedSampler(k=64, "flims")`` over
+     64 decode slots of Moonlight-16B-A3B's vocabulary (163840; exactly one
+     ``engine.topk`` call), ``engine.sample_topp(p=0.9)`` /
+     ``sample_minp(min_p=0.05)`` (``flims``, 10 K9 launches each) over 8
+     rows of it, token ids equal to the ``torch`` variants' under the same
+     generator seed; ``engine.merge_runs(variant="tree_vmapped")`` over 2^22
+     keys in 64 ragged runs (tie b and skew as values against the ``torch``
+     executor, stable with ``values=`` bit for bit), ``sort(variant="ref")``
+     against ``torch.sort`` as values and ``argsort(variant="flims")``
+     bit-for-bit ``torch.argsort(stable=True)``, all at 2^22 keys, each
+     call's ms, K9 launches and its ``torch`` variant's ms;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -54,7 +66,10 @@ the CUDA toolkit. It
    one block a span, and one CTA taking two groups of a fan-16 KV pass in
    turn; K4 likewise on ragged runs at unaligned starts under forced CTA
    counts (1, 2, 7 and the card's own), the output whole and cut below the
-   group total;
+   group total; K9 against its plain version at w 1, 8, 32 and 128, tie b,
+   skew and KV, on float32 runs holding NaNs of several payloads and
+   +0.0/-0.0 and on int32 duplicate runs, ragged pairs of lengths 0, 1,
+   w - 1, w, w + 1 and random, the output whole and cut;
 4. times each kernel at its path's shapes with CUDA events (warm-up, then
    the median of at least 5 runs) beside its plain version, one library
    call and its bound (bytes over the memory rate, or the operations over
@@ -71,7 +86,10 @@ the CUDA toolkit. It
    times K5 / K6 also at 2^20 keys in 4096 segments of [0, 512] (cap 512,
    the buckets of a grouped Moonlight-16B-A3B dispatch), and
    engine.segment_sort / segment_argsort end to end at both shapes for the
-   ``cuda_fused``, ``cuda_two_phase`` and ``torch`` variants.
+   ``cuda_fused``, ``cuda_two_phase`` and ``torch`` variants; and K9 at
+   every level of ``sort(variant="ref")`` / ``argsort(variant="flims")`` of
+   2^22 keys (pairs, cycle chain, byte bound, ``torch.sort`` of the same
+   pair groups; the table's row is the last level).
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -1586,6 +1604,274 @@ def phase_slice3_e2e(engine, slice3, ext):
     print(json.dumps({"e2e_external_fans": fans}), flush=True)
 
 
+# --------------------------------------------------------------------------
+# slice 4: the reference sorters, tree_vmapped on K9, topk and the samplers
+# --------------------------------------------------------------------------
+
+N_REF = 1 << 22                # keys of the reference sorters' calls
+SLOTS = 64                     # decode slots of the ragged sampler
+SAMPLE_ROWS = 8                # rows of the full-vocabulary samplers
+K9_WIDTHS = (1, 8, 32, 128)
+
+
+def _import_slice4():
+    from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG
+    from repro_torch.kernels import lane_merge as k9
+    from repro_torch.serve import sampler
+    return k9, sampler, CONFIG.vocab_size
+
+
+def int_dup_keys(n: int, gen) -> torch.Tensor:
+    """int32 keys with heavy duplicates and both extremes."""
+    pool = torch.tensor([-2 ** 31, -7, 0, 3, 3, 9, 2 ** 31 - 1],
+                        dtype=torch.int32, device="cuda")
+    return pool[torch.randint(0, pool.numel(), (n,), generator=gen,
+                              device="cuda")]
+
+
+def phase_k9_vs_plain(k9, gen):
+    """K9 against its plain version on the card, bit for bit: tie b, tie
+    skew and KV; w 1, 8, 32 and 128; float32 runs holding NaNs of several
+    payloads, +0.0/-0.0 and duplicates, and int32 duplicate runs; ragged
+    pairs of lengths 0, 1, w - 1, w, w + 1 and random, the output whole
+    and cut below the total."""
+    errs = {"lane_merge": 0.0, "lane_merge_kv": 0.0}
+    for w in K9_WIDTHS:
+        for keys in (nan_keys, int_dup_keys):
+            edge = [0, 1, max(w - 1, 0), w, w + 1, 2 * w + 3]
+            rand = torch.randint(0, 6 * w + 40, (26,), generator=gen,
+                                 device="cuda").tolist()
+            la = edge + rand
+            a, sa, na = sorted_runs(la, gen, keys=keys)
+            b, sb, nb = sorted_runs(la[::-1], gen, keys=keys)
+            ra = torch.randperm(a.numel(), generator=gen, device="cuda").to(
+                torch.int32)
+            rb = torch.randperm(b.numel(), generator=gen, device="cuda").to(
+                torch.int32)
+            n = a.numel() + b.numel()
+            for n_out in (n, n - n // 3):
+                for tie in ("b", "skew"):
+                    kw = dict(n_out=n_out, w=w, tie=tie)
+                    err = check_same(f"lane_merge {keys.__name__} {kw}",
+                                     k9.lane_merge(a, b, sa, na, sb, nb, **kw),
+                                     k9.lane_merge_plain(a, b, sa, na, sb, nb,
+                                                         **kw))
+                    errs["lane_merge"] = max(errs["lane_merge"], err)
+                kw = dict(n_out=n_out, w=w)
+                err = check_same(
+                    f"lane_merge_kv {keys.__name__} {kw}",
+                    k9.lane_merge_kv(a, ra, b, rb, sa, na, sb, nb, **kw),
+                    k9.lane_merge_kv_plain(a, ra, b, rb, sa, na, sb, nb, **kw))
+                errs["lane_merge_kv"] = max(errs["lane_merge_kv"], err)
+    torch.cuda.synchronize()
+    print(f"K9 vs plain: w {K9_WIDTHS}, tie b / skew / KV, float32 NaN and "
+          "int32 duplicate runs, ragged pairs: bit-for-bit "
+          + json.dumps(errs), flush=True)
+    return errs
+
+
+def phase_sampling(engine, kernels, slice4, gen):
+    """The slice at full width: ``RaggedSampler(k=64, "flims")`` over 64
+    decode slots at Moonlight-16B-A3B's vocabulary, ``sample_topp`` /
+    ``sample_minp`` (``flims``) over 8 rows of it, ``merge_runs(variant=
+    "tree_vmapped")`` over 2^22 keys in 64 ragged runs (tie b, skew, stable
+    with values), ``sort(variant="ref")`` and ``argsort(variant="flims")`` at
+    2^22; counted per call, every result held to its torch variant."""
+    _, sampler, vocab = slice4
+    dev = "cuda"
+    logits = torch.randn(SLOTS, vocab, generator=gen, device=dev) * 4
+    rows = logits[:SAMPLE_ROWS].contiguous()
+    lens = ragged_lens(64, N_REF, gen)
+    rbuf, rst, _ = sorted_runs(lens, gen)
+    roffs = torch.cat([rst, rst.new_tensor([N_REF])])
+    rvals = torch.arange(N_REF, device=dev)
+    x = torch.randn(N_REF, generator=gen, device=dev)
+    state = sampler.SamplingState.full(SLOTS, device=dev)
+    seeded = lambda: torch.Generator(device=dev).manual_seed(SEED + 7)
+    topk_calls = []
+    topk = engine.topk
+
+    def counting_topk(*a, **k):
+        topk_calls.append(k.get("variant"))
+        return topk(*a, **k)
+
+    calls = {
+        "ragged_sampler": lambda v: sampler.RaggedSampler(64, v).sample(
+            seeded(), logits, state),
+        "sample_topp": lambda v: engine.sample_topp(seeded(), rows, 0.9,
+                                                    variant=v),
+        "sample_minp": lambda v: engine.sample_minp(seeded(), rows, 0.05,
+                                                    variant=v),
+        "merge_runs_b": lambda v: engine.merge_runs(rbuf, roffs, variant=v),
+        "merge_runs_skew": lambda v: engine.merge_runs(rbuf, roffs,
+                                                       tie="skew", variant=v),
+        "merge_runs_values": lambda v: engine.merge_runs(
+            rbuf, roffs, values=rvals, variant=v),
+        "sort": lambda v: engine.sort(x, variant=v),
+        "argsort": lambda v: engine.argsort(x, variant=v),
+    }
+    flims = {"ragged_sampler": "flims", "sample_topp": "flims",
+             "sample_minp": "flims", "merge_runs_b": "tree_vmapped",
+             "merge_runs_skew": "tree_vmapped",
+             "merge_runs_values": "tree_vmapped", "sort": "ref",
+             "argsort": "flims"}
+    # K9 launches a call: 10 levels over a row's 1024 chunks of 256, 6 over
+    # 64 runs, 14 over 2^22 / 256 chunks
+    want = {"ragged_sampler": {}, "sample_topp": {"lane_merge_kv": 10},
+            "sample_minp": {"lane_merge_kv": 10},
+            "merge_runs_b": {"lane_merge": 6},
+            "merge_runs_skew": {"lane_merge": 6},
+            "merge_runs_values": {"lane_merge_kv": 6},
+            "sort": {"lane_merge": 14}, "argsort": {"lane_merge_kv": 14}}
+    out, per_call = {}, {}
+
+    def drive():
+        engine.topk = counting_topk
+        try:
+            for name, fn in calls.items():
+                before = kernels.launch_counts()
+                topk_calls.clear()
+                out[name] = fn(flims[name])
+                if name == "ragged_sampler" and topk_calls != ["flims"]:
+                    raise AssertionError(f"RaggedSampler made the engine "
+                                         f"calls {topk_calls}, not one topk")
+                after = kernels.launch_counts()
+                per_call[name] = {k: v - before.get(k, 0) for k, v in
+                                  after.items() if v - before.get(k, 0)}
+        finally:
+            engine.topk = topk
+
+    _, launches = counted(kernels, drive)
+    key_only = ("merge_runs_b", "merge_runs_skew", "sort")
+    for name, fn in calls.items():
+        if per_call[name] != want[name]:
+            raise AssertionError(f"{name}: launches {per_call[name]}, "
+                                 f"expected {want[name]}")
+        ref = fn("torch")
+        if name in key_only:
+            # key-only lanes compare as values: +0.0 / -0.0 may trade
+            # places between executors (the keys hold no NaN; K9's bits are
+            # held to its plain version in phase_k9_vs_plain)
+            if not torch.equal(out[name], ref):
+                raise AssertionError(f"{name}: differs from torch as values")
+        else:
+            check_same(f"{name} against torch", out[name], ref)
+    if not torch.equal(out["sort"], torch.sort(x, descending=True).values):
+        raise AssertionError("sort ref differs from torch.sort as values")
+    check_same("argsort flims against torch.argsort(stable=True)",
+               out["argsort"], torch.argsort(x, descending=True,
+                                             stable=True).to(torch.int32))
+    rows_ids = [out[n] for n in ("sample_topp", "sample_minp")]
+    for t in [out["ragged_sampler"]] + rows_ids:
+        if t.dtype != torch.int32 or int(t.min()) < 0 or \
+                int(t.max()) >= vocab:
+            raise AssertionError(f"token ids outside [0, {vocab}): {t}")
+    if not launches.get("lane_merge") or not launches.get("lane_merge_kv"):
+        raise AssertionError(f"the slice never launched K9: {launches}")
+    print(f"sampling: vocab {vocab}, {SLOTS} slots, merge_runs over "
+          f"{N_REF} keys in 64 runs (longest {max(lens)}), sort / argsort "
+          f"at {N_REF}; ids and results equal the torch variants'; launches "
+          + json.dumps(launches), flush=True)
+    print("sampling launches per call: " + json.dumps(per_call), flush=True)
+    e2e = []
+    for name, fn in calls.items():
+        reps = dict(warmup=1, reps=5)
+        e2e.append({"call": name, "variant": flims[name],
+                    "k9_launches": per_call[name],
+                    "ms": time_ms(lambda: fn(flims[name]), **reps),
+                    "torch_ms": time_ms(lambda: fn("torch"), **reps)})
+        print("e2e sampling: " + json.dumps(e2e[-1]), flush=True)
+    return launches, dict(x=x, rows=rows, rbuf=rbuf, roffs=roffs)
+
+
+def k9_levels(k9, keys, ranks, L: int, w: int):
+    """Each K9 level of a tree_vmapped reduction of uniform runs of ``L``
+    (one group): its CUDA-event time, pairs, cycle chain (the cycles one
+    warp runs in sequence), byte bound, and one torch.sort of the same pair
+    groups."""
+    buf, rbuf, n = keys, ranks, keys.numel()
+    levels = []
+    while L < n:
+        P = n // (2 * L)
+        st = torch.arange(P, dtype=torch.int32, device="cuda") * (2 * L)
+        ln = torch.full((P,), L, dtype=torch.int32, device="cuda")
+        args = (st, ln, st + L, ln)
+        if rbuf is None:
+            fn = lambda b=buf: k9.lane_merge(b, b, *args, n_out=n, w=w)
+        else:
+            fn = lambda b=buf, r=rbuf: k9.lane_merge_kv(b, r, b, r, *args,
+                                                        n_out=n, w=w)
+        grp = buf.reshape(P, 2 * L)
+        lib = (lambda: torch.sort(grp, dim=1, descending=True)) if \
+            rbuf is None else \
+            (lambda: torch.sort(grp, dim=1, descending=True, stable=True))
+        nbytes = 2 * n * (4 if rbuf is None else 8)
+        levels.append({"run_len": L, "pairs": P, "chain_cycles": 2 * L // w,
+                       "ms": time_ms(fn, warmup=1, reps=3),
+                       "bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
+                       "library_ms": time_ms(lib, warmup=1, reps=3)})
+        out = fn()
+        buf, rbuf = (out, None) if rbuf is None else out
+        L *= 2
+    return levels
+
+
+def phase_slice4_times(slice4, launches, errs, data):
+    """K9 at the reference sorters' shapes: every level of ``sort(variant=
+    "ref")`` (key-only) and ``argsort(variant="flims")`` (KV) at 2^22 keys,
+    chunks of 256, w 128; the table row is the last level (one pair of two
+    2^21-key runs, a chain of 32768 cycles) beside the plain version at one
+    pair of two 2048-key runs (launch-bound, 32 cycles), torch.sort of the
+    same pair and the byte bound."""
+    k9 = slice4[0]
+    from repro_torch.core.butterfly import bitonic_sort
+    from repro_torch.core.lanes import stable_compare
+    x = data["x"]
+    chunk, w = 256, 128
+    rows = bitonic_sort(x.reshape(-1, chunk)).reshape(-1).contiguous()
+    r0 = torch.arange(N_REF, dtype=torch.int32, device="cuda")
+    kv = bitonic_sort({"key": x.reshape(-1, chunk),
+                       "rank": r0.reshape(-1, chunk)},
+                      compare=stable_compare)
+    kk, kr = kv["key"].reshape(-1).contiguous(), \
+        kv["rank"].reshape(-1).contiguous()
+    small = torch.sort(x[:4096].reshape(2, 2048), dim=1,
+                       descending=True).values.reshape(-1).contiguous()
+    sr = torch.arange(4096, dtype=torch.int32, device="cuda")
+    pair = [torch.tensor([v], dtype=torch.int32, device="cuda")
+            for v in (0, 2048, 2048, 2048)]
+    table = []
+    for name, keys, ranks in (("lane_merge", rows, None),
+                              ("lane_merge_kv", kk, kr)):
+        levels = k9_levels(k9, keys, ranks, chunk, w)
+        top = levels[-1]
+        if ranks is None:
+            plain = lambda: k9.lane_merge_plain(small, small, *pair,
+                                                n_out=4096, w=w)
+        else:
+            plain = lambda: k9.lane_merge_kv_plain(small, sr, small, sr,
+                                                   *pair, n_out=4096, w=w)
+        table.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/lane_merge.cu",
+            "replaces": "src/repro/core/lanes.py:165 (merge_lanes under "
+                        "jax.vmap) + src/repro/engine/schedule.py:211; no "
+                        "pallas_call",
+            "launches": int(launches.get(name, 0)),
+            "max_abs_err": errs[name],
+            "ms": top["ms"], "chain_cycles": top["chain_cycles"],
+            "plain_ms": time_ms(plain, warmup=1, reps=3),
+            "plain_shape": "one pair of two 2048-key runs, w 128",
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"],
+            "library_call": "torch.sort" + ("" if ranks is None else
+                                            "(stable=True)"),
+            "levels": levels,
+            "levels_ms": sum(lv["ms"] for lv in levels)})
+        print(f"time {name}: " + json.dumps(table[-1]), flush=True)
+    return table
+
+
 def timed(name: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -1652,6 +1938,12 @@ def main() -> int:
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
     timed("K1 shapes and chunk sweep", phase_k1_sweep, engine, kernels, k1,
           slice3, data, ext)
+    slice4 = _import_slice4()
+    k9_launches, ref = timed("sampling", phase_sampling, engine, kernels,
+                             slice4, gen)
+    errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
+    table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
+                   errs4, ref)
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

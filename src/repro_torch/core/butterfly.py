@@ -9,6 +9,7 @@ first; the butterfly is the stages at w/2, w/4, ..., 1 and sorts any
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable
 
 import torch
@@ -89,6 +90,13 @@ def butterfly_sort(x, *, compare: Compare = _default_gt):
     return x
 
 
+def bitonic_merge_full(x, *, compare: Compare = _default_gt):
+    """Full 2w -> 2w bitonic merger (paper fig. 3): the butterfly over the
+    whole ``[A, reverse(B)]`` of two descending lists. The Chhugani / fig. 4
+    baseline merger uses it."""
+    return butterfly_sort(x, compare=compare)
+
+
 def bitonic_sort(x, *, compare: Compare = _default_gt):
     """Full bitonic sorter on the trailing axis (descending), any input;
     the trailing size must be a power of two."""
@@ -107,3 +115,48 @@ def bitonic_sort(x, *, compare: Compare = _default_gt):
             d //= 2
         k *= 2
     return x
+
+
+# --- comparator counts and pipeline depths (paper Table 2) ------------------
+
+def comparators_flims(w: int) -> int:
+    """FLiMS: w MAX units + (w/2) log2(w) CAS units."""
+    return w + (w // 2) * int(math.log2(w))
+
+
+def comparators_flimsj(w: int) -> int:
+    """FLiMSj: FLiMS's network (its extra logic is muxes)."""
+    return comparators_flims(w)
+
+
+def comparators_basic(w: int) -> int:
+    """Chhugani / Casper fig. 4, a full 2w-to-2w merger: w + w log2(w)."""
+    return w + w * int(math.log2(w))
+
+
+def comparators_pmt(w: int) -> int:
+    """PMT merger, one 2w-to-w partial merger: w + (w/2) log2(w)."""
+    return w + (w // 2) * int(math.log2(w))
+
+
+def comparators_mms(w: int) -> int:
+    """MMS / VMS: two 2w-to-w partial mergers + 1 selector comparator."""
+    return 2 * w + w * int(math.log2(w)) + 1
+
+
+def comparators_wms(w: int) -> int:
+    """WMS: one 3w-to-w pruned odd-even merger: 3w + (w/2) log2(w)."""
+    return 3 * w + (w // 2) * int(math.log2(w))
+
+
+def comparators_ehms(w: int) -> int:
+    """EHMS: a 2.5w-to-w pruned odd-even merger: 5w/2 + (w/2) log2(w) + 2."""
+    return (5 * w) // 2 + (w // 2) * int(math.log2(w)) + 2
+
+
+def pipeline_depth(design: str, w: int) -> int:
+    """The latency column of Table 2."""
+    lg = int(math.log2(w))
+    return {"basic": lg + 2, "pmt": 2 * lg + 1, "mms": 2 * lg + 3,
+            "vms": 2 * lg + 3, "wms": lg + 3, "ehms": lg + 3,
+            "flims": lg + 1, "flimsj": lg + 2}[design]

@@ -1,6 +1,7 @@
 """``repro_torch.engine`` — the port's entry point for sorting workloads.
 
-``sort`` / ``argsort`` / ``merge`` / ``merge_runs``, the ragged
+``sort`` / ``argsort`` / ``merge`` / ``merge_runs``, ``topk``, the
+samplers ``sample_topp`` / ``sample_minp``, the ragged
 ``segment_sort`` / ``segment_argsort`` / ``segment_merge``, ``moe_route``
 and the out-of-core ``external_sort`` on the input's device, planned
 through the variant/plan cache (counterpart of ``repro.engine``).
@@ -8,8 +9,9 @@ through the variant/plan cache (counterpart of ``repro.engine``).
 from repro_torch.engine.api import (MergeSchedule, Plan, RouteResult,
                                     argsort, clear_plans, external_sort,
                                     load_plans, merge, merge_runs,
-                                    moe_route, save_plans, segment_argsort,
-                                    segment_merge, segment_sort, sort)
+                                    moe_route, sample_minp, sample_topp,
+                                    save_plans, segment_argsort,
+                                    segment_merge, segment_sort, sort, topk)
 from repro_torch.engine.segments import segment_sort_oracle
 from repro_torch.engine.planner import (Planner, default_planner,
                                         heuristic_plan, plan_key,
@@ -20,7 +22,7 @@ __all__ = [
     "MergeSchedule", "Plan", "Planner", "RouteResult", "argsort",
     "clear_plans", "default_planner", "external_sort", "heuristic_plan",
     "load_plans", "merge", "merge_runs", "moe_route", "plan_key",
-    "plans_from_jax", "registry", "save_plans", "schedule",
-    "segment_argsort", "segment_merge", "segment_sort",
-    "segment_sort_oracle", "segments", "sort",
+    "plans_from_jax", "registry", "sample_minp", "sample_topp",
+    "save_plans", "schedule", "segment_argsort", "segment_merge",
+    "segment_sort", "segment_sort_oracle", "segments", "sort", "topk",
 ]

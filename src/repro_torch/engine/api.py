@@ -1,8 +1,9 @@
 """`repro_torch.engine` — the port's facade over the FLiMS stack.
 
 Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``,
-``merge``, ``merge_runs``, the ragged ``segment_sort`` / ``segment_argsort``
-/ ``segment_merge``, the fused MoE routing op ``moe_route`` and the
+``merge``, ``merge_runs``, ``topk``, the samplers ``sample_topp`` /
+``sample_minp``, the ragged ``segment_sort`` / ``segment_argsort`` /
+``segment_merge``, the fused MoE routing op ``moe_route`` and the
 out-of-core ``external_sort``. Each call
 resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches
 straight to the registered variant.
@@ -18,6 +19,9 @@ raises, it never falls back to the CPU.
     perm = engine.argsort(keys, descending=False)
     m    = engine.merge(a, b)
     m    = engine.merge_runs(keys, run_offsets)    # K sorted runs -> one
+    v, i = engine.topk(logits, 16)                 # ties to the lower index
+    tok  = engine.sample_topp(gen, logits, 0.9)    # nucleus over the argsort
+    tok  = engine.sample_minp(gen, logits, 0.1)    # min-p over the same
     s    = engine.segment_sort(values, offsets)    # ragged batch
     perm = engine.segment_argsort(keys, offsets)   # local stable perms
     r    = engine.moe_route(logits, k=2, capacity=64)  # fused MoE routing
@@ -41,9 +45,9 @@ from repro_torch.engine.planner import (Plan, _key_str, backend_of,
 from repro_torch.engine.schedule import MergeSchedule
 from repro_torch.guard import validate as _validate
 
-__all__ = ["sort", "argsort", "merge", "merge_runs", "segment_sort",
-           "segment_argsort", "segment_merge", "moe_route", "RouteResult",
-           "external_sort",
+__all__ = ["sort", "argsort", "merge", "merge_runs", "topk", "sample_topp",
+           "sample_minp", "segment_sort", "segment_argsort", "segment_merge",
+           "moe_route", "RouteResult", "external_sort",
            "save_plans", "load_plans", "clear_plans", "Plan",
            "MergeSchedule"]
 
@@ -78,7 +82,8 @@ def infer_key(op: str, *args):
     if op == "merge":
         return plan_key(op, n=x.shape[0] + args[1].shape[0], dtype=x.dtype,
                         backend=backend)
-    if op in ("sort", "argsort", "external_sort"):
+    if op in ("sort", "argsort", "external_sort", "topk", "sample_topp",
+              "sample_minp"):
         return plan_key(op, n=x.shape[-1], dtype=x.dtype, backend=backend)
     if op in ("merge_runs", "segment_sort", "segment_argsort"):
         return plan_key(op, n=x.shape[0], dtype=x.dtype, backend=backend,
@@ -235,23 +240,30 @@ def _merge_kv(a, b, values, descending, plan, variant):
 
 
 def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
-               stable: bool = False, nan: Optional[str] = None,
-               plan: Optional[Plan] = None, variant: Optional[str] = None,
-               device=None):
+               stable: bool = False, tie: Optional[str] = None,
+               nan: Optional[str] = None, plan: Optional[Plan] = None,
+               variant: Optional[str] = None, device=None):
     """Merge K sorted runs into one (the paper's §2.1 merge tree as an op).
 
     ``keys`` is the flat concatenation of K runs, each sorted in the call's
     direction, with boundaries ``run_offsets`` ((K+1,), ``[0] == 0``,
     ``[-1] == len(keys)``). The plan names a schedule executor (``torch`` |
-    ``tree_cuda``) and, for the tree, the levels fused per pass
-    (``plan.levels``). ``values=`` / ``stable=True`` make the merge stable
-    (run, then position) through rank lanes.
+    ``tree_vmapped`` | ``tree_cuda`` | ``stream_cuda`` | ``stream_torch``)
+    and, for the fused tree, the levels a pass (``plan.levels``).
+    ``values=`` / ``stable=True`` make the merge stable (run, then position)
+    through rank lanes. ``tie='skew'`` applies algorithm 2's selector on the
+    key-only ``tree_vmapped`` tree (``None`` keeps the plan's policy); it
+    cannot combine with ``values=`` / ``stable`` or ``nan="sort_last"``.
     """
     keys = _tensor(keys, device)
     values = _payload(values, keys)
     _validate.check_lane_width(keys.shape[0], "merge_runs")
     ik = _nan_keys("merge_runs", keys, nan)
     if ik is not None:
+        if tie == "skew":
+            raise _validate.EngineInputError(
+                "merge_runs", 'tie="skew" is key-only and cannot combine '
+                'with nan="sort_last"', tie="skew", nan="sort_last")
         pay = {"k": keys} if values is None else {"k": keys, "v": values}
         _, pv = merge_runs(ik, run_offsets, descending=descending,
                            values=pay, plan=plan, variant=variant)
@@ -259,13 +271,96 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     segments.validate_offsets(run_offsets, keys.shape[0])
     run_offsets = _tensor(run_offsets, keys.device).to(torch.int32)
     plan = _resolve("merge_runs", plan, variant, keys, run_offsets)
+    if tie is not None and tie != plan.tie:
+        plan = plan.replace(tie=tie)
     if values is None and not stable:
         return registry.call("merge_runs", plan.variant, keys, run_offsets,
                              plan=plan, descending=descending)
+    if tie == "skew":
+        raise _validate.EngineInputError(
+            "merge_runs", "tie='skew' is key-only (stable order has no ties)",
+            tie="skew")
+    # rank lanes leave no ties for skew to balance: the stable policy
+    plan = plan.replace(tie="b")
     ranks = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
     mk, mr = registry.call("merge_runs", plan.variant, keys, run_offsets,
                            plan=plan, descending=descending, ranks=ranks)
-    return mk if values is None else (mk, _gather(mr, values))
+    if values is None:
+        return mk
+    # a sentinel run's rank (tree_vmapped, where NaN keys under nan="unsafe"
+    # break the order) gathers the last payload, as JAX's clamped gather does
+    return mk, _gather(mr.clamp(max=max(keys.shape[0] - 1, 0)), values)
+
+
+def topk(x, k: int, *, values=None, nan: Optional[str] = None,
+         plan: Optional[Plan] = None, variant: Optional[str] = None,
+         device=None):
+    """``(values, indices)`` of the ``k`` largest along the trailing axis,
+    values descending, ties to the lower index (``lax.top_k``'s order);
+    indices int32. With ``values=`` (a payload of ``x``-shaped tensors)
+    returns ``(vals, indices, payload_topk)``. ``nan="sort_last"`` selects
+    by the monotone total-order transform (NaN above every real).
+    """
+    x = _tensor(x, device)
+    values = _payload(values, x)
+    _validate.check_lane_width(x.shape[-1], "topk")
+    ik = _nan_keys("topk", x, nan)
+    if ik is not None:
+        pay = {"k": x} if values is None else {"k": x, "v": values}
+        _, idx, pv = topk(ik, k, values=pay, plan=plan, variant=variant)
+        return (pv["k"], idx) if values is None else (pv["k"], idx, pv["v"])
+    plan = _resolve("topk", plan, variant, x)
+    return registry.call("topk", plan.variant, x, k, plan=plan, values=values)
+
+
+def _sample_sorted(op: str, generator, logits, knob: float, temperature,
+                   plan, variant, device, u):
+    if not 0.0 < knob <= 1.0:
+        name = "p" if op == "sample_topp" else "min_p"
+        raise ValueError(f"{op}: {name}={knob} outside (0, 1]")
+    logits = _tensor(logits, device)
+    squeeze = logits.ndim == 1
+    if squeeze:
+        logits = logits[None]
+        u = None if u is None else u[None]
+    if logits.ndim != 2:
+        raise ValueError(f"{op} expects (V,) or (B, V) logits, got shape "
+                         f"{tuple(logits.shape)}")
+    plan = _resolve(op, plan, variant, logits)
+    out = registry.call(op, plan.variant, generator, logits, float(knob),
+                        plan=plan, temperature=float(temperature), u=u)
+    return out[0] if squeeze else out
+
+
+def sample_topp(generator, logits, p: float, *, temperature: float = 1.0,
+                u=None, plan: Optional[Plan] = None,
+                variant: Optional[str] = None, device=None):
+    """Nucleus (top-p) sampling: one int32 token id per row of ``logits``
+    ((V,) or (B, V)).
+
+    The row's stable descending argsort (``flims``, the reference sorter
+    reducing on K9, or ``torch``: the same permutation, so the variants
+    agree bit for bit) orders the candidates; the softmax prefix sum cuts
+    the smallest set whose mass reaches ``p`` (the argmax always stays) and
+    a Gumbel-max draw picks within it. ``temperature <= 0`` is greedy.
+    ``generator`` (a ``torch.Generator`` on the logits' device, or None for
+    the default) stands where the JAX op takes a PRNG key; ``u`` (uniforms
+    in [1e-9, 1) shaped like ``logits``) replaces its draw.
+    """
+    return _sample_sorted("sample_topp", generator, logits, p, temperature,
+                          plan, variant, device, u)
+
+
+def sample_minp(generator, logits, min_p: float, *,
+                temperature: float = 1.0, u=None,
+                plan: Optional[Plan] = None, variant: Optional[str] = None,
+                device=None):
+    """Min-p sampling: one int32 token id per row of ``logits``. The same
+    sorted-prefix formulation as :func:`sample_topp`, the cut keeping the
+    candidates whose probability is at least ``min_p`` times the row
+    maximum's."""
+    return _sample_sorted("sample_minp", generator, logits, min_p,
+                          temperature, plan, variant, device, u)
 
 
 def external_sort(keys, *, descending: bool = True, values=None,

@@ -7,8 +7,10 @@ tensors of the kernels' key types the heuristic serves ``sort`` /
 ``argsort`` / ``merge`` / ``segment_merge`` from the CUDA kernels,
 ``merge_runs`` from the ``tree_cuda`` schedule, ``segment_sort`` /
 ``segment_argsort`` from the two-phase compositions, ``moe_route`` from
-the fused kernel K7 and ``external_sort`` from the ``stream_cuda`` passes
-(K8); everything else from the torch reference variants.
+the fused kernel K7, ``external_sort`` from the ``stream_cuda`` passes
+(K8), and ``topk`` / ``sample_topp`` / ``sample_minp`` from the ``flims``
+reference sorters (the JAX TPU table's choice; their argsort reduces on
+K9); everything else from the torch reference variants.
 
 Plan tables round-trip through JSON, and :func:`plans_from_jax` reads the
 tables the JAX package's ``engine.save_plans`` writes: backends ``tpu`` /
@@ -28,7 +30,9 @@ from repro_torch.core.flims import next_pow2
 VARIANT_MAP = {"pallas": "cuda", "tree_pallas": "tree_cuda", "xla": "torch",
                "pallas_fused": "cuda_fused",
                "pallas_two_phase": "cuda_two_phase", "fused": "fused",
-               "stream_pallas": "stream_cuda", "stream_xla": "stream_torch"}
+               "stream_pallas": "stream_cuda", "stream_xla": "stream_torch",
+               "tree_vmapped": "tree_vmapped", "ref": "ref",
+               "flims": "flims"}
 #: JAX backend name -> the port's
 BACKEND_MAP = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
 #: key dtypes the CUDA kernels take
@@ -100,14 +104,17 @@ def heuristic_plan(op: str, key: Key) -> Plan:
                  "merge_runs": "tree_cuda", "segment_merge": "cuda",
                  "segment_sort": "cuda_two_phase",
                  "segment_argsort": "cuda_two_phase", "moe_route": "fused",
-                 "external_sort": "stream_cuda"}
+                 "external_sort": "stream_cuda", "topk": "flims",
+                 "sample_topp": "flims", "sample_minp": "flims"}
         levels = 2 if op in ("merge_runs", "external_sort") else 1
     else:
         # other key types, and CPU tensors: the torch reference variants
         table = {"sort": "torch", "argsort": "torch", "merge": "banked",
                  "merge_runs": "torch", "segment_merge": "torch",
                  "segment_sort": "torch", "segment_argsort": "torch",
-                 "moe_route": "torch", "external_sort": "torch"}
+                 "moe_route": "torch", "external_sort": "torch",
+                 "topk": "torch", "sample_topp": "torch",
+                 "sample_minp": "torch"}
         levels = 1
     return Plan(variant=table[op], w=w, block_out=block_out, chunk=256,
                 levels=levels)

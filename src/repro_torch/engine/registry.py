@@ -1,9 +1,9 @@
 """Variant registry: which implementations serve each engine op.
 
 Counterpart of ``repro/engine/registry.py`` for ``sort``, ``argsort``,
-``merge``, ``merge_runs``, ``segment_sort``, ``segment_argsort``,
-``segment_merge``, ``moe_route`` and ``external_sort``. Variant names map
-from the JAX package's:
+``merge``, ``merge_runs``, ``topk``, ``sample_topp``, ``sample_minp``,
+``segment_sort``, ``segment_argsort``, ``segment_merge``, ``moe_route`` and
+``external_sort``. Variant names map from the JAX package's:
 
     pallas            -> cuda            the hand-written CUDA kernels
     tree_pallas       -> tree_cuda       the fused merge-tree schedule (K3/K4)
@@ -14,6 +14,9 @@ from the JAX package's:
     stream_xla        -> stream_torch    the same passes in plain torch
     xla               -> torch           torch built-ins, the reference
     ref, banked                          the FLiMS reference merges
+    ref (sort), flims                    the reference sorters of core/
+                                         (mergesort, topk) over tree_vmapped
+    tree_vmapped                         the per-level lane-merge tree (K9)
 
 Every variant takes ``fn(*op_args, plan=Plan, ...)``. Dispatch goes straight
 to the variant: a CUDA kernel that fails to build or launch, or a shape the
@@ -87,6 +90,12 @@ def _merge_cuda(a, b, *, plan):
 
 # --- sort: full descending sort of a 1-D tensor -----------------------------
 
+@register("sort", "ref")
+def _sort_ref(x, *, plan):
+    from repro_torch.core.mergesort import flims_sort
+    return flims_sort(x, chunk=plan.chunk, w=plan.w)
+
+
 @register("sort", "cuda")
 def _sort_cuda(x, *, plan):
     from repro_torch.kernels.ops import kernel_sort
@@ -108,10 +117,77 @@ def _argsort_cuda(keys, *, plan, descending):
                           descending=descending)
 
 
+@register("argsort", "flims")
+def _argsort_flims(keys, *, plan, descending):
+    # a (B, n) batch is one grouped reduction of every row's chunks
+    from repro_torch.core.mergesort import flims_argsort
+    return flims_argsort(keys, chunk=plan.chunk, w=plan.w,
+                         descending=descending)
+
+
 @register("argsort", "torch")
 def _argsort_torch(keys, *, plan, descending):
     return torch.argsort(keys, dim=-1, stable=True,
                          descending=descending).to(torch.int32)
+
+
+# --- topk: (values, indices) of the k largest along the trailing axis -------
+
+@register("topk", "flims")
+def _topk_flims(x, k, *, plan, values=None):
+    from repro_torch.core.topk import flims_topk
+    return flims_topk(x, k, values=values)
+
+
+@register("topk", "torch")
+def _topk_torch(x, k, *, plan, values=None):
+    # a stable descending sort and a slice: ties to the lower index, as
+    # lax.top_k orders them (torch.topk promises no tie order)
+    from repro_torch.core.butterfly import tree_map
+    srt = torch.sort(x, dim=-1, descending=True, stable=True)
+    vals, idx = srt.values[..., :k], srt.indices[..., :k]
+    if values is None:
+        return vals, idx.to(torch.int32)
+    pay = tree_map(lambda v: torch.gather(v, -1, idx), values)
+    return vals, idx.to(torch.int32), pay
+
+
+# --- sample_topp / sample_minp: a mask over the sorted prefix ----------------
+# The variant names the stable descending argsort of the whole row; the
+# nucleus / min-p cut and the Gumbel-max draw are shared elementwise math,
+# so the variants agree bit for bit.
+
+def _sample_sorted_prefix(generator, logits, perm, *, temperature, top_p,
+                          min_p, u):
+    from repro_torch.serve.sampler import SamplingState, sorted_prefix_sample
+    state = SamplingState.full(logits.shape[0], temperature=temperature,
+                               top_p=top_p, min_p=min_p,
+                               device=logits.device)
+    svals = torch.gather(logits, -1, perm.long())
+    return sorted_prefix_sample(generator, svals, perm, state, u=u)
+
+
+def _full_sort_perm(variant, logits, plan):
+    if variant == "flims":
+        from repro_torch.core.mergesort import flims_argsort
+        return flims_argsort(logits, chunk=plan.chunk, w=plan.w)
+    return torch.argsort(logits, dim=-1, stable=True,
+                         descending=True).to(torch.int32)
+
+
+def _sample_with(variant, nucleus: bool):
+    def fn(generator, logits, knob, *, plan, temperature=1.0, u=None):
+        perm = _full_sort_perm(variant, logits, plan)
+        return _sample_sorted_prefix(
+            generator, logits, perm, temperature=temperature,
+            top_p=knob if nucleus else 1.0, min_p=0.0 if nucleus else knob,
+            u=u)
+    return fn
+
+
+for _v in ("flims", "torch"):
+    register("sample_topp", _v)(_sample_with(_v, True))
+    register("sample_minp", _v)(_sample_with(_v, False))
 
 
 # --- merge_runs: K sorted runs -> one, through a MergeSchedule ---------------
@@ -125,7 +201,8 @@ def _merge_runs_with(variant):
     return fn
 
 
-for _v in ("torch", "tree_cuda", "stream_cuda", "stream_torch"):
+for _v in ("torch", "tree_vmapped", "tree_cuda", "stream_cuda",
+           "stream_torch"):
     register("merge_runs", _v)(_merge_runs_with(_v))
 
 

@@ -5,6 +5,12 @@ slice:
 
 - ``torch``      one shot per group: a stable ``torch.sort`` of each group
                  (counterpart of the ``xla`` executor, the reference);
+- ``tree_vmapped`` the classic per-level tree (counterpart of the JAX
+                 package's ``tree_vmapped``): every run pair of a level merges
+                 by the FLiMS lane merge, one launch of K9 a level on the card
+                 (``kernels/lane_merge.py``), so a reduction takes ``log2 K``
+                 launches; the default of the reference sorters
+                 (``schedule_or``) and the only executor that reads ``tie``;
 - ``tree_cuda``  fused passes (counterpart of ``tree_pallas``): each pass
                  collapses ``levels_per_pass`` tree levels per group in one
                  launch, the merge-tree kernel K4 at two or more levels and
@@ -24,7 +30,9 @@ sorted runs with ``(R+1,)`` offsets, consecutive ``runs_per_group`` runs
 forming one reduction. With ``ranks=`` every executor orders ties by the
 compound ``(key, rank asc)`` order. ``tree_cuda`` and the stream executors
 sort KV lanes ascending natively; their key-only ascending calls are
-mirrored (runs reversed per segment).
+mirrored (runs reversed per segment), and so are all of ``tree_vmapped``'s,
+whose lane merge is descending only (ranks mirrored around
+``INVALID_RANK - 1``).
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.flims import next_pow2
-from repro_torch.core.lanes import INVALID_RANK
+from repro_torch.core.lanes import INVALID_RANK, sentinel_for
 from repro_torch.engine import segments
 from repro_torch.kernels.flims_merge import (_exclusive_cumsum, bound_keys,
                                              lane_first)
@@ -43,7 +51,8 @@ from repro_torch.kernels.flims_merge import (_exclusive_cumsum, bound_keys,
 #: mirror pivot for the ascending rank trick (INVALID_RANK stays padding)
 _RANK_MIRROR = INVALID_RANK - 1
 
-_VARIANTS = ("torch", "tree_cuda", "stream_cuda", "stream_torch")
+_VARIANTS = ("torch", "tree_vmapped", "tree_cuda", "stream_cuda",
+             "stream_torch")
 
 #: executors whose passes read device-resident uniform runs
 STREAM_VARIANTS = ("stream_cuda", "stream_torch")
@@ -51,16 +60,19 @@ STREAM_VARIANTS = ("stream_cuda", "stream_torch")
 
 @dataclasses.dataclass(frozen=True)
 class MergeSchedule:
-    """How K sorted runs become one: executor, fused-pass depth, tiles."""
+    """How K sorted runs become one: executor, fused-pass depth, tiles and
+    the selector's tie policy (``'b'``: algorithm 1; ``'skew'``: algorithm
+    2, read by ``tree_vmapped`` on key-only lanes)."""
     variant: str = "torch"
     levels_per_pass: int = 1
     w: int = 32
     block_out: int = 1024
+    tie: str = "b"
 
     def __post_init__(self):
         if self.variant not in _VARIANTS:
             raise ValueError(f"executor {self.variant!r} not in {_VARIANTS}")
-        if self.levels_per_pass < 1:
+        if self.levels_per_pass < 1 or self.tie not in ("b", "skew"):
             raise ValueError(f"bad schedule {self}")
 
     def to_dict(self) -> dict:
@@ -73,7 +85,16 @@ class MergeSchedule:
         if v not in _VARIANTS:
             v = "torch"
         return cls(variant=v, levels_per_pass=plan.levels, w=plan.w,
-                   block_out=plan.block_out)
+                   block_out=plan.block_out, tie=plan.tie)
+
+
+def schedule_or(schedule: Optional[MergeSchedule], w: int,
+                tie: str = "b") -> MergeSchedule:
+    """The reference sorters' default: the per-level lane-merge tree at
+    ``w``."""
+    if schedule is not None:
+        return schedule
+    return MergeSchedule("tree_vmapped", w=w, tie=tie)
 
 
 def _mirror(keys, offsets, ranks):
@@ -129,6 +150,62 @@ def _torch_reduce(keys, offsets, ranks, m: int, descending: bool):
     perm = torch.gather(p1, -1, p2)
     return (unpad_bank(torch.gather(kb, -1, perm), goff, n),
             unpad_bank(torch.gather(rb, -1, perm), goff, n))
+
+
+def _vmapped_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
+                    uniform_len: Optional[int] = None):
+    """The per-level tree, descending only: rows of uniform length (the
+    runs as they are when uniform, else a padded bank), each group
+    completed to a power of two with sentinel runs, then one lane merge of
+    every row pair a level (K9 on the card)."""
+    from repro_torch.kernels.lane_merge import lane_merge, lane_merge_kv
+    from repro_torch.kernels.segmented_merge import padded_bank, unpad_bank
+    n = keys.shape[0]
+    K = offsets.shape[0] - 1
+    n_groups = K // m
+    ulen = uniform_len if uniform_len is not None else _uniform_len(offsets)
+    if ulen is not None:
+        krows = keys.reshape(K, ulen)
+        rrows = None if ranks is None else ranks.reshape(K, ulen)
+    else:
+        cap = segments.static_cap(offsets, n)
+        krows = padded_bank(keys, offsets, cap)
+        rrows = None if ranks is None else padded_bank(ranks, offsets, cap,
+                                                       fill=INVALID_RANK)
+    m2 = next_pow2(m)
+    cap = krows.shape[1]
+    if m2 != m:                          # sentinel runs complete each group
+        pad = krows.new_full((n_groups, m2 - m, cap), sentinel_for(keys.dtype))
+        krows = torch.cat([krows.reshape(n_groups, m, cap), pad],
+                          dim=1).reshape(n_groups * m2, cap)
+        if rrows is not None:
+            rpad = rrows.new_full((n_groups, m2 - m, cap), INVALID_RANK)
+            rrows = torch.cat([rrows.reshape(n_groups, m, cap), rpad],
+                              dim=1).reshape(n_groups * m2, cap)
+    buf = krows.reshape(-1)
+    rbuf = None if rrows is None else rrows.reshape(-1)
+    rows, L = n_groups * m2, cap
+    while rows > n_groups:
+        pairs = rows // 2
+        a_starts = torch.arange(pairs, dtype=torch.int32,
+                                device=keys.device) * (2 * L)
+        lens = torch.full((pairs,), L, dtype=torch.int32, device=keys.device)
+        args = (a_starts, lens, a_starts + L, lens)
+        if rbuf is None:
+            buf = lane_merge(buf, buf, *args, n_out=rows * L, w=sched.w,
+                             tie=sched.tie)
+        else:
+            buf, rbuf = lane_merge_kv(buf, rbuf, buf, rbuf, *args,
+                                      n_out=rows * L, w=sched.w)
+        rows, L = pairs, 2 * L
+    # each group's valid prefix back to the flat layout
+    glen = torch.diff(offsets).reshape(n_groups, m).sum(1)
+    goff = _exclusive_cumsum(glen)
+    kb = buf.reshape(n_groups, -1)
+    if rbuf is None:
+        return unpad_bank(kb, goff, n)
+    return unpad_bank(kb, goff, n), unpad_bank(rbuf.reshape(n_groups, -1),
+                                               goff, n)
 
 
 def _cuda_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
@@ -345,14 +422,17 @@ def _stream_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
 
 
 def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
-               runs_per_group: Optional[int] = None, descending: bool = True):
+               runs_per_group: Optional[int] = None, descending: bool = True,
+               uniform_len: Optional[int] = None):
     """Reduce grouped contiguous sorted runs to one sorted run per group.
 
     ``keys`` is the flat concatenation of ``R`` runs with boundaries
     ``offsets`` ((R+1,)), each sorted in the call's direction; consecutive
     ``runs_per_group`` runs (default: all) reduce independently. With
     ``ranks=`` (int32) the reduction is the stable compound-order merge and
-    returns ``(keys, ranks)``.
+    returns ``(keys, ranks)``. ``uniform_len`` declares every run that long
+    (``reduce_rows``), which spares ``tree_vmapped`` reading the offsets
+    back.
     """
     offsets = offsets.to(device=keys.device, dtype=torch.int32)
     K = offsets.shape[0] - 1
@@ -366,11 +446,16 @@ def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
         return keys if ranks is None else (keys, ranks)
 
     sched = schedule
-    if not descending and sched.variant != "torch" and ranks is None:
+    if not descending and sched.variant != "torch" and (
+            ranks is None or sched.variant == "tree_vmapped"):
+        kv = ranks is not None
         keys, ranks = _mirror(keys, offsets, ranks)
         out = merge_runs(keys, offsets, ranks=ranks, schedule=sched,
-                         runs_per_group=m, descending=True)
-        return _unmirror(out, None, offsets[::m])
+                         runs_per_group=m, descending=True,
+                         uniform_len=uniform_len)
+        goff = offsets[::m]
+        return _unmirror(out[0], out[1], goff) if kv else \
+            _unmirror(out, None, goff)
 
     levels_total = next_pow2(m).bit_length() - 1
     if sched.variant == "torch":
@@ -379,6 +464,13 @@ def merge_runs(keys, offsets, *, ranks=None, schedule: MergeSchedule,
                   n=int(n), kv=ranks is not None)
         with obs.kernel_scope("schedule.torch_reduce"):
             return _torch_reduce(keys, offsets, ranks, m, descending)
+    if sched.variant == "tree_vmapped":
+        obs.event("schedule.reduce", executor="tree_vmapped",
+                  passes=levels_total, levels_total=levels_total,
+                  hbm_trips_saved=0, n=int(n), kv=ranks is not None)
+        with obs.kernel_scope("schedule.vmapped_reduce"):
+            return _vmapped_reduce(keys, offsets, ranks, m, sched,
+                                   uniform_len=uniform_len)
     if sched.variant in STREAM_VARIANTS:
         with obs.kernel_scope("schedule.stream_reduce"):
             return _stream_reduce(keys, offsets, ranks, m, sched, descending)
@@ -389,10 +481,11 @@ def reduce_rows(rows, *, schedule: MergeSchedule, ranks=None,
                 runs_per_group: Optional[int] = None,
                 descending: bool = True):
     """Merge the K rows of a ``(K, n)`` bank (each a sorted run) per group
-    of ``runs_per_group`` rows. Returns the flat merged groups (and ranks)."""
+    of ``runs_per_group`` rows. Returns the flat merged groups (and ranks).
+    The rows' length is known, so no executor reads the offsets back."""
     K, n = rows.shape
     offsets = torch.arange(K + 1, dtype=torch.int32, device=rows.device) * n
     return merge_runs(rows.reshape(-1), offsets,
                       ranks=None if ranks is None else ranks.reshape(-1),
                       schedule=schedule, runs_per_group=runs_per_group,
-                      descending=descending)
+                      descending=descending, uniform_len=n)

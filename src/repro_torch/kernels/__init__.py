@@ -7,6 +7,8 @@
                         and the two-phase segment sorts over K1 + K3/K4
     merge_tree.py       K4: fused multi-level merge tree (csrc/merge_tree.cu)
     route_fuse.py       K7: fused MoE routing (csrc/route_fuse.cu)
+    lane_merge.py       K9: the FLiMS lane merge of a tree level's run
+                        pairs, the tree_vmapped executor (csrc/lane_merge.cu)
     stream_merge.py     K8: streaming k-way merge of uniform runs, the
                         out-of-core sort's phase 2 (csrc/stream_merge.cu)
     ops.py              kernel_sort / kernel_argsort / merge / sort_rows

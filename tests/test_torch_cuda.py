@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import bitonic_sort as TB  # noqa: E402
 from repro_torch.kernels import flims_merge as TF  # noqa: E402
+from repro_torch.kernels import lane_merge as TL  # noqa: E402
 from repro_torch.kernels import merge_tree as TT  # noqa: E402
 from repro_torch.kernels import route_fuse as TR  # noqa: E402
 from repro_torch.kernels import segmented_merge as TS  # noqa: E402
@@ -797,3 +798,113 @@ def test_external_sort_on_card_matches_torch(card, dtype):
                                               n, device=card))
             perm = torch.argsort(x, descending=d, stable=True)
             assert torch.equal(vs, perm) and torch.equal(ks, x[perm])
+
+
+# K9: the lane merge of a tree level's run pairs, at every w the kernel
+# takes, on pair lengths 0, 1, w - 1, w, w + 1 and ragged ones
+
+
+def _lane_runs(lens, dtype):
+    """Flat descending runs of ``lens`` (float32: NaNs of two payloads,
+    +0.0/-0.0 and ties; int32: duplicates and both extremes), their starts,
+    and a permutation as ranks."""
+    if dtype == torch.float32:
+        parts = [nan_run(n) for n in lens]
+    else:
+        parts = [np.sort(RNG.choice(K1_INT_POOL, n))[::-1] for n in lens]
+    buf = np.concatenate(parts + [np.zeros(0, parts[0].dtype)]).copy()
+    starts = np.concatenate([[0], np.cumsum(lens)[:-1]]).astype(np.int32)
+    ranks = RNG.permutation(buf.shape[0]).astype(np.int32)
+    return T(buf), T(starts), T(np.array(lens, np.int32)), T(ranks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1 << i for i in range(8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_merge_matches_plain(card, w, dtype):
+    """K9 (key-only under tie b and skew, and KV) against its plain
+    version: one pair, and a launch of many ragged pairs with empty and
+    one-sided ones; the output whole and cut below the total."""
+    edge = [0, 1, max(w - 1, 0), w, w + 1, 2 * w + 3]
+    a_sets = [[3 * w + 5], edge + [int(x) for x in RNG.integers(0, 4 * w + 9,
+                                                                 40)]]
+    for la in a_sets:
+        lb = list(reversed(la))
+        a, sa, na, ra = (t.to(card) for t in _lane_runs(la, dtype))
+        b, sb, nb, rb = (t.to(card) for t in _lane_runs(lb, dtype))
+        n = sum(la) + sum(lb)
+        for n_out in (n, n - n // 3):
+            for tie in ("b", "skew"):
+                _same_on_card(TL.lane_merge, a, b, sa, na, sb, nb,
+                              n_out=n_out, w=w, tie=tie)
+            _same_on_card(TL.lane_merge_kv, a, ra, b, rb, sa, na, sb, nb,
+                          n_out=n_out, w=w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [8, 128])
+def test_lane_merge_thousands_of_pairs(card, w):
+    """One launch over 3000 short ragged pairs of one buffer (a tree level's
+    shape: A and B the same buffer), key-only and KV."""
+    lens = [int(x) for x in RNG.integers(0, 2 * w + 2, 6000)]
+    buf, st, ln, rk = (t.to(card) for t in _lane_runs(lens, torch.float32))
+    pairs = tuple(t.contiguous() for t in (st[0::2], ln[0::2], st[1::2],
+                                           ln[1::2]))
+    _same_on_card(TL.lane_merge, buf, buf, *pairs, n_out=buf.numel(), w=w)
+    _same_on_card(TL.lane_merge, buf, buf, *pairs, n_out=buf.numel(), w=w,
+                  tie="skew")
+    _same_on_card(TL.lane_merge_kv, buf, rk, buf, rk, *pairs,
+                  n_out=buf.numel(), w=w)
+
+
+@pytest.mark.cuda
+def test_lane_merge_refuses_before_launch(card):
+    """A bfloat16 key or a w above 128 raises ``KernelError`` on the card,
+    and ``tree_vmapped`` raises for a bfloat16 key, without a launch."""
+    from repro_torch.engine.schedule import MergeSchedule, merge_runs
+    from repro_torch.kernels import KernelError, launch_counts
+    x = torch.arange(64, 0, -1, device=card).float()
+    one = torch.zeros(1, dtype=torch.int32, device=card)
+    n32 = torch.full((1,), 32, dtype=torch.int32, device=card)
+    before = dict(launch_counts())
+    with pytest.raises(KernelError):
+        TL.lane_merge(x.bfloat16(), x.bfloat16(), one, n32, one + 32, n32,
+                      n_out=64, w=32)
+    with pytest.raises(KernelError):
+        TL.lane_merge(x, x, one, n32, one + 32, n32, n_out=64, w=256)
+    offs = torch.tensor([0, 32, 64], dtype=torch.int32, device=card)
+    with pytest.raises(KernelError):
+        merge_runs(x.bfloat16(), offs, schedule=MergeSchedule(
+            "tree_vmapped", w=8))
+    assert launch_counts() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("descending", [True, False])
+def test_tree_vmapped_on_card_launches_k9(card, descending, monkeypatch):
+    """``merge_runs(variant="tree_vmapped")`` on CUDA tensors launches K9
+    once a level and never runs the plain lane loop; key-only (tie b and
+    skew) and stable with a payload, against torch."""
+    from repro_torch import engine
+    from repro_torch.kernels import launch_counts, reset_launches
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain lane merge ran on the card")
+    monkeypatch.setattr(TL, "_plain", refuse)
+    lens = [300, 0, 129, 77, 1, 1000, 5]           # 7 runs: 3 levels
+    buf, offs = ragged(lens, descending=descending)[0], np.concatenate(
+        [[0], np.cumsum(lens)]).astype(np.int32)
+    x, o = T(buf).to(card), T(offs).to(card)
+    for tie in ("b", "skew"):
+        reset_launches()
+        got = engine.merge_runs(x, o, descending=descending, tie=tie,
+                                variant="tree_vmapped")
+        assert launch_counts() == {"lane_merge": 3}
+        assert torch.equal(got, torch.sort(x, descending=descending).values)
+    reset_launches()
+    vals = torch.arange(x.numel(), device=card)
+    ks, vs = engine.merge_runs(x, o, descending=descending, values=vals,
+                               variant="tree_vmapped")
+    assert launch_counts() == {"lane_merge_kv": 3}
+    perm = torch.argsort(x, descending=descending, stable=True)
+    assert torch.equal(vs, perm) and torch.equal(_bits(ks), _bits(x[perm]))

@@ -219,8 +219,7 @@ def test_plan_table_from_jax(tmp_path):
     ts = TSched.from_plan(plan).to_dict()
     assert js.pop("variant") == "tree_pallas"
     assert ts.pop("variant") == "tree_cuda"
-    js.pop("tie")          # read only by tree_vmapped, not in the port
-    assert js == ts
+    assert js == ts                       # tie included
     sort_plan = TE.default_planner.lookup(tplanner.plan_key(
         "sort", n=n, dtype=torch.float32, backend="cpu"))
     assert sort_plan.variant == "torch" and sort_plan.chunk == 512
@@ -237,12 +236,56 @@ def test_plans_from_jax_maps_backends_and_drops_unserved():
         "sort|tpu|float32|n1024|s0": {"variant": "pallas", "chunk": 512},
         "merge|gpu|int32|n64|s0": {"variant": "pallas", "w": 8},
         "topk|tpu|float32|n64|s0": {"variant": "flims"},
-        "merge_runs|tpu|int32|n64|s8": {"variant": "tree_vmapped"}}}
+        "merge_runs|tpu|int32|n64|s8": {"variant": "tree_vmapped"},
+        "sharded_topk|tpu|float32|n64|s8|adev": {"variant": "flims"},
+        "merge_runs|cpu|int32|n64|s8": {"variant": "no_such_executor"}}}
     out = tplanner.plans_from_jax(table)
     assert out["sort|cuda|float32|n1024|s0"]["variant"] == "cuda"
     assert out["sort|cuda|float32|n1024|s0"]["chunk"] == 512
     assert out["merge|cuda|int32|n64|s0"]["w"] == 8
-    assert len(out) == 2
+    assert out["topk|cuda|float32|n64|s0"]["variant"] == "flims"
+    assert out["merge_runs|cuda|int32|n64|s8"]["variant"] == "tree_vmapped"
+    assert len(out) == 4
+
+
+def test_planner_keeps_and_routes_the_reference_sorters(tmp_path):
+    """``plans_from_jax`` keeps the JAX table's ``topk``, ``sample_*``,
+    ``tree_vmapped``, ``ref`` and ``flims`` entries (each names a variant the
+    port registers), a table saved by the JAX engine with them loads, and
+    the heuristic serves ``topk`` / ``sample_topp`` / ``sample_minp`` from
+    ``flims`` on the card for the kernels' key types and from ``torch``
+    elsewhere, as the JAX TPU / CPU tables do."""
+    for name in ("tree_vmapped", "ref", "flims"):
+        assert tplanner.VARIANT_MAP[name] == name
+    entries = [("topk", "flims", 4096), ("sample_topp", "flims", 4096),
+               ("sample_minp", "flims", 4096), ("sample_topp", "xla", 64),
+               ("merge_runs", "tree_vmapped", 4096), ("sort", "ref", 4096),
+               ("argsort", "flims", 4096)]
+    for op, v, n in entries:
+        JE.default_planner.put(jplan_key(op, n=n, dtype=np.float32,
+                                         backend="tpu"),
+                               JPlan(v, w=16, chunk=128, tie="skew"))
+    JE.save_plans(str(tmp_path / "plans.json"))
+    TE.load_plans(str(tmp_path / "plans.json"))
+    for op, v, n in entries:
+        plan = TE.default_planner.lookup(tplanner.plan_key(
+            op, n=n, dtype=torch.float32, backend="cuda"))
+        assert plan.variant == tplanner.VARIANT_MAP.get(v, v), (op, v)
+        assert (plan.w, plan.chunk, plan.tie) == (16, 128, "skew")
+    h = tplanner.heuristic_plan
+    for op in ("topk", "sample_topp", "sample_minp"):
+        jtpu = JE.heuristic_plan(op, jplan_key(op, n=1 << 16,
+                                               dtype=np.float32,
+                                               backend="tpu"))
+        for dt, be, want in ((torch.float32, "cuda", "flims"),
+                             (torch.int32, "cuda", "flims"),
+                             (torch.bfloat16, "cuda", "torch"),
+                             (torch.float32, "cpu", "torch")):
+            plan = h(op, tplanner.plan_key(op, n=1 << 16, dtype=dt,
+                                           backend=be))
+            assert plan.variant == want, (op, dt, be)
+            assert (plan.w, plan.chunk) == (jtpu.w, jtpu.chunk)
+        assert jtpu.variant == "flims"
 
 
 def test_heuristic_routes_by_device_and_dtype():
