@@ -43,7 +43,10 @@ the CUDA toolkit. It
      executor, stable with ``values=`` bit for bit), ``sort(variant="ref")``
      against ``torch.sort`` as values and ``argsort(variant="flims")``
      bit-for-bit ``torch.argsort(stable=True)``, all at 2^22 keys, each
-     call's ms, K9 launches and its ``torch`` variant's ms;
+     call's ms, K9 launches and its ``torch`` variant's ms; and, in a second
+     run of those calls, every K9 level they launch whose cycle chain is at
+     most ``CHECK_CHAIN`` (and ``merge_runs``' first skew level) held bit
+     for bit to the plain version on the same inputs;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -89,7 +92,8 @@ the CUDA toolkit. It
    ``cuda_fused``, ``cuda_two_phase`` and ``torch`` variants; and K9 at
    every level of ``sort(variant="ref")`` / ``argsort(variant="flims")`` of
    2^22 keys (pairs, cycle chain, byte bound, ``torch.sort`` of the same
-   pair groups; the table's row is the last level).
+   pair groups); the table's row is the level of a ``CHECK_CHAIN``-cycle
+   chain, where K9 and its plain version are timed at one shape.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -1612,6 +1616,9 @@ N_REF = 1 << 22                # keys of the reference sorters' calls
 SLOTS = 64                     # decode slots of the ragged sampler
 SAMPLE_ROWS = 8                # rows of the full-vocabulary samplers
 K9_WIDTHS = (1, 8, 32, 128)
+#: longest cycle chain at which the main path's K9 levels meet the plain
+#: version (about a millisecond a cycle there, a Python loop)
+CHECK_CHAIN = 2048
 
 
 def _import_slice4():
@@ -1667,6 +1674,56 @@ def phase_k9_vs_plain(k9, gen):
     print(f"K9 vs plain: w {K9_WIDTHS}, tie b / skew / KV, float32 NaN and "
           "int32 duplicate runs, ragged pairs: bit-for-bit "
           + json.dumps(errs), flush=True)
+    return errs
+
+
+def check_k9_on_path(k9, calls, variants, first_level=("merge_runs_skew",)):
+    """Run ``calls`` once more with every K9 level held bit for bit to the
+    plain version on the same inputs: each level whose chain is at most
+    ``CHECK_CHAIN`` cycles, and the first level of the calls in
+    ``first_level``. Outside the counted drive."""
+    real = k9.lane_merge_level
+    errs = {"lane_merge": 0.0, "lane_merge_kv": 0.0}
+    seen, name = [], None
+
+    def checked(buf, ranks, run_len, *, w, tie):
+        got = real(buf, ranks, run_len, w=w, tie=tie)
+        lv = {"call": name, "level": sum(x["call"] == name for x in seen),
+              "pairs": buf.numel() // (2 * run_len), "run_len": run_len,
+              "w": w, "tie": tie, "chain_cycles": -(-2 * run_len // w)}
+        lv["checked"] = lv["chain_cycles"] <= CHECK_CHAIN or (
+            lv["level"] == 0 and name in first_level)
+        if lv["checked"]:
+            exp = k9.lane_merge_level_plain(buf, ranks, run_len, w=w,
+                                            tie=tie)
+            kind = "lane_merge" if ranks is None else "lane_merge_kv"
+            err = check_same(f"K9 on the path: {lv}",
+                             tuple(t for t in got if t is not None),
+                             tuple(t for t in exp if t is not None))
+            errs[kind] = max(errs[kind], err)
+        seen.append(lv)
+        return got
+
+    k9.lane_merge_level = checked
+    try:
+        for name, fn in calls.items():
+            if name in variants:
+                fn(variants[name])
+    finally:
+        k9.lane_merge_level = real
+    done = [lv for lv in seen if lv["checked"]]
+    print(f"K9 vs plain on the path: {len(done)} of {len(seen)} levels "
+          f"bit-for-bit (chains up to {CHECK_CHAIN} cycles and the first skew "
+          f"level): " + json.dumps(errs), flush=True)
+    per_call = {}
+    for lv in seen:
+        per_call.setdefault(lv["call"], []).append(
+            [lv["pairs"], lv["run_len"], lv["w"], lv["chain_cycles"],
+             lv["checked"]])
+    print("K9 levels on the path, [pairs, run_len, w, chain, checked]: "
+          + json.dumps(per_call), flush=True)
+    if not done or not {lv["tie"] for lv in done} >= {"b", "skew"}:
+        raise AssertionError("the path's K9 levels were not all kinds checked")
     return errs
 
 
@@ -1773,6 +1830,8 @@ def phase_sampling(engine, kernels, slice4, gen):
           f"at {N_REF}; ids and results equal the torch variants'; launches "
           + json.dumps(launches), flush=True)
     print("sampling launches per call: " + json.dumps(per_call), flush=True)
+    k9_calls = {n: v for n, v in flims.items() if want[n]}
+    path_errs = check_k9_on_path(slice4[0], calls, k9_calls)
     e2e = []
     for name, fn in calls.items():
         reps = dict(warmup=1, reps=5)
@@ -1781,26 +1840,22 @@ def phase_sampling(engine, kernels, slice4, gen):
                     "ms": time_ms(lambda: fn(flims[name]), **reps),
                     "torch_ms": time_ms(lambda: fn("torch"), **reps)})
         print("e2e sampling: " + json.dumps(e2e[-1]), flush=True)
-    return launches, dict(x=x, rows=rows, rbuf=rbuf, roffs=roffs)
+    return launches, path_errs, dict(x=x, rows=rows, rbuf=rbuf, roffs=roffs)
 
 
 def k9_levels(k9, keys, ranks, L: int, w: int):
     """Each K9 level of a tree_vmapped reduction of uniform runs of ``L``
     (one group): its CUDA-event time, pairs, cycle chain (the cycles one
     warp runs in sequence), byte bound, and one torch.sort of the same pair
-    groups."""
+    groups; at the level of a ``CHECK_CHAIN``-cycle chain the plain version
+    too (one run: a Python loop of that many cycles)."""
     buf, rbuf, n = keys, ranks, keys.numel()
     levels = []
     while L < n:
         P = n // (2 * L)
-        st = torch.arange(P, dtype=torch.int32, device="cuda") * (2 * L)
-        ln = torch.full((P,), L, dtype=torch.int32, device="cuda")
-        args = (st, ln, st + L, ln)
-        if rbuf is None:
-            fn = lambda b=buf: k9.lane_merge(b, b, *args, n_out=n, w=w)
-        else:
-            fn = lambda b=buf, r=rbuf: k9.lane_merge_kv(b, r, b, r, *args,
-                                                        n_out=n, w=w)
+        fn = lambda b=buf, r=rbuf, L=L: k9.lane_merge_level(b, r, L, w=w)
+        plain = lambda b=buf, r=rbuf, L=L: k9.lane_merge_level_plain(b, r, L,
+                                                                     w=w)
         grp = buf.reshape(P, 2 * L)
         lib = (lambda: torch.sort(grp, dim=1, descending=True)) if \
             rbuf is None else \
@@ -1810,8 +1865,9 @@ def k9_levels(k9, keys, ranks, L: int, w: int):
                        "ms": time_ms(fn, warmup=1, reps=3),
                        "bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
                        "library_ms": time_ms(lib, warmup=1, reps=3)})
-        out = fn()
-        buf, rbuf = (out, None) if rbuf is None else out
+        if 2 * L // w == CHECK_CHAIN:
+            levels[-1]["plain_ms"] = time_ms(plain, warmup=0, reps=1)
+        buf, rbuf = fn()
         L *= 2
     return levels
 
@@ -1819,10 +1875,10 @@ def k9_levels(k9, keys, ranks, L: int, w: int):
 def phase_slice4_times(slice4, launches, errs, data):
     """K9 at the reference sorters' shapes: every level of ``sort(variant=
     "ref")`` (key-only) and ``argsort(variant="flims")`` (KV) at 2^22 keys,
-    chunks of 256, w 128; the table row is the last level (one pair of two
-    2^21-key runs, a chain of 32768 cycles) beside the plain version at one
-    pair of two 2048-key runs (launch-bound, 32 cycles), torch.sort of the
-    same pair and the byte bound."""
+    chunks of 256, w 128. The table row is the level of a ``CHECK_CHAIN``-
+    cycle chain (16 pairs of two 2^17-key runs): K9, its plain version,
+    torch.sort of the same pair groups and the byte bound at that one
+    shape; ``levels`` holds every level and ``levels_ms`` their sum."""
     k9 = slice4[0]
     from repro_torch.core.butterfly import bitonic_sort
     from repro_torch.core.lanes import stable_compare
@@ -1835,22 +1891,11 @@ def phase_slice4_times(slice4, launches, errs, data):
                       compare=stable_compare)
     kk, kr = kv["key"].reshape(-1).contiguous(), \
         kv["rank"].reshape(-1).contiguous()
-    small = torch.sort(x[:4096].reshape(2, 2048), dim=1,
-                       descending=True).values.reshape(-1).contiguous()
-    sr = torch.arange(4096, dtype=torch.int32, device="cuda")
-    pair = [torch.tensor([v], dtype=torch.int32, device="cuda")
-            for v in (0, 2048, 2048, 2048)]
     table = []
     for name, keys, ranks in (("lane_merge", rows, None),
                               ("lane_merge_kv", kk, kr)):
         levels = k9_levels(k9, keys, ranks, chunk, w)
-        top = levels[-1]
-        if ranks is None:
-            plain = lambda: k9.lane_merge_plain(small, small, *pair,
-                                                n_out=4096, w=w)
-        else:
-            plain = lambda: k9.lane_merge_kv_plain(small, sr, small, sr,
-                                                   *pair, n_out=4096, w=w)
+        row = next(lv for lv in levels if "plain_ms" in lv)
         table.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/lane_merge.cu",
@@ -1859,11 +1904,12 @@ def phase_slice4_times(slice4, launches, errs, data):
                         "pallas_call",
             "launches": int(launches.get(name, 0)),
             "max_abs_err": errs[name],
-            "ms": top["ms"], "chain_cycles": top["chain_cycles"],
-            "plain_ms": time_ms(plain, warmup=1, reps=3),
-            "plain_shape": "one pair of two 2048-key runs, w 128",
-            "bound_ms": top["bound_ms"], "bound_by": "bytes",
-            "library_ms": top["library_ms"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "shape": f"{row['pairs']} pairs of two {row['run_len']}-key "
+                     f"runs, w {w}, a chain of {row['chain_cycles']} cycles",
+            "chain_cycles": row["chain_cycles"],
+            "bound_ms": row["bound_ms"], "bound_by": "bytes",
+            "library_ms": row["library_ms"],
             "library_call": "torch.sort" + ("" if ranks is None else
                                             "(stable=True)"),
             "levels": levels,
@@ -1939,9 +1985,10 @@ def main() -> int:
     timed("K1 shapes and chunk sweep", phase_k1_sweep, engine, kernels, k1,
           slice3, data, ext)
     slice4 = _import_slice4()
-    k9_launches, ref = timed("sampling", phase_sampling, engine, kernels,
-                             slice4, gen)
+    k9_launches, path_errs, ref = timed("sampling", phase_sampling, engine,
+                                        kernels, slice4, gen)
     errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
+    errs4 = {k: max(v, path_errs[k]) for k, v in errs4.items()}
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
     print(json.dumps({"kernels": table}))

@@ -38,8 +38,8 @@ lane_merge_kernel(const T* __restrict__ a, const int32_t* __restrict__ ra,
                   const T* __restrict__ b, const int32_t* __restrict__ rb,
                   const int32_t* __restrict__ a_starts, const int32_t* __restrict__ a_lens,
                   const int32_t* __restrict__ b_starts, const int32_t* __restrict__ b_lens,
-                  const int32_t* __restrict__ out_starts, int pairs, long long n_out,
-                  T* __restrict__ out, int32_t* __restrict__ rout) {
+                  const int32_t* __restrict__ out_starts, int run_len, int pairs,
+                  long long n_out, T* __restrict__ out, int32_t* __restrict__ rout) {
   constexpr int E = W > 32 ? W / 32 : 1;      // elements a lane
   constexpr int L = W < 32 ? W : 32;          // lanes holding elements
   const int pair = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -47,9 +47,13 @@ lane_merge_kernel(const T* __restrict__ a, const int32_t* __restrict__ ra,
   const int lane = threadIdx.x & 31;
   const bool live = lane < L;
   const unsigned live_mask = L == 32 ? 0xffffffffu : (1u << L) - 1u;
-  const long long sa = a_starts[pair], sb = b_starts[pair];
-  const int na = a_lens[pair], nb = b_lens[pair];
-  const long long so = out_starts[pair];
+  // a uniform level (no starts) merges runs 2p and 2p + 1 of run_len keys
+  const bool uniform = a_starts == nullptr;
+  const long long so = uniform ? 2LL * run_len * pair : out_starts[pair];
+  const long long sa = uniform ? so : a_starts[pair];
+  const long long sb = uniform ? so + run_len : b_starts[pair];
+  const int na = uniform ? run_len : a_lens[pair];
+  const int nb = uniform ? run_len : b_lens[pair];
   const int total = na + nb;
   const int cycles = (total + W - 1) / W;
   const T lo = Bounds<T>::lo();
@@ -134,23 +138,24 @@ lane_merge_kernel(const T* __restrict__ a, const int32_t* __restrict__ ra,
 template <typename T, bool KV, bool SKEW, int W>
 cudaError_t launch_w(const void* a, const int32_t* ra, const void* b, const int32_t* rb,
                      const int32_t* as, const int32_t* al, const int32_t* bs,
-                     const int32_t* bl, const int32_t* os, int pairs, long long n_out,
-                     void* out, int32_t* rout, cudaStream_t st) {
+                     const int32_t* bl, const int32_t* os, int run_len, int pairs,
+                     long long n_out, void* out, int32_t* rout, cudaStream_t st) {
   const int grid = (pairs + kWarps - 1) / kWarps;
   lane_merge_kernel<T, KV, SKEW, W><<<grid, 32 * kWarps, 0, st>>>(
-      (const T*)a, ra, (const T*)b, rb, as, al, bs, bl, os, pairs, n_out, (T*)out, rout);
+      (const T*)a, ra, (const T*)b, rb, as, al, bs, bl, os, run_len, pairs, n_out, (T*)out,
+      rout);
   return cudaGetLastError();
 }
 
 template <typename T, bool KV, bool SKEW>
 cudaError_t launch(int w, const void* a, const int32_t* ra, const void* b,
                    const int32_t* rb, const int32_t* as, const int32_t* al,
-                   const int32_t* bs, const int32_t* bl, const int32_t* os, int pairs,
-                   long long n_out, void* out, int32_t* rout, cudaStream_t st) {
+                   const int32_t* bs, const int32_t* bl, const int32_t* os, int run_len,
+                   int pairs, long long n_out, void* out, int32_t* rout, cudaStream_t st) {
 #define K9_W(WW)                                                                      \
   case WW:                                                                            \
-    return launch_w<T, KV, SKEW, WW>(a, ra, b, rb, as, al, bs, bl, os, pairs, n_out, \
-                                     out, rout, st);
+    return launch_w<T, KV, SKEW, WW>(a, ra, b, rb, as, al, bs, bl, os, run_len, pairs, \
+                                     n_out, out, rout, st);
   switch (w) {
     K9_W(1) K9_W(2) K9_W(4) K9_W(8) K9_W(16) K9_W(32) K9_W(64) K9_W(128)
     default: return cudaErrorInvalidValue;
@@ -164,13 +169,15 @@ cudaError_t launch(int w, const void* a, const int32_t* ra, const void* b,
 // dtype 0 int32, 1 float32; kv: ranks ride with the keys under the compound
 // order; skew: algorithm 2's selector (key-only). Pair p merges
 // a[a_starts[p] : + a_lens[p]] with b[b_starts[p] : + b_lens[p]] into
-// out[out_starts[p] :], cut at n_out.
+// out[out_starts[p] :], cut at n_out. With null starts and lengths the level
+// is uniform: pair p merges a[2 p run_len : + run_len] with
+// b[(2 p + 1) run_len : + run_len] into out[2 p run_len :].
 extern "C" int flims_lane_merge(int dtype, int kv, int skew, int w, const void* a,
                                 const void* ra, const void* b, const void* rb,
                                 const void* a_starts, const void* a_lens,
                                 const void* b_starts, const void* b_lens,
-                                const void* out_starts, int pairs, long long n_out,
-                                void* out, void* rout, void* stream) {
+                                const void* out_starts, int run_len, int pairs,
+                                long long n_out, void* out, void* rout, void* stream) {
   using namespace flims::lane;
   if (pairs <= 0 || n_out <= 0) return 0;
   if ((kv && skew) || dtype < 0 || dtype > 1) return cudaErrorInvalidValue;
@@ -178,8 +185,8 @@ extern "C" int flims_lane_merge(int dtype, int kv, int skew, int w, const void* 
   auto r32 = [](const void* p) { return (const int32_t*)p; };
 #define K9_CALL(T, KV, SKEW)                                                              \
   return launch<T, KV, SKEW>(w, a, r32(ra), b, r32(rb), r32(a_starts), r32(a_lens),      \
-                             r32(b_starts), r32(b_lens), r32(out_starts), pairs, n_out,  \
-                             out, (int32_t*)rout, st)
+                             r32(b_starts), r32(b_lens), r32(out_starts), run_len,       \
+                             pairs, n_out, out, (int32_t*)rout, st)
   if (dtype == 0) {
     if (kv) K9_CALL(int32_t, true, false);
     if (skew) K9_CALL(int32_t, false, true);

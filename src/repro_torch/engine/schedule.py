@@ -158,7 +158,7 @@ def _vmapped_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
     runs as they are when uniform, else a padded bank), each group
     completed to a power of two with sentinel runs, then one lane merge of
     every row pair a level (K9 on the card)."""
-    from repro_torch.kernels.lane_merge import lane_merge, lane_merge_kv
+    from repro_torch.kernels.lane_merge import lane_merge_level
     from repro_torch.kernels.segmented_merge import padded_bank, unpad_bank
     n = keys.shape[0]
     K = offsets.shape[0] - 1
@@ -186,18 +186,9 @@ def _vmapped_reduce(keys, offsets, ranks, m: int, sched: MergeSchedule,
     rbuf = None if rrows is None else rrows.reshape(-1)
     rows, L = n_groups * m2, cap
     while rows > n_groups:
-        pairs = rows // 2
-        a_starts = torch.arange(pairs, dtype=torch.int32,
-                                device=keys.device) * (2 * L)
-        lens = torch.full((pairs,), L, dtype=torch.int32, device=keys.device)
-        args = (a_starts, lens, a_starts + L, lens)
-        if rbuf is None:
-            buf = lane_merge(buf, buf, *args, n_out=rows * L, w=sched.w,
-                             tie=sched.tie)
-        else:
-            buf, rbuf = lane_merge_kv(buf, rbuf, buf, rbuf, *args,
-                                      n_out=rows * L, w=sched.w)
-        rows, L = pairs, 2 * L
+        buf, rbuf = lane_merge_level(buf, rbuf, L, w=sched.w,
+                                     tie=sched.tie if rbuf is None else "b")
+        rows, L = rows // 2, 2 * L
     # each group's valid prefix back to the flat layout
     glen = torch.diff(offsets).reshape(n_groups, m).sum(1)
     goff = _exclusive_cumsum(glen)

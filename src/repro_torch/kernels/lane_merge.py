@@ -20,6 +20,13 @@ the batched ``core.lanes.merge_lanes`` over the pairs gathered into rows,
 for CPU tensors. ``lane_merge_plain`` / ``lane_merge_kv_plain`` run the plain
 version on any device. Results are ``merge_lanes``' bit for bit: +0.0 /
 -0.0 and NaN payloads included.
+
+``lane_merge_level`` is the executor's form: one buffer of uniform runs of
+``run_len`` keys, run 2p merged with run 2p + 1 in place of both. The kernel
+derives every pair's starts from its index, so a level costs no host-side
+tensors; the plain version, ``lane_merge_level_plain``, is the batched
+``merge_lanes`` over the buffer viewed as (P, 2, run_len) rows. A level's
+launches count as ``lane_merge`` (no ranks) or ``lane_merge_kv`` (ranks).
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from repro_torch.core.lanes import (KEY, RANK, key_compare, merge_lanes,
 from repro_torch.kernels import _build
 
 __all__ = ["lane_merge", "lane_merge_plain", "lane_merge_kv",
-           "lane_merge_kv_plain", "MAX_W"]
+           "lane_merge_kv_plain", "lane_merge_level", "lane_merge_level_plain",
+           "MAX_W"]
 
 #: the widest selector the kernel takes (a warp of four elements a lane)
 MAX_W = 128
@@ -93,30 +101,36 @@ def _plain(a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, n_out, w, tie):
     return keys, None if ra is None else rows[RANK].reshape(-1)[flat]
 
 
-def _cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, n_out, w,
-          tie):
+def _launch(name, a, ra, b, rb, starts, run_len, pairs, n_out, w, tie):
+    """One K9 launch; ``starts`` the five (P,) int32 pair vectors (A / B
+    starts and lengths, out starts), or None for a uniform level."""
     code = _build.dtype_code(name, a.dtype)
     if w > MAX_W:
         raise _build.KernelError(f"{name}: w={w} above the kernel's "
                                  f"{MAX_W}")
-    i32 = lambda t: t.to(device=a.device, dtype=torch.int32).contiguous()
-    a_starts, a_lens, b_starts, b_lens = map(i32, (a_starts, a_lens,
-                                                   b_starts, b_lens))
-    _build.check_cuda(name, a, ra, b, rb, a_starts)
+    _build.check_cuda(name, a, ra, b, rb, *(starts or ()))
     out = torch.empty(n_out, dtype=a.dtype, device=a.device)
     rout = None if ra is None else torch.empty(n_out, dtype=torch.int32,
                                                device=a.device)
-    P = a_starts.shape[0]
-    if P and n_out:
+    if pairs and n_out:
         _build.launch(name, "flims_lane_merge", code, int(ra is not None),
                       int(tie == "skew"), w, _build.ptr(a), _build.ptr(ra),
-                      _build.ptr(b), _build.ptr(rb), _build.ptr(a_starts),
-                      _build.ptr(a_lens), _build.ptr(b_starts),
-                      _build.ptr(b_lens),
-                      _build.ptr(_out_starts(a_lens, b_lens)), P, n_out,
-                      _build.ptr(out), _build.ptr(rout),
+                      _build.ptr(b), _build.ptr(rb),
+                      *map(_build.ptr, starts or (None,) * 5), run_len,
+                      pairs, n_out, _build.ptr(out), _build.ptr(rout),
                       _build.stream(a.device))
     return out, rout
+
+
+def _cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, n_out, w,
+          tie):
+    i32 = lambda t: t.to(device=a.device, dtype=torch.int32).contiguous()
+    a_starts, a_lens, b_starts, b_lens = map(i32, (a_starts, a_lens,
+                                                   b_starts, b_lens))
+    starts = (a_starts, a_lens, b_starts, b_lens,
+              _out_starts(a_lens, b_lens))
+    return _launch(name, a, ra, b, rb, starts, 0, a_starts.shape[0], n_out,
+                   w, tie)
 
 
 def _run(name, a, ra, b, rb, starts, n_out, w, tie, cuda):
@@ -162,3 +176,44 @@ def lane_merge_kv_plain(a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
     """``lane_merge_kv``'s plain version, on any device."""
     return _run("lane_merge_kv", a, ra, b, rb,
                 (a_starts, a_lens, b_starts, b_lens), n_out, w, "b", False)
+
+
+def _level(buf, ranks, run_len, w, tie, cuda):
+    name = "lane_merge" if ranks is None else "lane_merge_kv"
+    n = buf.shape[0]
+    P = n // (2 * run_len) if run_len > 0 else 0
+    if buf.ndim != 1 or P * 2 * run_len != n or not 0 <= run_len < 2 ** 30:
+        raise ValueError(f"{name}: a 1-D buffer of pairs of runs of "
+                         f"run_len={run_len} keys, got {tuple(buf.shape)}")
+    _check(name, buf, buf, ranks, ranks, (buf,), w, tie, n)
+    if ranks is not None:
+        ranks = ranks.to(torch.int32)
+    if cuda:
+        return _launch(name, buf, ranks, buf, ranks, None, run_len, P, n, w,
+                       tie)
+    rows = lambda x: x.reshape(P, 2, run_len)
+    A, B = {KEY: rows(buf)[:, 0]}, {KEY: rows(buf)[:, 1]}
+    if ranks is not None:
+        A[RANK], B[RANK] = rows(ranks)[:, 0], rows(ranks)[:, 1]
+    out = merge_lanes(A, B, w=w, tie=tie,
+                      compare=key_compare if ranks is None else
+                      stable_compare)
+    return out[KEY].reshape(-1), (None if ranks is None else
+                                  out[RANK].reshape(-1))
+
+
+@obs.scoped("kernels.lane_merge_level")
+def lane_merge_level(buf, ranks, run_len: int, *, w: int = 32,
+                     tie: str = "b"):
+    """One tree level over ``buf``'s uniform descending runs of ``run_len``
+    keys: run 2p merged with run 2p + 1 (key-only under ``tie``, or with
+    int32 ``ranks`` under the compound order and ``tie="b"``). Returns
+    ``(keys, ranks or None)``; K9 for CUDA tensors, the plain version for
+    CPU ones."""
+    return _level(buf, ranks, run_len, w, tie, buf.is_cuda)
+
+
+def lane_merge_level_plain(buf, ranks, run_len: int, *, w: int = 32,
+                           tie: str = "b"):
+    """``lane_merge_level``'s plain version, on any device."""
+    return _level(buf, ranks, run_len, w, tie, False)

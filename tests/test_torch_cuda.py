@@ -858,9 +858,43 @@ def test_lane_merge_thousands_of_pairs(card, w):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w", [1 << i for i in range(8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_merge_level_matches_plain(card, w, dtype):
+    """K9's uniform-level form (the executor's: starts derived from the pair
+    index) against its plain version and against the ragged form over the
+    same pairs: runs of 1, w - 1, w + 1 and 3w + 5 keys, 2 and 1500 pairs a
+    launch, key-only under tie b and skew and with ranks."""
+    for L in sorted({1, max(w - 1, 1), w + 1, 3 * w + 5}):
+        for pairs in (2, 1500):
+            buf, _, _, rk = (t.to(card) for t in _lane_runs([L] * (2 * pairs),
+                                                            dtype))
+            st = torch.arange(pairs, dtype=torch.int32, device=card) * (2 * L)
+            ln = torch.full((pairs,), L, dtype=torch.int32, device=card)
+            for ranks, tie in ((None, "b"), (None, "skew"), (rk, "b")):
+                got = TL.lane_merge_level(buf, ranks, L, w=w, tie=tie)
+                exp = TL.lane_merge_level_plain(buf, ranks, L, w=w, tie=tie)
+                if ranks is None:
+                    ragged = (TL.lane_merge(buf, buf, st, ln, st + L, ln,
+                                            n_out=buf.numel(), w=w, tie=tie),
+                              None)
+                else:
+                    ragged = TL.lane_merge_kv(buf, rk, buf, rk, st, ln,
+                                              st + L, ln, n_out=buf.numel(),
+                                              w=w)
+                for g, e, r in zip(got, exp, ragged):
+                    if g is None:
+                        assert e is None and r is None
+                        continue
+                    assert torch.equal(_bits(g), _bits(e)), (L, pairs, tie)
+                    assert torch.equal(_bits(g), _bits(r)), (L, pairs, tie)
+
+
+@pytest.mark.cuda
 def test_lane_merge_refuses_before_launch(card):
-    """A bfloat16 key or a w above 128 raises ``KernelError`` on the card,
-    and ``tree_vmapped`` raises for a bfloat16 key, without a launch."""
+    """A bfloat16 key (ragged and level forms) or a w above 128 raises
+    ``KernelError`` on the card, and ``tree_vmapped`` raises for a bfloat16
+    key, without a launch."""
     from repro_torch.engine.schedule import MergeSchedule, merge_runs
     from repro_torch.kernels import KernelError, launch_counts
     x = torch.arange(64, 0, -1, device=card).float()
@@ -872,6 +906,8 @@ def test_lane_merge_refuses_before_launch(card):
                       n_out=64, w=32)
     with pytest.raises(KernelError):
         TL.lane_merge(x, x, one, n32, one + 32, n32, n_out=64, w=256)
+    with pytest.raises(KernelError):
+        TL.lane_merge_level(x.bfloat16(), None, 32, w=32)
     offs = torch.tensor([0, 32, 64], dtype=torch.int32, device=card)
     with pytest.raises(KernelError):
         merge_runs(x.bfloat16(), offs, schedule=MergeSchedule(
@@ -890,7 +926,7 @@ def test_tree_vmapped_on_card_launches_k9(card, descending, monkeypatch):
 
     def refuse(*a, **k):
         raise AssertionError("the plain lane merge ran on the card")
-    monkeypatch.setattr(TL, "_plain", refuse)
+    monkeypatch.setattr(TL, "merge_lanes", refuse)
     lens = [300, 0, 129, 77, 1, 1000, 5]           # 7 runs: 3 levels
     buf, offs = ragged(lens, descending=descending)[0], np.concatenate(
         [[0], np.cumsum(lens)]).astype(np.int32)

@@ -103,6 +103,44 @@ def test_batched_merge_lanes_matches_vmap(w, kind):
     same(jr, got["rank"])
 
 
+@pytest.mark.parametrize("w", [1, 8, 32])
+@pytest.mark.parametrize("kind", ["nan", "int"])
+def test_lane_merge_level_matches_vmap(w, kind):
+    """K9's uniform-level form (``kernels.lane_merge.lane_merge_level``, its
+    plain version on the CPU) over 6 runs of 19 keys: run 2p merged with
+    run 2p + 1, as ``jax.vmap(merge_lanes)`` merges the (3, 2, 19) rows,
+    key-only under tie b and skew and with ranks; and equal to the ragged
+    form over the same uniform pairs."""
+    from repro_torch.kernels import lane_merge as K9
+    x = desc_rows(6, 19, kind)
+    r = RNG.permutation(6 * 19).astype(np.int32)
+    flat, rt = T(x.reshape(-1)), T(r)
+    st = torch.arange(3, dtype=torch.int32) * 38
+    ln = torch.full((3,), 19, dtype=torch.int32)
+    ab = jnp.array(x.reshape(3, 2, 19))
+    for tie in ("b", "skew"):
+        jf = jax.vmap(lambda y: JL.merge_lanes(
+            {"key": y[0]}, {"key": y[1]}, w=w, tie=tie)["key"])
+        got, none = K9.lane_merge_level(flat, None, 19, w=w, tie=tie)
+        assert none is None
+        same(jf(ab).reshape(-1), got)
+        same(got.numpy(), K9.lane_merge_plain(flat, flat, st, ln, st + 19,
+                                              ln, n_out=114, w=w, tie=tie))
+
+    def jkv(y, ry):
+        out = JL.merge_lanes({"key": y[0], "rank": ry[0]},
+                             {"key": y[1], "rank": ry[1]}, w=w)
+        return out["key"], out["rank"]
+    jk, jr = jax.vmap(jkv)(ab, jnp.array(r.reshape(3, 2, 19)))
+    gk, gr = K9.lane_merge_level(flat, rt, 19, w=w)
+    same(jk.reshape(-1), gk)
+    same(jr.reshape(-1), gr)
+    with pytest.raises(ValueError):
+        K9.lane_merge_level(flat, rt, 19, w=w, tie="skew")
+    with pytest.raises(ValueError):
+        K9.lane_merge_level(flat, None, 20, w=w)
+
+
 @pytest.mark.parametrize("w", [2, 8])
 def test_ragged_merge_lanes_rows_match_1d(w):
     """A row of the ragged 2-D form merges the row's valid prefixes exactly
