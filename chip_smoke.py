@@ -44,9 +44,11 @@ the CUDA toolkit. It
      against ``torch.sort`` as values and ``argsort(variant="flims")``
      bit-for-bit ``torch.argsort(stable=True)``, all at 2^22 keys, each
      call's ms, K9 launches and its ``torch`` variant's ms; and, in a second
-     run of those calls, every K9 level they launch whose cycle chain is at
-     most ``CHECK_CHAIN`` (and ``merge_runs``' first skew level) held bit
-     for bit to the plain version on the same inputs;
+     run of those calls, every K9 level they launch held bit for bit to the
+     whole chain (``chain=True``) on the same inputs, and to the plain
+     version where its cycle chain is at most ``CHECK_CHAIN`` (and at
+     ``merge_runs``' first skew level), each level's block form and chain
+     timed;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -91,9 +93,10 @@ the CUDA toolkit. It
    engine.segment_sort / segment_argsort end to end at both shapes for the
    ``cuda_fused``, ``cuda_two_phase`` and ``torch`` variants; and K9 at
    every level of ``sort(variant="ref")`` / ``argsort(variant="flims")`` of
-   2^22 keys (pairs, cycle chain, byte bound, ``torch.sort`` of the same
-   pair groups); the table's row is the level of a ``CHECK_CHAIN``-cycle
-   chain, where K9 and its plain version are timed at one shape.
+   2^22 keys (pairs, cycle chain, blocks a pair, the block form's and the
+   whole chain's time, byte bound, ``torch.sort`` of the same pair groups);
+   the table's row is the level of a ``CHECK_CHAIN``-cycle chain, where K9
+   and its plain version are timed at one shape.
 
 Each phase prints its seconds. Any mismatch or error exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
@@ -1679,28 +1682,39 @@ def phase_k9_vs_plain(k9, gen):
 
 def check_k9_on_path(k9, calls, variants, first_level=("merge_runs_skew",)):
     """Run ``calls`` once more with every K9 level held bit for bit to the
-    plain version on the same inputs: each level whose chain is at most
-    ``CHECK_CHAIN`` cycles, and the first level of the calls in
-    ``first_level``. Outside the counted drive."""
+    whole chain (``chain=True``) on the same inputs, and to the plain
+    version too where its chain is at most ``CHECK_CHAIN`` cycles and at the
+    first level of the calls in ``first_level``; each level's block form
+    and chain timed on its inputs. Outside the counted drive."""
     real = k9.lane_merge_level
     errs = {"lane_merge": 0.0, "lane_merge_kv": 0.0}
     seen, name = [], None
 
     def checked(buf, ranks, run_len, *, w, tie):
         got = real(buf, ranks, run_len, w=w, tie=tie)
+        cycles, blocks = k9.level_blocks(buf, ranks, run_len, w=w, tie=tie)
         lv = {"call": name, "level": sum(x["call"] == name for x in seen),
               "pairs": buf.numel() // (2 * run_len), "run_len": run_len,
-              "w": w, "tie": tie, "chain_cycles": -(-2 * run_len // w)}
-        lv["checked"] = lv["chain_cycles"] <= CHECK_CHAIN or (
+              "w": w, "tie": tie, "chain_cycles": -(-2 * run_len // w),
+              "blocks": blocks, "block_cycles": cycles}
+        kind = "lane_merge" if ranks is None else "lane_merge_kv"
+        keep = lambda t: tuple(x for x in t if x is not None)
+        whole = real(buf, ranks, run_len, w=w, tie=tie, chain=True)
+        errs[kind] = max(errs[kind], check_same(
+            f"K9 on the path against its chain: {lv}", keep(got),
+            keep(whole)))
+        lv["plain"] = lv["chain_cycles"] <= CHECK_CHAIN or (
             lv["level"] == 0 and name in first_level)
-        if lv["checked"]:
+        if lv["plain"]:
             exp = k9.lane_merge_level_plain(buf, ranks, run_len, w=w,
                                             tie=tie)
-            kind = "lane_merge" if ranks is None else "lane_merge_kv"
-            err = check_same(f"K9 on the path: {lv}",
-                             tuple(t for t in got if t is not None),
-                             tuple(t for t in exp if t is not None))
-            errs[kind] = max(errs[kind], err)
+            errs[kind] = max(errs[kind], check_same(
+                f"K9 on the path against plain: {lv}", keep(got), keep(exp)))
+        lv["ms"] = time_ms(lambda: real(buf, ranks, run_len, w=w, tie=tie),
+                           warmup=1, reps=3)
+        lv["chain_ms"] = time_ms(lambda: real(buf, ranks, run_len, w=w,
+                                              tie=tie, chain=True),
+                                 warmup=0, reps=1)
         seen.append(lv)
         return got
 
@@ -1711,18 +1725,19 @@ def check_k9_on_path(k9, calls, variants, first_level=("merge_runs_skew",)):
                 fn(variants[name])
     finally:
         k9.lane_merge_level = real
-    done = [lv for lv in seen if lv["checked"]]
-    print(f"K9 vs plain on the path: {len(done)} of {len(seen)} levels "
-          f"bit-for-bit (chains up to {CHECK_CHAIN} cycles and the first skew "
-          f"level): " + json.dumps(errs), flush=True)
+    plain = [lv for lv in seen if lv["plain"]]
+    print(f"K9 on the path: {len(seen)} of {len(seen)} levels bit-for-bit "
+          f"against the chain form; {len(plain)} of {len(seen)} against the "
+          f"plain version (chains up to {CHECK_CHAIN} cycles and the first "
+          f"skew level): " + json.dumps(errs), flush=True)
     per_call = {}
     for lv in seen:
         per_call.setdefault(lv["call"], []).append(
             [lv["pairs"], lv["run_len"], lv["w"], lv["chain_cycles"],
-             lv["checked"]])
-    print("K9 levels on the path, [pairs, run_len, w, chain, checked]: "
-          + json.dumps(per_call), flush=True)
-    if not done or not {lv["tie"] for lv in done} >= {"b", "skew"}:
+             lv["blocks"], lv["plain"], lv["ms"], lv["chain_ms"]])
+    print("K9 levels on the path, [pairs, run_len, w, chain, blocks a pair, "
+          "plain checked, ms, chain ms]: " + json.dumps(per_call), flush=True)
+    if not plain or not {lv["tie"] for lv in plain} >= {"b", "skew"}:
         raise AssertionError("the path's K9 levels were not all kinds checked")
     return errs
 
@@ -1845,15 +1860,17 @@ def phase_sampling(engine, kernels, slice4, gen):
 
 def k9_levels(k9, keys, ranks, L: int, w: int):
     """Each K9 level of a tree_vmapped reduction of uniform runs of ``L``
-    (one group): its CUDA-event time, pairs, cycle chain (the cycles one
-    warp runs in sequence), byte bound, and one torch.sort of the same pair
-    groups; at the level of a ``CHECK_CHAIN``-cycle chain the plain version
-    too (one run: a Python loop of that many cycles)."""
+    (one group): its CUDA-event time, the whole chain's (``chain=True``),
+    pairs, cycle chain, blocks a pair and cycles a block, byte bound, and
+    one torch.sort of the same pair groups; at the level of a
+    ``CHECK_CHAIN``-cycle chain the plain version too (one run: a Python
+    loop of that many cycles)."""
     buf, rbuf, n = keys, ranks, keys.numel()
     levels = []
     while L < n:
         P = n // (2 * L)
         fn = lambda b=buf, r=rbuf, L=L: k9.lane_merge_level(b, r, L, w=w)
+        chain = lambda b, r, L: k9.lane_merge_level(b, r, L, w=w, chain=True)
         plain = lambda b=buf, r=rbuf, L=L: k9.lane_merge_level_plain(b, r, L,
                                                                      w=w)
         grp = buf.reshape(P, 2 * L)
@@ -1861,8 +1878,12 @@ def k9_levels(k9, keys, ranks, L: int, w: int):
             rbuf is None else \
             (lambda: torch.sort(grp, dim=1, descending=True, stable=True))
         nbytes = 2 * n * (4 if rbuf is None else 8)
+        cycles, blocks = k9.level_blocks(buf, rbuf, L, w=w)
         levels.append({"run_len": L, "pairs": P, "chain_cycles": 2 * L // w,
+                       "blocks": blocks, "block_cycles": cycles,
                        "ms": time_ms(fn, warmup=1, reps=3),
+                       "chain_ms": time_ms(lambda: chain(b=buf, r=rbuf, L=L),
+                                           warmup=1, reps=3),
                        "bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
                        "library_ms": time_ms(lib, warmup=1, reps=3)})
         if 2 * L // w == CHECK_CHAIN:
@@ -1907,7 +1928,10 @@ def phase_slice4_times(slice4, launches, errs, data):
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "shape": f"{row['pairs']} pairs of two {row['run_len']}-key "
                      f"runs, w {w}, a chain of {row['chain_cycles']} cycles",
-            "chain_cycles": row["chain_cycles"],
+            "chain_cycles": row["chain_cycles"], "blocks": row["blocks"],
+            "chain_ms": row["chain_ms"],
+            "last_level_ms": levels[-1]["ms"],
+            "last_level_chain_ms": levels[-1]["chain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": "bytes",
             "library_ms": row["library_ms"],
             "library_call": "torch.sort" + ("" if ranks is None else

@@ -1,7 +1,7 @@
 // Shared FLiMS routines for the Hopper kernels: key bounds, XLA's max/min,
 // the compound (key, rank) order, the shared-memory bitonic network, the
-// FLiMS butterfly run by one warp (K2 / K3, K4, K8), mbarriers, 1-D bulk
-// copies and cp.async.
+// FLiMS butterfly run by one warp (K2 / K3, K4, K8), the merge-path co-rank
+// search (K2 / K3, K9), mbarriers, 1-D bulk copies and cp.async.
 //
 // Counterpart of what the JAX package shares between `_merge_kernel` /
 // `_merge_kv_kernel` (kernels/flims_merge.py) and `tree_dataflow`
@@ -210,6 +210,59 @@ __device__ __forceinline__ void warp_butterfly_mono(Lane<T> (&v)[M], int w) {
     }
   }
   warp_butterfly<T, KV, DESC, M>(v, w);
+}
+
+// Element i of a run, with the co-rank guards: the first key (and _RANK_LO)
+// before 0, the last key (and INVALID_RANK) from len on.
+template <typename T, bool KV, bool DESC>
+__device__ __forceinline__ Lane<T> guarded(const T* k, const int32_t* r, int len, int i) {
+  Lane<T> v;
+  if (i < 0) {
+    v.k = first_key<T, DESC>();
+    v.r = kRankLo;
+  } else if (i >= len) {
+    v.k = last_key<T, DESC>();
+    v.r = kInvalidRank;
+  } else {
+    v.k = k[i];
+    v.r = KV ? r[i] : 0;
+  }
+  return v;
+}
+
+// The merge-path co-rank of o (K2 / K3's blocks, K9's restarts): `steps`
+// steps of the binary search lo, hi = (mid, hi) if A[mid - 1] goes before
+// B[o - mid] else (lo, mid - 1), mid = (lo + hi + 1) / 2, five a round over
+// the warp. Once lo >= hi no step moves lo.
+template <typename T, bool KV, bool DESC>
+__device__ int corank(const T* ak, const int32_t* ar, int la, const T* bk, const int32_t* br,
+                      int lb, int o, int steps, int lane) {
+  int lo = max(0, o - lb), hi = min(o, la);
+  auto midpoint = [](int l, int h) { return l + ((h - l + 1) >> 1); };
+  while (steps > 0 && lo < hi) {
+    const int levels = steps < 5 ? steps : 5;
+    const int n = lane + 1;  // heap index of this lane's node
+    bool ok = false;
+    if (n < (1 << levels)) {
+      int nlo = lo, nhi = hi;
+      for (int d = 30 - __clz(n); d >= 0; --d) {
+        const int mid = midpoint(nlo, nhi);
+        if ((n >> d) & 1) nlo = mid; else nhi = mid - 1;
+      }
+      const int mid = midpoint(nlo, nhi);
+      ok = wins<T, KV, DESC>(guarded<T, KV, DESC>(ak, ar, la, mid - 1),
+                             guarded<T, KV, DESC>(bk, br, lb, o - mid));
+    }
+    const unsigned took = __ballot_sync(kFullWarp, ok);
+    for (int d = 0, node = 1; d < levels; ++d) {
+      const int mid = midpoint(lo, hi);
+      const int t = (took >> (node - 1)) & 1;
+      if (t) lo = mid; else hi = mid - 1;
+      node = 2 * node + t;
+    }
+    steps -= levels;
+  }
+  return lo;
 }
 
 // mbarriers and 1-D bulk copies (sm_90). A wait spins on try_wait (which

@@ -200,58 +200,6 @@ __device__ int pair_of(const int32_t* __restrict__ blk0, int R, int g, int lane)
   return lo;
 }
 
-// Element i of a run, with the co-rank guards: the first key (and _RANK_LO)
-// before 0, the last key (and INVALID_RANK) from len on.
-template <typename T, bool KV, bool DESC>
-__device__ __forceinline__ Lane<T> guarded(const T* k, const int32_t* r, int len, int i) {
-  Lane<T> v;
-  if (i < 0) {
-    v.k = first_key<T, DESC>();
-    v.r = kRankLo;
-  } else if (i >= len) {
-    v.k = last_key<T, DESC>();
-    v.r = kInvalidRank;
-  } else {
-    v.k = k[i];
-    v.r = KV ? r[i] : 0;
-  }
-  return v;
-}
-
-// The merge-path co-rank of o: `steps` steps of the binary search lo, hi =
-// (mid, hi) if A[mid - 1] goes before B[o - mid] else (lo, mid - 1), mid =
-// (lo + hi + 1) / 2, five a round. Once lo >= hi no step moves lo.
-template <typename T, bool KV, bool DESC>
-__device__ int corank(const T* ak, const int32_t* ar, int la, const T* bk, const int32_t* br,
-                      int lb, int o, int steps, int lane) {
-  int lo = max(0, o - lb), hi = min(o, la);
-  auto midpoint = [](int l, int h) { return l + ((h - l + 1) >> 1); };
-  while (steps > 0 && lo < hi) {
-    const int levels = steps < 5 ? steps : 5;
-    const int n = lane + 1;  // heap index of this lane's node
-    bool ok = false;
-    if (n < (1 << levels)) {
-      int nlo = lo, nhi = hi;
-      for (int d = 30 - __clz(n); d >= 0; --d) {
-        const int mid = midpoint(nlo, nhi);
-        if ((n >> d) & 1) nlo = mid; else nhi = mid - 1;
-      }
-      const int mid = midpoint(nlo, nhi);
-      ok = wins<T, KV, DESC>(guarded<T, KV, DESC>(ak, ar, la, mid - 1),
-                             guarded<T, KV, DESC>(bk, br, lb, o - mid));
-    }
-    const unsigned took = __ballot_sync(kFullWarp, ok);
-    for (int d = 0, node = 1; d < levels; ++d) {
-      const int mid = midpoint(lo, hi);
-      const int t = (took >> (node - 1)) & 1;
-      if (t) lo = mid; else hi = mid - 1;
-      node = 2 * node + t;
-    }
-    steps -= levels;
-  }
-  return lo;
-}
-
 // One side of a block: the run, read from element `base` on in w-wide rows
 // through the warp's ring of kRing slots (row q in slot q % kRing).
 template <typename T, bool KV, bool DESC> struct Side {

@@ -48,8 +48,9 @@ _SIGNATURES = {
     "flims_merge_tree_smem": (_LL, [_I, _I, _I, _I, _I]),
     "flims_merge_tree_occupancy": (_I, [_I, _I, _I, _I, _I]),
     "flims_segment_sort": (_I, [_I, _I, _I, _P, _P, _P, _P, _I, _I, _P]),
-    "flims_lane_merge": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _I, _I, _LL, _P, _P, _P]),
+    "flims_lane_merge": (_I, [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _I, _P, _LL, _P, _P, _P]),
+    "flims_lane_merge_occupancy": (_I, [_I, _I, _I, _I]),
     "flims_moe_route": (_I, [_P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                              _P, _P]),
     "flims_stream_merge": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _LL, _LL, _I,

@@ -890,6 +890,124 @@ def test_lane_merge_level_matches_plain(card, w, dtype):
                     assert torch.equal(_bits(g), _bits(r)), (L, pairs, tie)
 
 
+# K9's block form: a uniform level's chains cut into blocks restarted at
+# their co-ranks, against the plain version and the whole chain
+
+K9_POS0_POOL = np.array([0.0, 0.0, 1.5, -1.0, -np.inf, 4.0], np.float32)
+
+
+def _block_level(P, L, dtype, *, pool=None, nan_pairs=()):
+    """A uniform level on the host: P pairs of two descending L-key runs
+    from ``pool`` (float32: ``FPOOL``, +0.0 and -0.0 among its keys; int32:
+    ``K1_INT_POOL``), the runs of ``nan_pairs`` from ``nan_run`` (NaNs of
+    two payloads); ranks rising along each run (a permutation), so KV runs
+    are in the compound order."""
+    if pool is None:
+        pool = FPOOL if dtype == torch.float32 else K1_INT_POOL
+    runs = [nan_run(L) if i // 2 in nan_pairs else
+            np.sort(RNG.choice(pool, L))[::-1] for i in range(2 * P)]
+    perm = RNG.permutation(2 * P * L).astype(np.int32).reshape(2 * P, L)
+    return T(np.concatenate(runs).copy()), T(np.sort(perm, 1).reshape(-1))
+
+
+def _level_same(got, exp, what):
+    for g, e in zip(got, exp):
+        if g is None:
+            assert e is None, what
+            continue
+        bad = (_bits(g) != _bits(e)).nonzero()
+        assert not bad.numel(), (f"{what}: {bad.shape[0]} of {g.numel()} "
+                                 f"differ, first at {int(bad[0, 0])}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [1 << i for i in range(8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_merge_blocks_match_plain_and_chain(card, w, dtype):
+    """K9's block form at a uniform level of 4 pairs of two 20w + 7-key runs
+    (chains of about 41 cycles), at blocks of 1, 2, 3 and the planner's
+    cycles, bit for bit against the plain version and ``chain=True``, one
+    counted launch each: key-only under tie b, under skew with and without
+    mixed signed zeros, and KV; a float level's pair 1 holds NaNs."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    L, P = 20 * w + 7, 4
+    nan = (1,) if dtype == torch.float32 else ()
+    buf, rk = (t.to(card) for t in _block_level(P, L, dtype, nan_pairs=nan))
+    pos0 = _block_level(P, L, dtype, pool=K9_POS0_POOL if
+                        dtype == torch.float32 else None)[0].to(card)
+    cases = [(buf, None, "b"), (buf, None, "skew"), (pos0, None, "skew"),
+             (buf, rk, "b")]
+    for keys_, ranks, tie in cases:
+        kind = "lane_merge" if ranks is None else "lane_merge_kv"
+        exp = TL.lane_merge_level_plain(keys_, ranks, L, w=w, tie=tie)
+        whole = TL.lane_merge_level(keys_, ranks, L, w=w, tie=tie,
+                                    chain=True)
+        _level_same(whole, exp, f"chain w {w} {tie} {kind}")
+        for cycles in (1, 2, 3, None):
+            reset_launches()
+            got = TL.lane_merge_level(keys_, ranks, L, w=w, tie=tie,
+                                      _cycles=cycles)
+            assert launch_counts() == {kind: 1}
+            what = f"w {w} {tie} {kind} cycles {cycles}"
+            _level_same(got, exp, what)
+            _level_same(got, whole, what)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,L,P", [(8, 1 << 16, 2), (128, 1 << 20, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32])
+def test_lane_merge_long_chains_match_chain(card, w, L, P, dtype):
+    """Chains of 16384 cycles (2 pairs of two 2^16-key runs at w 8, one
+    pair of two 2^20-key runs at w 128): the block form, at the planner's
+    cycles and at blocks of 7, bit for bit against ``chain=True`` (the
+    plain version would run 16384 cycles in Python), key-only under tie b,
+    skew on runs of one zero sign, and KV."""
+    buf, rk = (t.to(card) for t in _block_level(P, L, dtype))
+    pos0 = _block_level(P, L, dtype, pool=K9_POS0_POOL if
+                        dtype == torch.float32 else None)[0].to(card)
+    for keys_, ranks, tie in ((buf, None, "b"), (pos0, None, "skew"),
+                              (buf, rk, "b")):
+        whole = TL.lane_merge_level(keys_, ranks, L, w=w, tie=tie,
+                                    chain=True)
+        assert TL.level_blocks(keys_, ranks, L, w=w, tie=tie)[1] > 1
+        for cycles in (None, 7):
+            got = TL.lane_merge_level(keys_, ranks, L, w=w, tie=tie,
+                                      _cycles=cycles)
+            _level_same(got, whole, f"w {w} L {L} {tie} cycles {cycles}")
+        srt = torch.sort(keys_.reshape(P, 2 * L), 1, descending=True).values
+        assert torch.equal(whole[0].reshape(P, 2 * L), srt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [300, 256])
+@pytest.mark.parametrize("tie", ["b", "skew"])
+def test_lane_merge_guarded_pairs_run_the_chain_on_card(card, tie, L,
+                                                        monkeypatch):
+    """A level of 6 pairs (w 32, cut into blocks of 2 cycles) that mixes
+    NaN pairs (0 and 3) with NaN-free ones holding +0.0 and -0.0: K9's
+    output equals the plain version computed before, with ``merge_lanes``
+    refused and one counted launch, so the flagged pairs ran their chain on
+    the card; key-only under ``tie`` and, under tie b, KV. Runs of 300 keys
+    take the guard's one-key-a-thread pass, runs of 256 its 16-byte one."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    w = 32
+    buf, rk = (t.to(card) for t in _block_level(6, L, torch.float32,
+                                                nan_pairs=(0, 3)))
+    cases = [(None, "lane_merge")] + ([(rk, "lane_merge_kv")] if tie == "b"
+                                      else [])
+    exp = {kind: TL.lane_merge_level_plain(buf, r, L, w=w, tie=tie)
+           for r, kind in cases}
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain lane merge ran on the card")
+    monkeypatch.setattr(TL, "merge_lanes", refuse)
+    for r, kind in cases:
+        reset_launches()
+        got = TL.lane_merge_level(buf, r, L, w=w, tie=tie, _cycles=2)
+        assert launch_counts() == {kind: 1}
+        _level_same(got, exp[kind], f"{tie} {kind}")
+
+
 @pytest.mark.cuda
 def test_lane_merge_refuses_before_launch(card):
     """A bfloat16 key (ragged and level forms) or a w above 128 raises

@@ -156,6 +156,171 @@ def test_ragged_merge_lanes_rows_match_1d(w):
         same(exp, got[p, :la[p] + lb[p]])
 
 
+# K9's block form: each block of a level's chains restarted at the
+# merge-path co-rank of its first output (``block_starts_plain``, the
+# kernel's search) and run by the plain merge_lanes, against the scan
+
+BLOCK_POOLS = {
+    "ties": FPOOL,                           # +0.0 and -0.0, -inf, ties
+    "inf": np.array([np.inf, -np.inf, -np.inf, 3.0, 1.0, 1.0, -1.0],
+                    np.float32),             # real keys equal to the padding
+    "pos0": np.array([0.0, 0.0, 1.5, -1.0, -np.inf, 4.0], np.float32),
+    "neg0": np.array([-0.0, -0.0, 1.5, -1.0, -np.inf, 4.0], np.float32),
+    "int": np.array([-2 ** 31, -2 ** 31, -7, 0, 3, 3, 9, 2 ** 31 - 1],
+                    np.int32),
+}
+
+
+def _level_runs(kind, P, L, kv):
+    """2P descending runs of L keys from ``BLOCK_POOLS[kind]``; with ``kv``
+    ranks (a permutation) in the compound order within each run."""
+    x = RNG.choice(BLOCK_POOLS[kind], (2 * P, L))
+    x = np.sort(x, axis=1)[:, ::-1].astype(x.dtype)
+    if not kv:
+        return x.copy(), None
+    r = RNG.permutation(2 * P * L).astype(np.int32).reshape(2 * P, L)
+    for i in range(2 * P):                   # key descending, rank ascending
+        o = np.lexsort((r[i], -x[i].astype(np.float64)))
+        x[i], r[i] = x[i][o], r[i][o]
+    return x.copy(), r
+
+
+def _jax_level(x, r, w, tie):
+    """jax.vmap(merge_lanes) over the level's (P, 2, L) pairs, flattened."""
+    P, L = x.shape[0] // 2, x.shape[1]
+    ab = jnp.array(x.reshape(P, 2, L))
+    if r is None:
+        return jax.vmap(lambda y: JL.merge_lanes(
+            {"key": y[0]}, {"key": y[1]}, w=w, tie=tie)["key"])(ab).reshape(
+                -1), None
+
+    def jkv(y, ry):
+        out = JL.merge_lanes({"key": y[0], "rank": ry[0]},
+                             {"key": y[1], "rank": ry[1]}, w=w)
+        return out["key"], out["rank"]
+    jk, jr = jax.vmap(jkv)(ab, jnp.array(r.reshape(P, 2, L)))
+    return jk.reshape(-1), jr.reshape(-1)
+
+
+def _block_form(flat, ranks, L, w, C, tie):
+    """The level as K9's block form computes it: block j of pair p runs C
+    cycles of the plain merge_lanes (its dir bits clear) from
+    ``block_starts_plain``'s (pA, pB), over the C w keys of each side that
+    C cycles can reach; the blocks' outputs concatenated."""
+    from repro_torch.kernels import lane_merge as K9
+    pA, pB = K9.block_starts_plain(flat, ranks, L, w, C)
+    P, bpp = pA.shape
+    cw = C * w
+
+    def bank(x, side, p0):
+        rows = x.reshape(P, 2, L)[:, side, None, :].expand(P, bpp, L)
+        idx = (p0[:, :, None] + torch.arange(cw)).clamp(max=L - 1)
+        return torch.gather(rows, 2, idx).reshape(P * bpp, cw)
+    A, B = {"key": bank(flat, 0, pA)}, {"key": bank(flat, 1, pB)}
+    if ranks is not None:
+        A["rank"], B["rank"] = bank(ranks, 0, pA), bank(ranks, 1, pB)
+    m = TL.merge_lanes(A, B, w=w, tie=tie,
+                       a_lens=(L - pA).clamp(0, cw).reshape(-1),
+                       b_lens=(L - pB).clamp(0, cw).reshape(-1))
+    out = {n: v[:, :cw].reshape(P, bpp * cw)[:, :2 * L].reshape(-1)
+           for n, v in m.items()}
+    return out["key"], out.get("rank")
+
+
+BLOCK_CASES = [("ties", "b", False), ("inf", "b", False), ("int", "b", False),
+               ("ties", "b", True), ("inf", "b", True), ("int", "b", True),
+               ("pos0", "skew", False), ("neg0", "skew", False),
+               ("inf", "skew", False), ("int", "skew", False)]
+
+
+@pytest.mark.parametrize("w", [1, 8, 32])
+@pytest.mark.parametrize("kind,tie,kv", BLOCK_CASES)
+def test_block_restarts_match_vmap(w, kind, tie, kv):
+    """For NaN-free levels (3 pairs of two 47-key runs), K9's block form at
+    blocks of 1, 2 and 3 cycles equals ``jax.vmap(merge_lanes)`` bit for
+    bit: key-only under tie b with +-0, +-inf, real -inf keys and ties,
+    int32 with INT32_MIN, KV, and skew on pairs without mixed signed zeros.
+    The guard's plain twin flags none of these pairs; every block starts
+    on its first output, inside the runs."""
+    from repro_torch.kernels import lane_merge as K9
+    P, L = 3, 47
+    x, r = _level_runs(kind, P, L, kv)
+    flat, rt = T(x.reshape(-1)), None if r is None else T(r.reshape(-1))
+    jk, jr = _jax_level(x, r, w, tie)
+    assert not K9.level_guard_plain(flat, rt, L, tie).any()
+    for C in (1, 2, 3):
+        pA, pB = K9.block_starts_plain(flat, rt, L, w, C)
+        o = torch.arange(pA.shape[1]) * C * w
+        assert torch.equal(pA + pB, o.expand_as(pA))
+        assert int(pA.min()) >= 0 and int(pA.max()) <= L
+        assert int(pB.min()) >= 0 and int(pB.max()) <= L
+        gk, gr = _block_form(flat, rt, L, w, C, tie)
+        same(jk, gk)
+        if kv:
+            same(jr, gr)
+
+
+def test_level_guard_plain_flags():
+    """The guard's plain twin: a pair holding a NaN, a run out of the
+    selector's order (a larger key after a smaller; under ranks, equal keys
+    with a falling rank), or under skew both +0.0 and -0.0 is flagged;
+    NaN-free sorted pairs with one zero sign, or with both under tie b, are
+    not."""
+    from repro_torch.kernels import lane_merge as K9
+    L = 4
+    pairs = np.array([[3, 2, 1, 0], [5, 5, -1, -np.inf],       # clean
+                      [np.nan, 2, 1, 0], [4, 3, 3, 1],         # NaN
+                      [2, 0.0, -0.0, -1], [1, 0.0, 0.0, -2],   # +-0
+                      [3, 4, 1, 0], [2, 1, 0, -1],             # unsorted
+                      [2, -0.0, -0.0, -1], [9, 1, -0.0, -3]],  # -0 only
+                     np.float32).reshape(-1)
+    flat = T(pairs)
+    assert K9.level_guard_plain(flat, None, L, "b").tolist() == \
+        [False, True, False, True, False]
+    assert K9.level_guard_plain(flat, None, L, "skew").tolist() == \
+        [False, True, True, True, False]
+    ints = T(np.array([5, 3, 3, -2 ** 31, 9, 3, 0, -2 ** 31,
+                       1, 2, 0, 0, 4, 3, 2, 1], np.int32))
+    assert K9.level_guard_plain(ints, None, L, "skew").tolist() == \
+        [False, True]
+    keys_ = T(np.array([3, 3, 1, 1, 2, 2, 0, 0], np.float32))
+    assert K9.level_guard_plain(keys_, T(np.array([0, 1, 2, 3, 4, 5, 6, 7],
+                                                  np.int32)), L).tolist() \
+        == [False]
+    assert K9.level_guard_plain(keys_, T(np.array([1, 0, 2, 3, 4, 5, 6, 7],
+                                                  np.int32)), L).tolist() \
+        == [True]
+
+
+# two pairs on which the restart at the co-rank is not the scan (found by a
+# seeded search over w 4, blocks of one cycle): under tie b with NaN keys
+# the selector's predicate is not monotone; under skew with both +0.0 and
+# -0.0 the dir bits decide which zero goes first
+GUARD_PAIRS = [
+    ("b", [[np.nan, np.nan, 4.0, 2.0, 2.0, -1.0, -1.0, -1.0],
+           [np.nan, np.nan, 4.0, 4.0, 1.5, 1.5, 0.0, 0.0]]),
+    ("skew", [[1.5, -0.0, 0.0, -0.0, 0.0, -0.0, -1.0, -1.0],
+              [0.0, -0.0, -0.0, -0.0, 0.0, 0.0, -1.0, -1.0]]),
+]
+
+
+@pytest.mark.parametrize("tie,pair", GUARD_PAIRS)
+def test_block_restart_needs_the_guard(tie, pair):
+    """On a NaN pair and on a mixed-zero skew pair the block form (w 4,
+    blocks of one cycle) differs from ``jax.vmap(merge_lanes)``; the guard
+    flags both, so K9 runs their whole chain, whose plain version equals the
+    scan bit for bit."""
+    from repro_torch.kernels import lane_merge as K9
+    x = np.array(pair, np.float32)
+    flat = T(x.reshape(-1))
+    jk, _ = _jax_level(x, None, 4, tie)
+    gk, _ = _block_form(flat, None, 8, 4, 1, tie)
+    assert not np.array_equal(np.asarray(jk).view(np.int32),
+                              gk.numpy().view(np.int32))
+    assert K9.level_guard_plain(flat, None, 8, tie).tolist() == [True]
+    same(jk, K9.lane_merge_level_plain(flat, None, 8, w=4, tie=tie)[0])
+
+
 @pytest.mark.parametrize("k", [1, 8, 32])
 def test_topk_node_matches_jax(k):
     a = {"key": desc_rows(6, k, "nan"),
