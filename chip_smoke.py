@@ -49,6 +49,24 @@ the CUDA toolkit. It
      version where its cycle chain is at most ``CHECK_CHAIN`` (and at
      ``merge_runs``' first skew level), each level's block form and chain
      timed;
+   - serving (K7, four launches a decode step and a prefill token):
+     the repo's ``moonshot_v1_16b_a3b`` config (d 2048, 16 heads of 128,
+     64 experts top-6 with d_ff 1408, vocab 163840, bf16, random weights
+     from the seed) with its depth cut from 48 to 4 layers, serving 12
+     requests (prompts of 3-32 tokens, 8-24 new tokens, half greedy, two
+     with an EOS id) through ``serve.serve_batch`` at 8 slots, max_seq 256,
+     prefill_len 32 and k 64: every completion checked, ``traces == 2``,
+     one ``engine.topk`` a step, no fallback demotion; one decode step held
+     to the same step routed by the ``torch`` variant (relative Frobenius
+     within 2^-6) and its sampled ids to the ``torch`` sampler's under the
+     same noise; K7 at the step's route shapes against its plain version;
+     the step split by part; then ``engine.autotune("topk", ...)`` at the
+     served (8, 163840) and the same requests again under the tuned plan,
+     greedy tokens equal. The config approximates the published
+     Moonlight-16B-A3B: it has plain multi-head attention where that model
+     has MLA, 48 layers where it has 27, no shared experts beside the 64
+     routed where it has 2, no dense first layer, softmax routing where it
+     scores by sigmoid, and a tied head where its head is untied;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -98,13 +116,15 @@ the CUDA toolkit. It
    the table's row is the level of a ``CHECK_CHAIN``-cycle chain, where K9
    and its plain version are timed at one shape.
 
-Each phase prints its seconds. Any mismatch or error exits non-zero. The
+Each phase prints its seconds. Any mismatch or error, or any demotion by
+the fallback ladder, exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Inputs and
 weights come from seeded generators.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -1942,6 +1962,402 @@ def phase_slice4_times(slice4, launches, errs, data):
     return table
 
 
+# --------------------------------------------------------------------------
+# serving: the moonshot_v1_16b_a3b config through the continuous-batching
+# scheduler
+# --------------------------------------------------------------------------
+
+SERVE_ARCH = "moonshot_v1_16b_a3b"
+SERVE_LAYERS = 4               # the depth, cut from the config's 48
+SERVE_SLOTS = 8
+SERVE_SEQ = 256
+SERVE_PREFILL = 32
+SERVE_K = 64                   # the sampler's prefix width
+N_SERVE = 12
+
+
+def _import_slice5():
+    from repro_torch import obs, serve
+    from repro_torch.configs import get_config
+    from repro_torch.engine import planner
+    from repro_torch.guard import fallback
+    from repro_torch.models import transformer
+    from repro_torch.models.model import build_model
+    return obs, serve, get_config, planner, fallback, transformer, build_model
+
+
+def serve_specs(vocab: int):
+    """(prompt, max_new_tokens, params) of the 12 requests, from the seed:
+    prompts of 3-32 tokens, 8-24 new tokens; requests 0-5 greedy, 6-8
+    top-p 0.9 and 9-11 min-p 0.05 at temperature 1."""
+    g = torch.Generator().manual_seed(SEED + 11)
+    draw = lambda lo, hi: int(torch.randint(lo, hi + 1, (1,), generator=g))
+    specs = []
+    for i in range(N_SERVE):
+        prompt = torch.randint(1, vocab, (draw(3, SERVE_PREFILL),),
+                               generator=g).tolist()
+        knobs = (dict(temperature=0.0) if i < 6 else
+                 dict(top_p=0.9) if i < 9 else dict(min_p=0.05))
+        specs.append((prompt, draw(8, 24), knobs))
+    return specs
+
+
+def serve_requests(serve, specs, eos):
+    return [serve.Request(prompt=p, max_new_tokens=n, eos_id=eos.get(i),
+                          params=serve.SamplingParams(**kn), uid=i)
+            for i, (p, n, kn) in enumerate(specs)]
+
+
+def check_completions(what: str, done, reqs, vocab: int):
+    by_uid = {c.uid: c for c in done}
+    if sorted(by_uid) != sorted(r.uid for r in reqs):
+        raise AssertionError(f"{what}: completions {sorted(by_uid)}")
+    hits = 0
+    for r in reqs:
+        c = by_uid[r.uid]
+        toks = c.tokens
+        if c.status != "OK" or not 1 <= len(toks) <= r.max_new_tokens:
+            raise AssertionError(f"{what}: request {r.uid} {c.status} "
+                                 f"{c.finish_reason} {len(toks)} tokens")
+        hit = r.eos_id is not None and r.eos_id in toks
+        if hit and (toks.index(r.eos_id) != len(toks) - 1
+                    or c.finish_reason != "eos"):
+            raise AssertionError(f"{what}: request {r.uid} ran past EOS")
+        if not hit and (len(toks) != r.max_new_tokens
+                        or c.finish_reason != "length"):
+            raise AssertionError(f"{what}: request {r.uid} stopped at "
+                                 f"{len(toks)} of {r.max_new_tokens}")
+        if min(toks) < 0 or max(toks) >= vocab:
+            raise AssertionError(f"{what}: token ids outside the vocab")
+        hits += hit
+    return by_uid, hits
+
+
+def _pct(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def serve_run(kernels, obs, serve, model, params, specs, eos, label):
+    """The requests served twice, the launch counts set to 0 just before
+    each pass. The checked pass is one ``serve_batch`` with obs recording:
+    completions, traces, one ``engine.topk`` a step, K7 launches and no
+    fallback. The timed pass runs the scheduler's own loop with obs off
+    (recording makes ``engine.moe_route`` read every keep mask back): the
+    host clock around each step, which waits on its sampled tokens, and
+    around each admission round, closed by a synchronize. Both passes give
+    the greedy requests the same tokens."""
+    want_k7 = lambda steps, admits: SERVE_LAYERS * (steps + SERVE_PREFILL
+                                                    * admits)
+    reqs = serve_requests(serve, specs, eos)
+    obs.reset()
+    obs.enable()
+    try:
+        (done, _, sched), launches = counted(
+            kernels, lambda: serve.serve_batch(
+                model, params, reqs, n_slots=SERVE_SLOTS, max_seq=SERVE_SEQ,
+                prefill_len=SERVE_PREFILL, top_k_width=SERVE_K, seed=SEED))
+        snap = obs.snapshot()
+    finally:
+        obs.disable()
+    by_uid, hits = check_completions(label, done, reqs,
+                                     model.cfg.vocab_size)
+    step_t, pre_t = snap["timers"]["serve.step"], \
+        snap["timers"]["serve.prefill"]
+    steps, admits = step_t["count"], pre_t["count"]
+    topk = {k: v["count"] for k, v in snap["timers"].items()
+            if k.startswith("engine.topk.")}
+    c = snap["counters"]
+    if sched.traces != 2 or c.get("serve.trace") != 2:
+        raise AssertionError(f"{label}: traces {sched.traces}")
+    if sum(topk.values()) != steps or len(topk) != 1:
+        raise AssertionError(f"{label}: engine.topk calls {topk} over "
+                             f"{steps} steps")
+    if launches.get("moe_route") != want_k7(steps, admits) \
+            or admits != N_SERVE:
+        raise AssertionError(f"{label}: K7 launches {launches} over {steps} "
+                             f"steps and {admits} admissions, expected "
+                             f"{want_k7(steps, admits)}")
+    if c.get("guard.fallback", 0) or c.get("guard.oom_retry", 0):
+        raise AssertionError(f"{label}: guard.fallback "
+                             f"{c.get('guard.fallback', 0)}, oom retries "
+                             f"{c.get('guard.oom_retry', 0)}")
+    # the timed pass
+    reqs = serve_requests(serve, specs, eos)
+    sched = serve.Scheduler(model, params, n_slots=SERVE_SLOTS,
+                            max_seq=SERVE_SEQ, prefill_len=SERVE_PREFILL,
+                            top_k_width=SERVE_K, seed=SEED)
+    step_s, admit_s, n_admit = [], 0.0, 0
+
+    def loop():
+        nonlocal admit_s, n_admit
+        for r in reqs:
+            sched.submit(r)
+        while sched.waiting or sched.live:
+            t0 = time.perf_counter()
+            n = sched.admit()
+            if n:
+                torch.cuda.synchronize()
+                admit_s += time.perf_counter() - t0
+                n_admit += n
+            if sched.live:
+                t0 = time.perf_counter()
+                sched.step()
+                step_s.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    _, t_launches = counted(kernels, loop)
+    wall = time.perf_counter() - t0
+    t_by_uid, _ = check_completions(f"{label} (timed)", sched.completed,
+                                    reqs, model.cfg.vocab_size)
+    if t_launches.get("moe_route") != want_k7(len(step_s), n_admit) \
+            or sched.traces != 2:
+        raise AssertionError(f"{label} (timed): K7 launches {t_launches} "
+                             f"over {len(step_s)} steps, traces "
+                             f"{sched.traces}")
+    for uid in range(6):
+        if by_uid[uid].tokens != t_by_uid[uid].tokens:
+            raise AssertionError(f"{label}: greedy request {uid} differs "
+                                 "between the checked and the timed pass")
+    tokens = sum(len(x.tokens) for x in sched.completed)
+    line = {"run": label, "requests": len(done), "eos_hits": hits,
+            "steps": len(step_s), "admissions": n_admit,
+            "topk_variant": next(iter(topk)).split(".")[-1],
+            "step_p50_ms": _pct(step_s, 0.5) * 1e3,
+            "step_p99_ms": _pct(step_s, 0.99) * 1e3,
+            "prefill_ms": admit_s * 1e3 / n_admit,
+            "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
+            "decode_tok_s": tokens / sum(step_s),
+            "obs_step_p50_ms": step_t["p50_us"] / 1e3,
+            "obs_prefill_ms": pre_t["total_us"] / 1e3 / admits,
+            "launches": t_launches, "checked_launches": launches,
+            "k7_per_step": SERVE_LAYERS, "k7_per_prefill_token": SERVE_LAYERS,
+            "guard.fallback": c.get("guard.fallback", 0)}
+    print("serve run: " + json.dumps(line), flush=True)
+    return by_uid, line
+
+
+def step_bytes(params, cache, vocab: int) -> int:
+    """The least bytes one decode step moves: every weight once (grouped
+    dispatch runs all 64 experts' slabs; the tied head reads the whole
+    embedding), the KV cache read once, one key and value row a slot and
+    layer written, and the float32 logits."""
+    from repro_torch.core.butterfly import tree_leaves
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for ts_ in ts
+                            for t in tree_leaves(ts_))
+    k = cache[0]
+    L, B, W, K, hd = k.shape
+    return (nbytes([params]) + nbytes([cache])
+            + 2 * L * B * K * hd * k.element_size() + B * vocab * 4)
+
+
+def serve_split(obs, serve, tf, model, params, cfg, cache, last_tok, pos,
+                logits, sampling, u):
+    """Where a decode step's time goes, on the captured state: the whole
+    ``decode_step`` with obs off and on (on, ``engine.moe_route`` reads
+    each keep mask back to count drops), one layer's attention and MoE
+    halves, the tied head, and the sampler per ``topk`` variant;
+    CUDA-event medians."""
+    from repro_torch.models import attention
+    from repro_torch.models.config import torch_dtype
+    from repro_torch.models.layers import embed_lookup, rmsnorm
+    p0 = tf.layer(params, 0)
+    x = embed_lookup(params["embed"], last_tok[:, None]).to(
+        torch_dtype(cfg.compute_dtype))
+    h = rmsnorm(x, p0["attn_norm"], cfg.norm_eps)
+    c0 = (cache[0][0], cache[1][0])
+    step = lambda: model.decode_step(params, last_tok, pos, cache)
+    parts = {
+        "decode_step_ms": time_ms(step, warmup=1, reps=5),
+        "attention_layer_ms": time_ms(lambda: attention.attn_decode(
+            p0["attn"], h, c0, pos, cfg)),
+        "moe_layer_ms": time_ms(lambda: tf.moe_mod.moe_apply(
+            p0["moe"], h, cfg)),
+        "lm_head_ms": time_ms(lambda: tf.lm_logits(params, x, cfg)),
+        "sampler_flims_ms": time_ms(lambda: serve.RaggedSampler(
+            SERVE_K, "flims").sample(None, logits, sampling, u=u)),
+        "sampler_torch_ms": time_ms(lambda: serve.RaggedSampler(
+            SERVE_K, "torch").sample(None, logits, sampling, u=u))}
+    obs.enable()
+    try:
+        parts["decode_step_obs_ms"] = time_ms(step, warmup=1, reps=5)
+    finally:
+        obs.disable()
+        obs.reset()
+    print("serve split: " + json.dumps(parts), flush=True)
+    return parts
+
+
+def phase_serve(engine, kernels, slice5, slice2):
+    """The ``moonshot_v1_16b_a3b`` config at its widths, depth cut to 4,
+    serving 12 requests through ``serve.serve_batch``; checks, the decode step held
+    to its torch-routed twin, K7 at the step's shapes, times, and the same
+    requests again under the autotuned ``topk`` plan."""
+    obs, serve, get_config, planner, fallback, tf, build_model = slice5
+    k7 = slice2[3]
+    cfg = get_config(SERVE_ARCH)
+    print(f"reduced: n_layers {cfg.n_layers} -> {SERVE_LAYERS}", flush=True)
+    cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    from repro_torch.core.butterfly import tree_leaves
+    n_par = sum(t.numel() for t in tree_leaves(params))
+    gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
+    print(f"{cfg.name}: d {cfg.d_model}, {cfg.n_heads} heads (kv "
+          f"{cfg.n_kv_heads}) x {cfg.hd}, {cfg.n_experts} experts top-"
+          f"{cfg.n_experts_active} d_ff {cfg.moe_d_ff}, vocab "
+          f"{cfg.vocab_size}, {cfg.param_dtype}, {SERVE_LAYERS} layers: "
+          f"{n_par / 1e9:.3f}B parameters, {gb:.3f} GB, made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    specs = serve_specs(cfg.vocab_size)
+    # run 0 (warm-up, no EOS): a decode state to hold against its twin, and
+    # the greedy tokens that give requests 0 and 3 their EOS ids
+    sched = serve.Scheduler(model, params, n_slots=SERVE_SLOTS,
+                            max_seq=SERVE_SEQ, prefill_len=SERVE_PREFILL,
+                            top_k_width=SERVE_K, seed=SEED)
+    for r in serve_requests(serve, specs, {}):
+        sched.submit(r)
+    captured, n_steps = None, 0
+    while sched.waiting or sched.live:
+        sched.admit()
+        if n_steps == 4:
+            if len(sched.live) != SERVE_SLOTS:
+                raise AssertionError(f"{len(sched.live)} live slots at step 4")
+            st = sched.state
+            captured = (tuple(t.clone() for t in sched.kv.cache),
+                        st.last_tok.clone(), st.pos.clone(), st.sampling)
+        sched.step()
+        n_steps += 1
+    warm = {c.uid: c.tokens for c in sched.completed}
+    eos = {0: warm[0][3], 3: warm[3][5]}
+    del sched
+    # the step with K7 against the same step routed by the torch variant
+    cache, last_tok, pos, sampling = captured
+    route_lg = []
+    real_route = engine.moe_route
+
+    def recording(lg, *a, **kw):
+        route_lg.append(lg)
+        return real_route(lg, *a, **kw)
+
+    engine.moe_route = recording
+    try:
+        logits, launches = counted(kernels, lambda: model.decode_step(
+            params, last_tok, pos, cache)[0])
+    finally:
+        engine.moe_route = real_route
+    key = planner.plan_key("moe_route", n=SERVE_SLOTS *
+                           cfg.n_experts_active, dtype=torch.float32,
+                           backend="cuda", segments=1)
+    engine.default_planner.put(key, engine.Plan("torch"))
+    try:
+        ref, ref_launches = counted(kernels, lambda: model.decode_step(
+            params, last_tok, pos, cache)[0])
+    finally:
+        engine.clear_plans()
+    if launches != {"moe_route": SERVE_LAYERS} or ref_launches:
+        raise AssertionError(f"decode step launches {launches}, torch-routed "
+                             f"{ref_launches}")
+    rel = float((logits - ref).norm() / ref.norm())
+    if not bool(torch.isfinite(logits).all()) or rel > BF16_REL_FROB:
+        raise AssertionError(f"decode step vs torch-routed: relative "
+                             f"Frobenius {rel}")
+    u = serve.sampler.uniform_noise((SERVE_SLOTS, SERVE_K), torch.Generator(
+        device="cuda").manual_seed(SEED + 13), "cuda")
+    ids = {v: serve.RaggedSampler(SERVE_K, v).sample(None, logits, sampling,
+                                                     u=u)
+           for v in ("flims", "torch")}
+    check_same("served step's ids, flims sampler against torch",
+               ids["flims"], ids["torch"])
+    # K7 at the step's and a prefill token's route shapes, on the step's
+    # router logits, against its plain version and the torch variant
+    E, k = cfg.n_experts, cfg.n_experts_active
+    k7_rows, errs = [], [0.0, 0]
+    for lg in (route_lg[0], route_lg[0][:, :1].contiguous()):
+        T = lg.shape[1]
+        cap = tf.moe_mod.expert_capacity(1.25, T, k, E)
+        got = k7.moe_route(lg, k, cap)
+        for ref_fn in (k7.moe_route_plain, k7.moe_route_torch):
+            e, ul = check_route(f"K7 {tuple(lg.shape)} k={k}", got,
+                                ref_fn(lg, k, cap))
+            errs = [max(errs[0], e), max(errs[1], ul)]
+        b_ms, b_by = _bound(T * E * 4 + 6 * T * k * 4, T * k * (E + 2))
+        k7_rows.append({
+            "shape": list(lg.shape), "k": k, "capacity": cap,
+            "ms": time_ms(lambda: k7.moe_route(lg, k, cap)),
+            "plain_ms": time_ms(lambda: k7.moe_route_plain(lg, k, cap),
+                                warmup=1, reps=5),
+            "library_ms": time_ms(lambda: k7.moe_route_torch(lg, k, cap)),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": errs[0], "weight_ulps": errs[1]})
+        print(f"time moe_route {tuple(lg.shape)} k={k} (serve): "
+              + json.dumps(k7_rows[-1]), flush=True)
+    nbytes = step_bytes(params, cache, cfg.vocab_size)
+    print("serve step check: " + json.dumps({
+        "logits_rel_frob_vs_torch_route": rel, "bound": BF16_REL_FROB,
+        "ids_equal": True, "k7_launches": launches["moe_route"]}),
+        flush=True)
+    split = serve_split(obs, serve, tf, model, params, cfg, cache, last_tok,
+                        pos, logits, sampling, u)
+    del captured, cache, route_lg
+    # run 1: the card's heuristic plan (topk flims); run 2: autotuned topk
+    greedy1, run1 = serve_run(kernels, obs, serve, model, params, specs,
+                              eos, "heuristic")
+    obs.reset()
+    obs.enable()
+    try:
+        tuned = engine.autotune("topk", logits, SERVE_K)
+        cands = [{"variant": e["data"]["variant"],
+                  "ms": e["data"].get("us", float("nan")) / 1e3,
+                  "status": e["data"]["status"]}
+                 for e in obs.snapshot()["events"]
+                 if e["kind"] == "autotune.candidate"]
+    finally:
+        obs.disable()
+    print(f"autotune topk {tuple(logits.shape)} k={SERVE_K}: "
+          + json.dumps({"candidates": cands, "winner": tuned.variant}),
+          flush=True)
+    greedy2, run2 = serve_run(kernels, obs, serve, model, params, specs,
+                              eos, "autotuned")
+    engine.clear_plans()
+    if run2["topk_variant"] != tuned.variant:
+        raise AssertionError(f"the tuned run sampled through "
+                             f"{run2['topk_variant']}, not {tuned.variant}")
+    for uid in range(6):
+        if greedy1[uid].tokens != greedy2[uid].tokens:
+            raise AssertionError(f"greedy request {uid}: the tuned run's "
+                                 "tokens differ")
+    if fallback.demotions():
+        raise AssertionError(f"{fallback.demotions()} fallback demotions")
+    line = {"serve": f"{cfg.name} {SERVE_LAYERS} of {get_config(SERVE_ARCH).n_layers} "
+                     f"layers, {SERVE_SLOTS} slots, max_seq {SERVE_SEQ}, "
+                     f"prefill_len {SERVE_PREFILL}, k {SERVE_K}",
+            "requests": N_SERVE, "parameters": n_par, "weight_gb": gb,
+            "step_p50_ms": run1["step_p50_ms"],
+            "step_p99_ms": run1["step_p99_ms"],
+            "prefill_ms": run1["prefill_ms"], "tok_s": run1["tok_s"],
+            "decode_tok_s": run1["decode_tok_s"],
+            "step_bytes": nbytes,
+            "step_bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
+            "k7_launches": sum(r[w]["moe_route"] for r in (run1, run2)
+                               for w in ("launches", "checked_launches"))
+            + launches["moe_route"],
+            "topk_heuristic": run1["topk_variant"],
+            "autotune_candidates": cands, "autotune_winner": tuned.variant,
+            "tuned_step_p50_ms": run2["step_p50_ms"],
+            "tuned_step_p99_ms": run2["step_p99_ms"],
+            "tuned_tok_s": run2["tok_s"], "eos_hits": run1["eos_hits"],
+            "obs_step_p50_ms": run1["obs_step_p50_ms"],
+            "tuned_obs_step_p50_ms": run2["obs_step_p50_ms"],
+            "split_ms": split,
+            "guard.fallback": fallback.demotions()}
+    print("serve: " + json.dumps(line), flush=True)
+    del params, model
+    torch.cuda.empty_cache()
+    return line["k7_launches"], k7_rows
+
+
 def timed(name: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -2011,10 +2427,20 @@ def main() -> int:
     slice4 = _import_slice4()
     k9_launches, path_errs, ref = timed("sampling", phase_sampling, engine,
                                         kernels, slice4, gen)
+    slice5 = _import_slice5()
+    serve_k7, serve_k7_rows = timed("serve", phase_serve, engine, kernels,
+                                    slice5, slice2)
     errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
     errs4 = {k: max(v, path_errs[k]) for k, v in errs4.items()}
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
+    for row in table:
+        if row["name"] == "moe_route":
+            # the serving path's K7 launches, and K7 at its route shapes
+            row["launches"] += serve_k7
+            row["serve_shapes"] = serve_k7_rows
+    if slice5[4].demotions():
+        raise AssertionError(f"{slice5[4].demotions()} fallback demotions")
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,0 +1,11 @@
+"""qwen3-1.7b [dense]: qk_norm, GQA. [hf:Qwen/Qwen3-8B; hf]
+
+28L d_model=2048 16H (GQA kv=8) d_ff=6144 vocab=151936.
+"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-1.7b", family="dense", arch_kind="decoder",
+    n_layers=28, d_model=2048, n_heads=16, n_kv_heads=8, d_ff=6144,
+    vocab_size=151936, head_dim=128, qk_norm=True, rope_theta=1e6,
+)

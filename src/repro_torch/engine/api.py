@@ -5,8 +5,12 @@ Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``,
 ``sample_minp``, the ragged ``segment_sort`` / ``segment_argsort`` /
 ``segment_merge``, the fused MoE routing op ``moe_route`` and the
 out-of-core ``external_sort``. Each call
-resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches
-straight to the registered variant.
+resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches to
+the registered variant through ``guard.fallback.guarded_call``, which
+absorbs only ``torch.cuda.OutOfMemoryError``: on the card by running the
+same plan once more, on the CPU by moving down the variant ladder (a
+kernel's failure always reaches the caller). ``autotune`` times the registered variants on an example workload
+and installs the winner; ``run_op`` runs an op under an explicit plan.
 
 Every op runs on its input's device. A tensor stays where it is (or moves to
 ``device=`` when given); anything else (numpy arrays, lists) becomes a
@@ -26,6 +30,7 @@ raises, it never falls back to the CPU.
     perm = engine.segment_argsort(keys, offsets)   # local stable perms
     r    = engine.moe_route(logits, k=2, capacity=64)  # fused MoE routing
     y    = engine.external_sort(x, tile_elems=1 << 20)  # out-of-core sort
+    plan = engine.autotune("topk", logits, 64)     # time the variants
     engine.save_plans("plans.json")
 """
 from __future__ import annotations
@@ -43,13 +48,21 @@ from repro_torch.engine.planner import (Plan, _key_str, backend_of,
                                         default_planner, heuristic_plan,
                                         plan_key)
 from repro_torch.engine.schedule import MergeSchedule
+from repro_torch.guard import fallback as _fallback
 from repro_torch.guard import validate as _validate
 
 __all__ = ["sort", "argsort", "merge", "merge_runs", "topk", "sample_topp",
            "sample_minp", "segment_sort", "segment_argsort", "segment_merge",
-           "moe_route", "RouteResult", "external_sort",
-           "save_plans", "load_plans", "clear_plans", "Plan",
+           "moe_route", "RouteResult", "external_sort", "run_op",
+           "autotune", "save_plans", "load_plans", "clear_plans", "Plan",
            "MergeSchedule"]
+
+
+def _gcall(op: str, plan: Plan, *args, **kw):
+    """Registry dispatch under the guard layer (``guard/fallback.py``): an
+    out-of-memory error retries the plan on the card and demotes down the
+    candidate order on the CPU; everything else propagates."""
+    return _fallback.guarded_call(op, plan, *args, **kw)
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -76,8 +89,12 @@ def _nan_keys(op: str, keys, nan: Optional[str]):
 
 
 def infer_key(op: str, *args):
-    """Plan-cache key for an op's arguments."""
+    """Plan-cache key for an op's arguments (the samplers' logits may
+    follow their generator, as the registry takes them)."""
     x = args[0]
+    if op in ("sample_topp", "sample_minp") and (
+            x is None or isinstance(x, torch.Generator)):
+        x = args[1]
     backend = backend_of(x.device)
     if op == "merge":
         return plan_key(op, n=x.shape[0] + args[1].shape[0], dtype=x.dtype,
@@ -118,6 +135,35 @@ def _resolve(op: str, plan: Optional[Plan], variant: Optional[str],
     return plan
 
 
+def run_op(op: str, plan: Plan, *args):
+    """Run ``op`` on the registry's argument list under an explicit plan
+    (the autotuner's entry point): no plan resolution, no fallback ladder,
+    so a candidate that fails raises. Segment ops without a ``cap`` get the
+    tight one, ``external_sort`` its default tile and fan-in; the ops with
+    a direction sort descending."""
+    if op in ("segment_sort", "segment_merge", "segment_argsort") \
+            and plan.cap == 0:
+        total = (args[0].shape[0] + args[2].shape[0]
+                 if op == "segment_merge" else args[0].shape[0])
+        plan = plan.replace(cap=segments.static_cap(args[1], total))
+    if op == "external_sort":
+        from repro_torch.engine.external import resolve_dofs
+        plan = resolve_dofs(plan, args[0].shape[0])
+    kw = {"plan": plan}
+    if op in ("argsort", "segment_argsort", "merge_runs", "external_sort"):
+        kw["descending"] = True
+    return registry.call(op, plan.variant, *args, **kw)
+
+
+def autotune(op: str, *example_args, repeats: int = 3, candidates=None):
+    """Time every candidate plan of ``op`` on the example workload (the
+    registry's argument list, as ``run_op`` takes it) and cache the fastest
+    for that shape bucket. Returns the winning Plan. Candidates that raise
+    are recorded as infeasible and skipped."""
+    return default_planner.autotune(op, *example_args, repeats=repeats,
+                                    candidates=candidates)
+
+
 def _gather(perm, values):
     return tree_map(lambda v: v[perm], values)
 
@@ -144,7 +190,7 @@ def sort(x, *, descending: bool = True, values=None, stable: bool = False,
         keys = x[perm]
         return keys if values is None else (keys, _gather(perm, values))
     plan = _resolve("sort", plan, variant, x)
-    out = registry.call("sort", plan.variant, x, plan=plan)
+    out = _gcall("sort", plan, x)
     return out if descending else torch.flip(out, [0])
 
 
@@ -159,8 +205,7 @@ def argsort(keys, *, descending: bool = True, nan: Optional[str] = None,
     if ik is not None:
         keys = ik
     plan = _resolve("argsort", plan, variant, keys)
-    return registry.call("argsort", plan.variant, keys, plan=plan,
-                         descending=descending)
+    return _gcall("argsort", plan, keys, descending=descending)
 
 
 def merge(a, b, *, descending: bool = True, values=None,
@@ -207,7 +252,7 @@ def merge(a, b, *, descending: bool = True, values=None,
     plan = _resolve("merge", plan, variant, a, b)
     if tie is not None and tie != plan.tie:
         plan = plan.replace(tie=tie)
-    return registry.call("merge", plan.variant, a, b, plan=plan)
+    return _gcall("merge", plan, a, b)
 
 
 def _merge_kv(a, b, values, descending, plan, variant):
@@ -223,20 +268,14 @@ def _merge_kv(a, b, values, descending, plan, variant):
             return torch.flip(out, [0])
         return torch.flip(out[0], [0]), rev(out[1])
     plan = _resolve("merge", plan, variant, a, b)
-    va, vb = values if values is not None else ({}, {})
-    if plan.variant == "cuda":
-        from repro_torch.kernels.flims_merge import flims_merge_kv
-        nA = a.shape[0]
-        ra = torch.arange(nA, dtype=torch.int32, device=a.device)
-        rb = nA + torch.arange(b.shape[0], dtype=torch.int32, device=a.device)
-        keys, ranks = flims_merge_kv(a, ra, b, rb, w=plan.w,
-                                     block_out=plan.block_out)
-        if values is None:
-            return keys
-        return keys, tree_map(lambda x, y: torch.cat([x, y])[ranks], va, vb)
-    from repro_torch.core.flims import flims_merge_kv_stable
-    keys, vals = flims_merge_kv_stable(a, va, b, vb, w=plan.w)
-    return keys if values is None else (keys, vals)
+    nA = a.shape[0]
+    ra = torch.arange(nA, dtype=torch.int32, device=a.device)
+    rb = nA + torch.arange(b.shape[0], dtype=torch.int32, device=a.device)
+    keys, ranks = _gcall("merge", plan, a, b, ranks=(ra, rb))
+    if values is None:
+        return keys
+    return keys, tree_map(lambda x, y: torch.cat([x, y])[ranks.long()],
+                          values[0], values[1])
 
 
 def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
@@ -274,8 +313,8 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     if tie is not None and tie != plan.tie:
         plan = plan.replace(tie=tie)
     if values is None and not stable:
-        return registry.call("merge_runs", plan.variant, keys, run_offsets,
-                             plan=plan, descending=descending)
+        return _gcall("merge_runs", plan, keys, run_offsets,
+                      descending=descending)
     if tie == "skew":
         raise _validate.EngineInputError(
             "merge_runs", "tie='skew' is key-only (stable order has no ties)",
@@ -283,8 +322,8 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     # rank lanes leave no ties for skew to balance: the stable policy
     plan = plan.replace(tie="b")
     ranks = torch.arange(keys.shape[0], dtype=torch.int32, device=keys.device)
-    mk, mr = registry.call("merge_runs", plan.variant, keys, run_offsets,
-                           plan=plan, descending=descending, ranks=ranks)
+    mk, mr = _gcall("merge_runs", plan, keys, run_offsets,
+                    descending=descending, ranks=ranks)
     if values is None:
         return mk
     # a sentinel run's rank (tree_vmapped, where NaN keys under nan="unsafe"
@@ -310,7 +349,7 @@ def topk(x, k: int, *, values=None, nan: Optional[str] = None,
         _, idx, pv = topk(ik, k, values=pay, plan=plan, variant=variant)
         return (pv["k"], idx) if values is None else (pv["k"], idx, pv["v"])
     plan = _resolve("topk", plan, variant, x)
-    return registry.call("topk", plan.variant, x, k, plan=plan, values=values)
+    return _gcall("topk", plan, x, k, values=values)
 
 
 def _sample_sorted(op: str, generator, logits, knob: float, temperature,
@@ -326,9 +365,9 @@ def _sample_sorted(op: str, generator, logits, knob: float, temperature,
     if logits.ndim != 2:
         raise ValueError(f"{op} expects (V,) or (B, V) logits, got shape "
                          f"{tuple(logits.shape)}")
-    plan = _resolve(op, plan, variant, logits)
-    out = registry.call(op, plan.variant, generator, logits, float(knob),
-                        plan=plan, temperature=float(temperature), u=u)
+    plan = _resolve(op, plan, variant, generator, logits)
+    out = _gcall(op, plan, generator, logits, float(knob),
+                 temperature=float(temperature), u=u)
     return out[0] if squeeze else out
 
 
@@ -406,11 +445,10 @@ def external_sort(keys, *, descending: bool = True, values=None,
         return sort(keys, descending=descending, values=values,
                     stable=stable)
     if values is None and not stable:
-        return registry.call("external_sort", plan.variant, keys, plan=plan,
-                             descending=descending)
+        return _gcall("external_sort", plan, keys, descending=descending)
     ranks = torch.arange(n, dtype=torch.int32, device=keys.device)
-    mk, mr = registry.call("external_sort", plan.variant, keys, plan=plan,
-                           descending=descending, ranks=ranks)
+    mk, mr = _gcall("external_sort", plan, keys, descending=descending,
+                    ranks=ranks)
     return mk if values is None else (mk, _gather(mr, values))
 
 
@@ -464,8 +502,7 @@ def segment_sort(keys, offsets, *, descending: bool = True, values=None,
     segments.validate_offsets(offsets, keys.shape[0])
     offsets = _tensor(offsets, keys.device).to(torch.int32)
     plan = _segment_plan("segment_sort", plan, variant, keys, offsets, cap)
-    out = registry.call("segment_sort", plan.variant, keys, offsets,
-                        plan=plan)
+    out = _gcall("segment_sort", plan, keys, offsets)
     if not descending:
         out = segments.reverse_segments(out, offsets, keys.shape[0])
     return out
@@ -491,8 +528,8 @@ def segment_argsort(keys, offsets, *, descending: bool = True, cap: int = 0,
     offsets = _tensor(offsets, keys.device).to(torch.int32)
     plan = _segment_plan("segment_argsort", plan, variant, keys, offsets,
                          cap)
-    return registry.call("segment_argsort", plan.variant, keys, offsets,
-                         plan=plan, descending=descending)
+    return _gcall("segment_argsort", plan, keys, offsets,
+                  descending=descending)
 
 
 def segment_merge(a, a_offsets, b, b_offsets, *, descending: bool = True,
@@ -516,8 +553,7 @@ def segment_merge(a, a_offsets, b, b_offsets, *, descending: bool = True,
                                          a.shape[0] + b.shape[0])
     plan = _resolve("segment_merge", plan, variant, a, a_offsets, b,
                     b_offsets)
-    return registry.call("segment_merge", plan.variant, a, a_offsets, b,
-                         b_offsets, plan=plan)
+    return _gcall("segment_merge", plan, a, a_offsets, b, b_offsets)
 
 
 class RouteResult(NamedTuple):
@@ -571,8 +607,8 @@ def moe_route(logits, k: int, capacity: int, *, values=None,
     obs.event("moe.route", groups=G, tokens=T, experts=E, k=k,
               capacity=int(capacity), n_pairs=G * T * k,
               variant=plan.variant)
-    e_s, t_s, perm, w_s, slab, keep = registry.call(
-        "moe_route", plan.variant, logits, k, int(capacity), plan=plan)
+    e_s, t_s, perm, w_s, slab, keep = _gcall("moe_route", plan, logits, k,
+                                             int(capacity))
     keep = keep.to(torch.bool)
     if obs.enabled():
         # reads the keep mask back from the device: only while recording

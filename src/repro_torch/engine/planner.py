@@ -15,12 +15,23 @@ K9); everything else from the torch reference variants.
 Plan tables round-trip through JSON, and :func:`plans_from_jax` reads the
 tables the JAX package's ``engine.save_plans`` writes: backends ``tpu`` /
 ``gpu`` become ``cuda``, and variant names map through :data:`VARIANT_MAP`.
+
+``Planner.autotune(op, *example_args)`` times every candidate of
+:func:`candidate_plans` (each registered variant crossed with a small
+parameter grid) on the example workload, with CUDA events on the card and
+the host clock on the CPU, installs the fastest in the cache and returns
+it. A candidate that raises is recorded as infeasible for the shape bucket
+and skipped, then and in later tunes. The fallback ladder's quarantine
+(``guard/fallback.py``) is a record of its own: autotune skips a
+quarantined plan too, but an infeasible candidate never takes a rung off
+the ladder.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, Optional, Tuple
+import time
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -139,10 +150,14 @@ def plans_from_jax(table: dict) -> Dict[str, dict]:
 
 
 class Planner:
-    """The in-process plan cache with JSON persistence."""
+    """The in-process plan cache with JSON persistence, the autotuner's
+    infeasible record, the fallback ladder's quarantine and the
+    autotuner."""
 
     def __init__(self):
         self._plans: Dict[Key, Plan] = {}
+        self._infeasible: Dict[Key, set] = {}
+        self._quarantined: Dict[Key, set] = {}
 
     def lookup(self, key: Key) -> Optional[Plan]:
         return self._plans.get(key)
@@ -152,7 +167,25 @@ class Planner:
 
     def clear(self) -> None:
         self._plans.clear()
+        self._infeasible.clear()
+        self._quarantined.clear()
 
+    def infeasible_for(self, key: Key) -> frozenset:
+        """Candidate plans autotune recorded as unable to serve this shape
+        bucket."""
+        return frozenset(self._infeasible.get(key, ()))
+
+    # -- quarantine (guard.fallback): demoted plans sit out the process -----
+    def quarantine(self, key: Key, plan: Plan) -> None:
+        """Record ``plan`` as having run out of memory on ``key`` in this
+        process: the fallback ladder skips its rung, the autotuner skips
+        it as a candidate."""
+        self._quarantined.setdefault(key, set()).add(plan)
+
+    def is_quarantined(self, key: Key, plan: Plan) -> bool:
+        return plan in self._quarantined.get(key, ())
+
+    # -- persistence --------------------------------------------------------
     def to_table(self) -> dict:
         return {_key_str(k): p.to_dict() for k, p in self._plans.items()}
 
@@ -170,6 +203,124 @@ class Planner:
         with open(path) as f:
             doc = json.load(f)
         self.from_table(plans_from_jax(doc))
+
+    # -- autotune -----------------------------------------------------------
+    def autotune(self, op: str, *example_args, repeats: int = 3,
+                 candidates=None) -> Plan:
+        """Time candidate plans on an example workload (the registry's
+        argument list, run by ``api.run_op``); cache the winner. Candidates
+        default to :func:`candidate_plans`. The ``autotune.*`` events and
+        counters are the JAX planner's."""
+        from repro_torch import obs
+        from repro_torch.engine import api
+        key = api.infer_key(op, *example_args)
+        if candidates is None:
+            candidates = candidate_plans(op, key)
+        bad = self._infeasible.setdefault(key, set())
+        best, best_t = None, float("inf")
+        with obs.span(f"autotune.{op}"):
+            for plan in candidates:
+                if plan in bad or self.is_quarantined(key, plan):
+                    # known-infeasible: skip, don't retry
+                    obs.event("autotune.candidate", op=op, key=_key_str(key),
+                              variant=plan.variant, status="known_infeasible")
+                    continue
+                try:
+                    t = _time(lambda: api.run_op(op, plan, *example_args),
+                              cuda=key[1] == "cuda", repeats=repeats)
+                except Exception as e:
+                    # a raising candidate (a shape past a kernel's limits, a
+                    # failed build) is recorded as infeasible; the tune goes
+                    # on with the other candidates
+                    bad.add(plan)
+                    obs.inc("autotune.infeasible")
+                    obs.event("autotune.candidate", op=op, key=_key_str(key),
+                              variant=plan.variant, status="infeasible",
+                              plan=plan.to_dict(),
+                              error=f"{type(e).__name__}: {e}"[:200])
+                    continue
+                obs.inc("autotune.measured")
+                obs.event("autotune.candidate", op=op, key=_key_str(key),
+                          variant=plan.variant, status="ok", us=t * 1e6,
+                          plan=plan.to_dict())
+                if t < best_t:
+                    best, best_t = plan, t
+        if best is None:
+            best = heuristic_plan(op, key)
+            obs.event("autotune.winner", op=op, key=_key_str(key),
+                      variant=best.variant, source="heuristic_fallback")
+        else:
+            obs.event("autotune.winner", op=op, key=_key_str(key),
+                      variant=best.variant, us=best_t * 1e6,
+                      plan=best.to_dict())
+        obs.inc("autotune.runs")
+        self._plans[key] = best
+        return best
+
+
+def candidate_plans(op: str, key: Key):
+    """The per-op search grid over the registered variants (the JAX
+    planner's, in the port's variant names; K7 has no chunk parameter, so
+    ``moe_route`` has one candidate a variant)."""
+    from repro_torch.engine import registry
+    _, _, _, n, _, _ = key
+    out = []
+    for variant in registry.variants(op):
+        if op == "merge_runs":
+            # the MergeSchedule grid: fused-pass depth is the key dof
+            if variant == "tree_cuda":
+                out.extend(Plan(variant, w=32, levels=lv) for lv in (1, 2, 3))
+            else:
+                out.append(Plan(variant, w=32))
+        elif op == "external_sort":
+            # phase-1 tile size x phase-2 fan-in
+            n2 = next_pow2(max(n, 4))
+            for tile in sorted({max(1024, n2 // 16), max(1024, n2 // 4)}):
+                for fan in (4, 16):
+                    out.append(Plan(variant, w=32, tile_elems=tile,
+                                    fan_in=fan))
+        elif op in ("merge", "segment_merge"):
+            for w in (32, 128):
+                for block_out in (1024, 4096):
+                    out.append(Plan(variant, w=min(w, max(8, n)),
+                                    block_out=block_out))
+        elif op in ("sort", "argsort", "segment_sort", "segment_argsort"):
+            for chunk in (256, 512):
+                out.append(Plan(variant, w=32, chunk=chunk))
+            if variant.endswith("two_phase"):
+                # phase 2 is a MergeSchedule: also sweep the fused depth
+                out.append(Plan(variant, w=32, chunk=256, levels=2))
+        elif op == "moe_route":
+            out.append(Plan(variant, w=32))
+        else:
+            out.append(Plan(variant))
+    return out
+
+
+def _time(thunk: Callable[[], object], *, cuda: bool, repeats: int = 3,
+          warmup: int = 1) -> float:
+    """Median seconds of ``repeats`` runs after ``warmup``: CUDA events
+    around each run on the card, the host clock on the CPU."""
+    for _ in range(warmup):
+        thunk()
+    if cuda:
+        torch.cuda.synchronize()
+    ts = []
+    for _ in range(repeats):
+        if cuda:
+            s, e = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            s.record()
+            thunk()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e) / 1e3)
+        else:
+            t0 = time.perf_counter()
+            thunk()
+            ts.append(time.perf_counter() - t0)
+    ts.sort()
+    return ts[len(ts) // 2]
 
 
 #: the process-wide plan cache the engine api resolves through

@@ -18,10 +18,11 @@ Counterpart of ``repro/engine/registry.py`` for ``sort``, ``argsort``,
                                          (mergesort, topk) over tree_vmapped
     tree_vmapped                         the per-level lane-merge tree (K9)
 
-Every variant takes ``fn(*op_args, plan=Plan, ...)``. Dispatch goes straight
-to the variant: a CUDA kernel that fails to build or launch, or a shape the
-fused kernels cannot take, raises; it is never replaced by another variant
-behind the caller's back.
+Every variant takes ``fn(*op_args, plan=Plan, ...)``. The engine api
+dispatches through ``guard.fallback.guarded_call``, which moves a call to
+the next variant only when it runs out of device memory: a CUDA kernel that
+fails to build or launch, or a shape the fused kernels cannot take, raises;
+it is never replaced by another variant behind the caller's back.
 """
 from __future__ import annotations
 
@@ -69,22 +70,38 @@ def variants(op: str):
 
 
 # --- merge: two descending 1-D tensors -> one ------------------------------
+# ``ranks=(ra, rb)`` makes the merge stable through int32 rank lanes (A
+# first on ties, then by position) and returns ``(keys, ranks)``.
+
+def _merge_kv_lanes(a, b, ranks, plan):
+    from repro_torch.core.flims import flims_merge_kv_stable
+    keys, vals = flims_merge_kv_stable(a, {"r": ranks[0]}, b,
+                                       {"r": ranks[1]}, w=plan.w)
+    return keys, vals["r"]
+
 
 @register("merge", "ref")
-def _merge_ref(a, b, *, plan):
+def _merge_ref(a, b, *, plan, ranks=None):
+    if ranks is not None:
+        return _merge_kv_lanes(a, b, ranks, plan)
     from repro_torch.core.flims import flims_merge_ref
     return flims_merge_ref(a, b, plan.w, tie=plan.tie)
 
 
 @register("merge", "banked")
-def _merge_banked(a, b, *, plan):
+def _merge_banked(a, b, *, plan, ranks=None):
+    if ranks is not None:
+        return _merge_kv_lanes(a, b, ranks, plan)
     from repro_torch.core.flims import flims_merge_banked
     return flims_merge_banked(a, b, plan.w, tie=plan.tie)
 
 
 @register("merge", "cuda")
-def _merge_cuda(a, b, *, plan):
-    from repro_torch.kernels.flims_merge import flims_merge
+def _merge_cuda(a, b, *, plan, ranks=None):
+    from repro_torch.kernels.flims_merge import flims_merge, flims_merge_kv
+    if ranks is not None:
+        return flims_merge_kv(a, ranks[0], b, ranks[1], w=plan.w,
+                              block_out=plan.block_out)
     return flims_merge(a, b, w=plan.w, block_out=plan.block_out)
 
 
@@ -139,13 +156,41 @@ def _topk_flims(x, k, *, plan, values=None):
     return flims_topk(x, k, values=values)
 
 
+def _monotone_bits(x):
+    """Integer keys whose order is the float total order of ``x`` (+0.0
+    above -0.0, a NaN above +inf or, with its sign bit set, below -inf);
+    bf16 / f16 go through float32, integer keys stay as they are."""
+    if not x.dtype.is_floating_point:
+        return x
+    if x.dtype == torch.float64:
+        b = x.contiguous().view(torch.int64)
+        return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFF)
+    from repro_torch.kernels.route_fuse import untwist
+    return untwist(x.float().contiguous().view(torch.int32))
+
+
+_SAME_SIZE_INT = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+def _gather_bits(x, idx):
+    """``torch.gather`` along the last axis that keeps every bit of float
+    elements (the CPU gather rewrites bf16 NaNs as 0xFFFF)."""
+    if not x.dtype.is_floating_point:
+        return torch.gather(x, -1, idx)
+    as_int = _SAME_SIZE_INT[x.element_size()]
+    return torch.gather(x.contiguous().view(as_int), -1, idx).view(x.dtype)
+
+
 @register("topk", "torch")
 def _topk_torch(x, k, *, plan, values=None):
-    # a stable descending sort and a slice: ties to the lower index, as
-    # lax.top_k orders them (torch.topk promises no tie order)
+    # lax.top_k's order: a stable descending sort of the monotone bits and a
+    # slice, so floats rank by their total order and ties go to the lower
+    # index (a stable sort of the floats would tie -0.0 with +0.0 and put
+    # every NaN first; torch.topk promises no tie order at all)
     from repro_torch.core.butterfly import tree_map
-    srt = torch.sort(x, dim=-1, descending=True, stable=True)
-    vals, idx = srt.values[..., :k], srt.indices[..., :k]
+    idx = torch.sort(_monotone_bits(x), dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    vals = _gather_bits(x, idx)
     if values is None:
         return vals, idx.to(torch.int32)
     pay = tree_map(lambda v: torch.gather(v, -1, idx), values)

@@ -12,6 +12,8 @@ Counterpart of ``repro/guard/validate.py``:
    one tie class, ties stable).
 3. The int32 lane guard: rank and offset lanes are int32 everywhere, so
    sizes of ``2**31`` or more are refused.
+4. :class:`RequestRejected` and :class:`QueueFull`: the serve scheduler's
+   refusals of a malformed request and of a full submit queue.
 
 The process default comes from ``REPRO_NAN_POLICY`` (else ``"unsafe"``).
 """
@@ -23,7 +25,7 @@ from typing import Optional
 import torch
 
 __all__ = [
-    "EngineInputError", "NAN_POLICIES", "set_nan_policy",
+    "EngineInputError", "RequestRejected", "QueueFull", "NAN_POLICIES", "set_nan_policy",
     "default_nan_policy", "resolve_nan_policy", "check_finite_keys",
     "total_order_key", "check_lane_width", "check_float_dtype", "LANE_LIMIT",
 ]
@@ -43,6 +45,15 @@ class EngineInputError(ValueError):
         self.op = op
         self.details = details
         super().__init__(f"{op}: {message}")
+
+
+class RequestRejected(EngineInputError):
+    """A malformed serve request refused at ``Scheduler.submit`` (empty
+    prompt, geometry past the scheduler's static shapes, duplicate uid)."""
+
+
+class QueueFull(RequestRejected):
+    """Backpressure: the scheduler's bounded submit queue is full."""
 
 
 def set_nan_policy(policy: str) -> None:

@@ -14,9 +14,16 @@ Events the port records: ``plan.resolve`` (cache hit or heuristic, with
 the variant), ``schedule.pass`` (one per fused merge-tree pass: levels,
 runs, block size), ``schedule.reduce`` (passes against tree levels) and
 ``moe.route`` (one per routed chunk: groups, tokens, experts, k, capacity,
-variant). Counters: ``plan_cache.*`` and ``moe.dropped_tokens`` (pairs over
-capacity; counting them reads the keep mask back from the device, which
-``engine.moe_route`` does only while recording is enabled).
+variant), ``autotune.candidate`` / ``autotune.winner`` (each timed
+candidate plan, the plan installed), ``guard.fallback`` /
+``guard.quarantine`` (a demotion down the variant ladder) and the serve
+scheduler's ``serve.admit`` / ``serve.retire`` / ``serve.reject``.
+Counters: ``plan_cache.*``, ``autotune.*``, ``guard.*``, ``serve.*`` and
+``moe.dropped_tokens`` (pairs over capacity; counting them reads the keep
+mask back from the device, which ``engine.moe_route`` does only while
+recording is enabled). Gauges: ``serve.live_slots``, ``serve.waiting``,
+``serve.kv_free``, ``serve.traces``. ``report()`` renders a snapshot as
+text (``obs/reporting.py``).
 ``span`` times host wall clock into a histogram and, when a profiler runs,
 opens a ``torch.profiler.record_function`` range; ``scoped("kernels.*")``
 labels every kernel entry point the same way, enabled or not.
@@ -31,9 +38,9 @@ from typing import Optional
 from repro_torch.obs.metrics import Registry, percentile, plain
 
 __all__ = [
-    "enable", "disable", "enabled", "blocking", "configure", "inc", "event",
-    "span", "kernel_scope", "scoped", "snapshot", "reset", "registry",
-    "percentile", "plain",
+    "enable", "disable", "enabled", "blocking", "configure", "inc", "gauge",
+    "event", "span", "kernel_scope", "scoped", "snapshot", "report",
+    "reset", "registry", "percentile", "plain",
 ]
 
 #: the process-wide registry every instrumentation site writes to
@@ -74,6 +81,11 @@ def blocking() -> bool:
 def inc(name: str, n: int = 1) -> None:
     if _enabled:
         registry.inc(name, n)
+
+
+def gauge(name: str, value) -> None:
+    if _enabled:
+        registry.set_gauge(name, value)
 
 
 def event(kind: str, **data) -> None:
@@ -117,6 +129,12 @@ def snapshot(kinds: Optional[tuple] = None) -> dict:
     snap = registry.snapshot(kinds)
     snap["enabled"] = _enabled
     return snap
+
+
+def report(snap: Optional[dict] = None) -> str:
+    """Human-readable rendering of a snapshot (default: the current one)."""
+    from repro_torch.obs.reporting import render_report
+    return render_report(snap if snap is not None else snapshot())
 
 
 def reset() -> None:

@@ -1062,3 +1062,77 @@ def test_tree_vmapped_on_card_launches_k9(card, descending, monkeypatch):
     assert launch_counts() == {"lane_merge_kv": 3}
     perm = torch.argsort(x, descending=descending, stable=True)
     assert torch.equal(vs, perm) and torch.equal(_bits(ks), _bits(x[perm]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tok", [8, 1], ids=["decode_step", "prefill_tok"])
+def test_k7_serving_shapes_match_plain(card, n_tok):
+    """K7 at the serving path's route shapes, Moonlight-16B-A3B's 64 experts
+    top-6: (1, 8, 64) (a decode step over 8 slots) and (1, 1, 64) (a
+    prefill token), capacity ``expert_capacity(1.25, T, 6, 64)`` = 1, so
+    most pairs drop; against the plain version and the torch variant,
+    untied and with ties and +0.0/-0.0."""
+    from repro_torch.models.moe import expert_capacity
+    k, E = 6, 64
+    cap = expert_capacity(1.25, n_tok, k, E)
+    assert cap == 1
+    for seed in range(6):
+        rng = np.random.default_rng(seed)
+        lg = rng.standard_normal((1, n_tok, E)).astype(np.float32)
+        if seed % 2:
+            lg = np.round(lg * 2) / 2
+            lg[lg == 0.0] = np.where(rng.random((lg == 0.0).sum()) < 0.5,
+                                     -0.0, 0.0)
+        x = T(lg.astype(np.float32)).to(card)
+        got = TR.moe_route(x, k, cap)
+        assert int(got[5].sum()) <= E * cap
+        for ref in (TR.moe_route_plain(x, k, cap),
+                    TR.moe_route_torch(x, k, cap)):
+            _route_same(got, ref, f"moe_route (1, {n_tok}, {E}) seed {seed}")
+
+
+@pytest.mark.cuda
+def test_moonlight_decode_step_matches_torch_route(card):
+    """One decode step of the ``moonshot_v1_16b_a3b`` config at its
+    widths, one layer, 8 slots: one K7 launch, and the logits within 2^-6 relative
+    Frobenius of the same step routed by the torch variant (bf16 weights:
+    K7's weights differ from torch's by a few float32 ulps, which bf16
+    rounding between the products can carry)."""
+    import dataclasses
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.engine.planner import plan_key
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config("moonshot_v1_16b_a3b"), n_layers=1)
+    model = build_model(cfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = model.init(gen)
+    B = 8
+    cache = model.init_cache(B, 64, device=card)
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device=card,
+                        dtype=torch.int32)
+    offs = torch.arange(B, device=card, dtype=torch.int32)
+    engine.clear_plans()
+    for t in range(3):
+        logits, cache = model.decode_step(params, tok, offs + t, cache)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    torch.cuda.synchronize()
+    reset_launches()
+    logits, _ = model.decode_step(params, tok, offs + 3, cache)
+    torch.cuda.synchronize()
+    assert launch_counts() == {"moe_route": 1}
+    key = plan_key("moe_route", n=B * cfg.n_experts_active,
+                   dtype=torch.float32, backend="cuda", segments=1)
+    engine.default_planner.put(key, engine.Plan("torch"))
+    try:
+        reset_launches()
+        ref, _ = model.decode_step(params, tok, offs + 3, cache)
+        torch.cuda.synchronize()
+        assert launch_counts() == {}
+    finally:
+        engine.clear_plans()
+    assert logits.shape == (B, cfg.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    rel = float((logits - ref).norm() / ref.norm())
+    assert rel <= 2.0 ** -6, rel
