@@ -67,6 +67,28 @@ the CUDA toolkit. It
      has MLA, 48 layers where it has 27, no shared experts beside the 64
      routed where it has 2, no dense first layer, softmax routing where it
      scores by sigmoid, and a tied head where its head is untied;
+   - the rest of the model zoo (no kernel; plain torch as the JAX package
+     computes these modules outside any Pallas kernel), each config at its
+     published widths and the least depth that holds its structure, in
+     float32, one model at a time: Zamba2-2.7B (6 of 54 layers, one group
+     of Mamba2 layers and the shared attention block), xLSTM-1.3B (8 of
+     48, 7 mLSTM and 1 sLSTM), Gemma-2-9B and -27B (2 of 42 / 46, a local
+     and a global layer), Qwen1.5-110B and InternVL2-76B (2 of 80),
+     Whisper-large-v3 (2 + 2 of 32 + 32, 1500 frames): 16 seeded tokens at
+     batch 2 decoded one at a time within ``FAMILY_REL_FROB`` relative
+     Frobenius of the teacher-forced forward (Whisper's ``decode_train``
+     over the encoded frames), and InternVL2's forward with its 256-patch
+     vision prefix finite at (2, 256 + 16, vocab);
+   - Zamba2-2.7B at its widths and all 54 layers (bf16, 2.34B parameters)
+     serving the same 12 requests through the scheduler, at its vocabulary
+     (32000): the first and the last slot's state after admission (``S``
+     and ``conv`` of every layer, the shared block's 9 KV caches) bit for
+     bit the same request admitted alone; the bf16 drift of forward
+     against decode on one 32-token prompt (a figure); then a checked and
+     a timed pass under the heuristic and the autotuned ``topk`` plan,
+     every completion checked, ``traces == 2``, one ``engine.topk`` a
+     step, no kernel launched, no fallback, greedy tokens equal; one
+     ``serve`` line with the step's byte bound;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -2038,17 +2060,22 @@ def _pct(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
-def serve_run(kernels, obs, serve, model, params, specs, eos, label):
+def serve_run(kernels, obs, serve, model, params, specs, eos, label,
+              k7_layers: int):
     """The requests served twice, the launch counts set to 0 just before
     each pass. The checked pass is one ``serve_batch`` with obs recording:
-    completions, traces, one ``engine.topk`` a step, K7 launches and no
-    fallback. The timed pass runs the scheduler's own loop with obs off
-    (recording makes ``engine.moe_route`` read every keep mask back): the
-    host clock around each step, which waits on its sampled tokens, and
-    around each admission round, closed by a synchronize. Both passes give
-    the greedy requests the same tokens."""
-    want_k7 = lambda steps, admits: SERVE_LAYERS * (steps + SERVE_PREFILL
-                                                    * admits)
+    completions, traces, one ``engine.topk`` a step, K7 launches (one a
+    MoE layer, ``k7_layers``, per decode step and per prefill token; with
+    none, no kernel launch at all) and no fallback. The timed pass runs the
+    scheduler's own loop with obs off (recording makes ``engine.moe_route``
+    read every keep mask back): the host clock around each step, which
+    waits on its sampled tokens, and around each admission round, closed by
+    a synchronize. Both passes give the greedy requests the same tokens."""
+    want_k7 = lambda steps, admits: k7_layers * (steps + SERVE_PREFILL
+                                                 * admits)
+    wrong = lambda launches, steps, admits: (
+        launches.get("moe_route", 0) != want_k7(steps, admits)
+        or (not k7_layers and launches))
     reqs = serve_requests(serve, specs, eos)
     obs.reset()
     obs.enable()
@@ -2073,8 +2100,7 @@ def serve_run(kernels, obs, serve, model, params, specs, eos, label):
     if sum(topk.values()) != steps or len(topk) != 1:
         raise AssertionError(f"{label}: engine.topk calls {topk} over "
                              f"{steps} steps")
-    if launches.get("moe_route") != want_k7(steps, admits) \
-            or admits != N_SERVE:
+    if wrong(launches, steps, admits) or admits != N_SERVE:
         raise AssertionError(f"{label}: K7 launches {launches} over {steps} "
                              f"steps and {admits} admissions, expected "
                              f"{want_k7(steps, admits)}")
@@ -2109,8 +2135,7 @@ def serve_run(kernels, obs, serve, model, params, specs, eos, label):
     wall = time.perf_counter() - t0
     t_by_uid, _ = check_completions(f"{label} (timed)", sched.completed,
                                     reqs, model.cfg.vocab_size)
-    if t_launches.get("moe_route") != want_k7(len(step_s), n_admit) \
-            or sched.traces != 2:
+    if wrong(t_launches, len(step_s), n_admit) or sched.traces != 2:
         raise AssertionError(f"{label} (timed): K7 launches {t_launches} "
                              f"over {len(step_s)} steps, traces "
                              f"{sched.traces}")
@@ -2130,24 +2155,29 @@ def serve_run(kernels, obs, serve, model, params, specs, eos, label):
             "obs_step_p50_ms": step_t["p50_us"] / 1e3,
             "obs_prefill_ms": pre_t["total_us"] / 1e3 / admits,
             "launches": t_launches, "checked_launches": launches,
-            "k7_per_step": SERVE_LAYERS, "k7_per_prefill_token": SERVE_LAYERS,
+            "k7_per_step": k7_layers, "k7_per_prefill_token": k7_layers,
             "guard.fallback": c.get("guard.fallback", 0)}
     print("serve run: " + json.dumps(line), flush=True)
     return by_uid, line
 
 
+def _nbytes(*trees) -> int:
+    from repro_torch.core.butterfly import tree_leaves
+    return sum(t.numel() * t.element_size() for tree in trees
+               for t in tree_leaves(tree))
+
+
 def step_bytes(params, cache, vocab: int) -> int:
     """The least bytes one decode step moves: every weight once (grouped
     dispatch runs all 64 experts' slabs; the tied head reads the whole
-    embedding), the KV cache read once, one key and value row a slot and
-    layer written, and the float32 logits."""
-    from repro_torch.core.butterfly import tree_leaves
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for ts_ in ts
-                            for t in tree_leaves(ts_))
-    k = cache[0]
-    L, B, W, K, hd = k.shape
-    return (nbytes([params]) + nbytes([cache])
-            + 2 * L * B * K * hd * k.element_size() + B * vocab * 4)
+    embedding), the cache read once, one key and value row a slot and
+    layer written to each KV cache, every recurrent state (Zamba2's
+    ``cache["mamba"]``) written whole, and the float32 logits."""
+    kv, states = (cache["attn"], cache["mamba"]) if isinstance(cache, dict) \
+        else (cache, ())
+    L, B, W, K, hd = kv[0].shape
+    return (_nbytes(params, cache, states)
+            + 2 * L * B * K * hd * kv[0].element_size() + B * vocab * 4)
 
 
 def serve_split(obs, serve, tf, model, params, cfg, cache, last_tok, pos,
@@ -2185,6 +2215,41 @@ def serve_split(obs, serve, tf, model, params, cfg, cache, last_tok, pos,
         obs.reset()
     print("serve split: " + json.dumps(parts), flush=True)
     return parts
+
+
+def serve_two_plans(engine, kernels, obs, serve, model, params, specs, eos,
+                    logits, prefix: str, k7_layers: int):
+    """Run 1 under the card's heuristic ``topk`` plan, then
+    ``engine.autotune("topk", logits, k)`` at the served step's logits and
+    run 2 under the tuned plan (each a ``serve_run``); the greedy requests'
+    tokens must agree. Returns ``(run1, run2, tuned plan, candidates)``."""
+    greedy1, run1 = serve_run(kernels, obs, serve, model, params, specs,
+                              eos, prefix + "heuristic", k7_layers)
+    obs.reset()
+    obs.enable()
+    try:
+        tuned = engine.autotune("topk", logits, SERVE_K)
+        cands = [{"variant": e["data"]["variant"],
+                  "ms": e["data"].get("us", float("nan")) / 1e3,
+                  "status": e["data"]["status"]}
+                 for e in obs.snapshot()["events"]
+                 if e["kind"] == "autotune.candidate"]
+    finally:
+        obs.disable()
+    print(f"{prefix}autotune topk {tuple(logits.shape)} k={SERVE_K}: "
+          + json.dumps({"candidates": cands, "winner": tuned.variant}),
+          flush=True)
+    greedy2, run2 = serve_run(kernels, obs, serve, model, params, specs,
+                              eos, prefix + "autotuned", k7_layers)
+    engine.clear_plans()
+    if run2["topk_variant"] != tuned.variant:
+        raise AssertionError(f"the tuned run sampled through "
+                             f"{run2['topk_variant']}, not {tuned.variant}")
+    for uid in range(6):
+        if greedy1[uid].tokens != greedy2[uid].tokens:
+            raise AssertionError(f"{prefix}greedy request {uid}: the tuned "
+                                 "run's tokens differ")
+    return run1, run2, tuned, cands
 
 
 def phase_serve(engine, kernels, slice5, slice2):
@@ -2301,33 +2366,9 @@ def phase_serve(engine, kernels, slice5, slice2):
     split = serve_split(obs, serve, tf, model, params, cfg, cache, last_tok,
                         pos, logits, sampling, u)
     del captured, cache, route_lg
-    # run 1: the card's heuristic plan (topk flims); run 2: autotuned topk
-    greedy1, run1 = serve_run(kernels, obs, serve, model, params, specs,
-                              eos, "heuristic")
-    obs.reset()
-    obs.enable()
-    try:
-        tuned = engine.autotune("topk", logits, SERVE_K)
-        cands = [{"variant": e["data"]["variant"],
-                  "ms": e["data"].get("us", float("nan")) / 1e3,
-                  "status": e["data"]["status"]}
-                 for e in obs.snapshot()["events"]
-                 if e["kind"] == "autotune.candidate"]
-    finally:
-        obs.disable()
-    print(f"autotune topk {tuple(logits.shape)} k={SERVE_K}: "
-          + json.dumps({"candidates": cands, "winner": tuned.variant}),
-          flush=True)
-    greedy2, run2 = serve_run(kernels, obs, serve, model, params, specs,
-                              eos, "autotuned")
-    engine.clear_plans()
-    if run2["topk_variant"] != tuned.variant:
-        raise AssertionError(f"the tuned run sampled through "
-                             f"{run2['topk_variant']}, not {tuned.variant}")
-    for uid in range(6):
-        if greedy1[uid].tokens != greedy2[uid].tokens:
-            raise AssertionError(f"greedy request {uid}: the tuned run's "
-                                 "tokens differ")
+    run1, run2, tuned, cands = serve_two_plans(
+        engine, kernels, obs, serve, model, params, specs, eos, logits, "",
+        SERVE_LAYERS)
     if fallback.demotions():
         raise AssertionError(f"{fallback.demotions()} fallback demotions")
     line = {"serve": f"{cfg.name} {SERVE_LAYERS} of {get_config(SERVE_ARCH).n_layers} "
@@ -2356,6 +2397,247 @@ def phase_serve(engine, kernels, slice5, slice2):
     del params, model
     torch.cuda.empty_cache()
     return line["k7_launches"], k7_rows
+
+
+# --------------------------------------------------------------------------
+# the rest of the model zoo at published widths, and Zamba2-2.7B served at
+# full depth
+# --------------------------------------------------------------------------
+
+# config: the depth that still holds its structure (a Zamba2 group of 6
+# Mamba2 layers and the shared block; an xLSTM group of 7 mLSTM and 1
+# sLSTM; a Gemma-2 local / global pair; 2 decoder layers; Whisper's 2
+# encoder and 2 decoder layers)
+FAMILY_DEPTHS = {"zamba2_2p7b": 6, "xlstm_1p3b": 8, "gemma2_9b": 2,
+                 "gemma2_27b": 2, "qwen1p5_110b": 2, "internvl2_76b": 2,
+                 "whisper_large_v3": 2}
+FAMILY_BATCH = 2
+FAMILY_TOKENS = 16
+# float32 decode against the teacher-forced forward: the same arithmetic in
+# another order (a recurrence against its chunked form, a KV cache against
+# the whole sequence); float32 rounding, far below this bound
+FAMILY_REL_FROB = 1e-3
+ZAMBA_ARCH = "zamba2_2p7b"
+DRIFT_TOKENS = 32
+
+
+def rel_frob(got: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((got.double() - ref.double()).norm() / ref.double().norm())
+
+
+def phase_families(slice5):
+    """Each family the serving phases do not drive, at its published widths
+    and the least depth that holds its structure, in float32: seeded tokens
+    decoded one at a time against the teacher-forced forward (Whisper's
+    ``decode_train`` over 1500 encoded frames), and InternVL2's forward
+    with its 256-patch vision prefix. One model at a time."""
+    _, _, get_config, _, _, tf, build_model = slice5
+    B, S = FAMILY_BATCH, FAMILY_TOKENS
+    rows = []
+    for arch, depth in FAMILY_DEPTHS.items():
+        t0 = time.perf_counter()
+        base = get_config(arch)
+        cut = dict(n_layers=depth, param_dtype="float32",
+                   compute_dtype="float32")
+        what = f"n_layers {base.n_layers} -> {depth}"
+        if base.n_encoder_layers:
+            cut["n_encoder_layers"] = depth
+            what += f", n_encoder_layers {base.n_encoder_layers} -> {depth}"
+        print(f"reduced: {arch} {what}, {base.param_dtype} -> float32",
+              flush=True)
+        cfg = dataclasses.replace(base, **cut)
+        model = build_model(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 17)
+        params = model.init(gen)
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        batch = {"tokens": toks}
+        if cfg.arch_kind == "encdec":
+            batch["frames"] = 0.5 * torch.randn(
+                (B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                device="cuda")
+            _, filled = model.prefill(params, batch, S)
+            cache = dict(model.init_cache(B, S, enc_len=cfg.encoder_seq),
+                         cross=filled["cross"])
+            del filled
+        else:
+            cache = model.init_cache(B, S)
+        full = tf.lm_logits(params, model.forward(params, batch), cfg)
+        steps = []
+        for t in range(S):
+            logits, cache = model.decode_step(
+                params, toks[:, t], torch.full((B,), t, dtype=torch.int32,
+                                               device="cuda"), cache)
+            steps.append(logits)
+        got = torch.stack(steps, dim=1)
+        want = (B, S, cfg.vocab_size)
+        if got.shape != want or full.shape != want or not bool(
+                torch.isfinite(got).all() & torch.isfinite(full).all()):
+            raise AssertionError(f"{arch}: logits {tuple(got.shape)} / "
+                                 f"{tuple(full.shape)}, or not finite")
+        row = {"family": arch, "layers": depth, "dtype": "float32",
+               "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+               "parameters": sum(t.numel() for t in _leaves(params)),
+               "tokens": S, "batch": B,
+               "decode_vs_forward_rel_frob": rel_frob(got, full),
+               "last_rel_frob": rel_frob(got[:, -1], full[:, -1]),
+               "bound": FAMILY_REL_FROB}
+        if cfg.arch_kind == "encdec":
+            row["frames"] = cfg.encoder_seq
+        if max(row["decode_vs_forward_rel_frob"],
+               row["last_rel_frob"]) > FAMILY_REL_FROB:
+            raise AssertionError(f"{arch}: decode against forward "
+                                 + json.dumps(row))
+        if cfg.n_vision_tokens:
+            P = cfg.n_vision_tokens
+            batch["vision"] = 0.5 * torch.randn((B, P, cfg.d_model),
+                                                generator=gen, device="cuda")
+            lv = tf.lm_logits(params, model.forward(params, batch), cfg)
+            if lv.shape != (B, P + S, cfg.vocab_size) or not bool(
+                    torch.isfinite(lv).all()):
+                raise AssertionError(f"{arch}: vision-prefixed logits "
+                                     f"{tuple(lv.shape)}, or not finite")
+            row["vision_logits_shape"] = list(lv.shape)
+            del lv
+        torch.cuda.synchronize()
+        row["seconds"] = time.perf_counter() - t0
+        print("family: " + json.dumps(row), flush=True)
+        rows.append(row)
+        del params, model, cache, full, got, steps, batch
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _leaves(tree):
+    from repro_torch.core.butterfly import tree_leaves
+    return tree_leaves(tree)
+
+
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def check_slot_isolation(serve, model, params, specs):
+    """Admit the first ``SERVE_SLOTS`` requests into one scheduler, and hold
+    the first and the last slot's state (every cache leaf's slice on its
+    own slot axis: Zamba2's ``S`` and ``conv`` of all layers and its KV
+    caches) bit for bit to the same request admitted alone into a one-slot
+    scheduler. Returns the check's summary, the decode state just after
+    the admissions (cache, last tokens, positions, sampling rows, every
+    slot live), and EOS ids for requests 0 and 3 (their greedy tokens 4
+    and 6, from 6 steps of the same batch, as ``serve_run``'s first
+    steps run it)."""
+    from repro_torch.core.butterfly import tree_map
+    kw = dict(max_seq=SERVE_SEQ, prefill_len=SERVE_PREFILL,
+              top_k_width=SERVE_K, seed=SEED)
+    sched = serve.Scheduler(model, params, n_slots=SERVE_SLOTS, **kw)
+    for r in serve_requests(serve, specs, {}):
+        sched.submit(r)
+    if sched.admit() != SERVE_SLOTS:
+        raise AssertionError("slot isolation: not every slot admitted")
+    checked, leaves = [0, SERVE_SLOTS - 1], 0
+    for slot in checked:
+        alone = serve.Scheduler(model, params, n_slots=1, **kw)
+        alone.submit(sched.live[slot].req)
+        alone.admit()
+        got = _leaves(tree_map(lambda leaf, ax: leaf.narrow(ax, slot, 1),
+                               sched.kv.cache, sched.kv.axes))
+        exp = _leaves(alone.kv.cache)
+        bad = [i for i, (g, e) in enumerate(zip(got, exp))
+               if not bit_equal(g, e)]
+        if bad or len(got) != len(exp):
+            raise AssertionError(f"slot {slot}: cache leaves {bad} differ "
+                                 "from the same request admitted alone")
+        leaves = len(got)
+        del alone
+    st = sched.state
+    state = (tree_map(lambda t: t.clone(), sched.kv.cache),
+             st.last_tok.clone(), st.pos.clone(), st.sampling)
+    for _ in range(6):
+        sched.step()
+    toks = {ls.req.uid: ls.tokens for ls in sched.live.values()}
+    iso = {"slots": checked, "leaves_per_slot": leaves,
+           "slot_axes": sorted(set(_leaves(sched.kv.axes))),
+           "bit_for_bit": True}
+    return iso, state, {0: toks[0][3], 3: toks[3][5]}
+
+
+def phase_serve_zamba2(engine, kernels, slice5):
+    """The ``zamba2_2p7b`` config at its widths and all 54 layers, bf16,
+    serving the 12 requests through the scheduler: slot isolation bit for
+    bit, the bf16 drift of forward against decode at full depth, the
+    heuristic and autotuned ``topk`` plans (checked and timed, greedy
+    tokens equal, no kernel launched, no fallback) and one ``serve``
+    line. The tuned plan and the step's byte bound come from the decode
+    state just after the first admissions."""
+    obs, serve, get_config, planner, fallback, tf, build_model = slice5
+    cfg = get_config(ZAMBA_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_par = sum(t.numel() for t in _leaves(params))
+    gb = _nbytes(params) / 1e9
+    print(f"{cfg.name}: d {cfg.d_model}, {cfg.n_layers} Mamba2 layers "
+          f"(state {cfg.ssm_state}, heads of {cfg.ssm_head_dim}), a shared "
+          f"block of {cfg.n_heads} heads x {cfg.hd} every "
+          f"{cfg.hybrid_attn_every}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_dtype}: {n_par / 1e9:.3f}B parameters, {gb:.3f} GB, "
+          f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    specs = serve_specs(cfg.vocab_size)
+    iso, captured, eos = check_slot_isolation(serve, model, params, specs)
+    cache, last_tok, pos, sampling = captured
+    print("zamba2 slot isolation: " + json.dumps(iso), flush=True)
+    # the bf16 drift at full depth: forward against the decode steps on
+    # one 32-token prompt (a figure; the float32 check is phase_families')
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    toks = torch.randint(0, cfg.vocab_size, (1, DRIFT_TOKENS), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    full = tf.lm_logits(params, model.forward(params, {"tokens": toks}), cfg)
+    c1, steps = model.init_cache(1, SERVE_SEQ), []
+    for t in range(DRIFT_TOKENS):
+        lg, c1 = model.decode_step(params, toks[:, t], torch.full(
+            (1,), t, dtype=torch.int32, device="cuda"), c1)
+        steps.append(lg)
+    drift = rel_frob(torch.stack(steps, dim=1), full)
+    print("zamba2 bf16 drift: " + json.dumps({
+        "tokens": DRIFT_TOKENS, "layers": cfg.n_layers,
+        "forward_vs_decode_rel_frob": drift}), flush=True)
+    del full, c1, steps
+    logits, launches = counted(kernels, lambda: model.decode_step(
+        params, last_tok, pos, cache)[0])
+    if launches or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"zamba2 decode step: launches {launches}")
+    nbytes = step_bytes(params, cache, cfg.vocab_size)
+    run1, run2, tuned, cands = serve_two_plans(
+        engine, kernels, obs, serve, model, params, specs, eos, logits,
+        "zamba2 ", 0)
+    if fallback.demotions():
+        raise AssertionError(f"{fallback.demotions()} fallback demotions")
+    line = {"serve": f"{cfg.name} {cfg.n_layers} of {cfg.n_layers} layers, "
+                     f"{SERVE_SLOTS} slots, max_seq {SERVE_SEQ}, "
+                     f"prefill_len {SERVE_PREFILL}, k {SERVE_K}",
+            "requests": N_SERVE, "parameters": n_par, "weight_gb": gb,
+            "step_p50_ms": run1["step_p50_ms"],
+            "step_p99_ms": run1["step_p99_ms"],
+            "prefill_ms": run1["prefill_ms"], "tok_s": run1["tok_s"],
+            "decode_tok_s": run1["decode_tok_s"],
+            "step_bytes": nbytes,
+            "step_bound_ms": nbytes / hbm_bytes_per_s() * 1e3,
+            "kernel_launches": {**run1["launches"], **run2["launches"]},
+            "topk_heuristic": run1["topk_variant"],
+            "autotune_candidates": cands, "autotune_winner": tuned.variant,
+            "tuned_step_p50_ms": run2["step_p50_ms"],
+            "tuned_step_p99_ms": run2["step_p99_ms"],
+            "tuned_tok_s": run2["tok_s"], "eos_hits": run1["eos_hits"],
+            "obs_step_p50_ms": run1["obs_step_p50_ms"],
+            "slot_isolation": iso, "bf16_drift_rel_frob": drift,
+            "guard.fallback": fallback.demotions()}
+    print("serve: " + json.dumps(line), flush=True)
+    del params, model, captured, cache, logits
+    torch.cuda.empty_cache()
+    return line
 
 
 def timed(name: str, fn, *args, **kw):
@@ -2430,6 +2712,8 @@ def main() -> int:
     slice5 = _import_slice5()
     serve_k7, serve_k7_rows = timed("serve", phase_serve, engine, kernels,
                                     slice5, slice2)
+    timed("families", phase_families, slice5)
+    timed("serve zamba2", phase_serve_zamba2, engine, kernels, slice5)
     errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
     errs4 = {k: max(v, path_errs[k]) for k, v in errs4.items()}
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,

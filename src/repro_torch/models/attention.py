@@ -10,8 +10,8 @@ chunks, the causal and sliding-window masks, the rolling-buffer cache
 row with every key masked. ``scaled_dot_product_attention`` masks and
 accumulates otherwise, so it is not used. Feature flags: GQA, qk-norm
 (Qwen3), QKV bias (Qwen1.5), attention soft cap (Gemma-2), sliding window
-(Mixtral). The sequence-sharded decode waits for the sharded ops; cross
-attention for the encoder-decoder.
+(Mixtral, Gemma-2's local layers), cross attention (Whisper: no mask, no
+RoPE). The sequence-sharded decode waits for the sharded ops.
 """
 from __future__ import annotations
 
@@ -104,12 +104,13 @@ def _flash_over_kv(q, k, v, cfg, *, causal: bool, window: int,
     return out.reshape(B, S, H, hd).to(q.dtype)
 
 
-def attn_apply(p, x, cfg, *, positions, window: int = 0):
-    """Causal training / prefill attention over the whole sequence.
-    x: (B, S, d)."""
+def attn_apply(p, x, cfg, *, positions, window: int = 0,
+               causal: bool = True):
+    """Training / prefill attention over the whole sequence, causal unless
+    ``causal=False`` (the encoder). x: (B, S, d)."""
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
-    out = _flash_over_kv(q, k, v, cfg, causal=True, window=window,
+    out = _flash_over_kv(q, k, v, cfg, causal=causal, window=window,
                          q_positions=positions, kv_positions=positions)
     return out.reshape(B, S, -1) @ p["wo"]
 
@@ -169,3 +170,22 @@ def _scatter_slot(cache, new, slot):
     out[torch.arange(cache.shape[0], device=cache.device),
         slot.long()] = new.to(cache.dtype)
     return out
+
+
+def cross_attn_init(gen: torch.Generator, cfg, device="cuda"):
+    return attn_init(gen, cfg, device)
+
+
+def cross_attn_apply(p, x, kv_src, cfg):
+    """Encoder-decoder cross attention, no mask and no RoPE. x: (B, S, d)
+    queries; kv_src: (B, T, d) encoder states."""
+    B, S, _ = x.shape
+    T = kv_src.shape[1]
+    hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, H, hd)
+    k = (kv_src @ p["wk"]).reshape(B, T, K, hd)
+    v = (kv_src @ p["wv"]).reshape(B, T, K, hd)
+    arange = lambda n: torch.arange(n, device=x.device)[None].expand(B, n)
+    y = _flash_over_kv(q, k, v, cfg, causal=False, window=0,
+                       q_positions=arange(S), kv_positions=arange(T))
+    return y.reshape(B, S, -1) @ p["wo"]

@@ -1,10 +1,11 @@
 """Carry the JAX package's weights into the port.
 
-``decoder_params_from_jax`` takes the whole parameter tree of a decoder
-(``repro.models.model.build_model(cfg).init(key)``, every leaf as a numpy
-array) and returns the port's: the same nesting and stacked (L, ...)
-layout, bits kept. ``moe_params_from_jax`` takes the dict
-``repro.models.moe.moe_init`` returns, as numpy arrays (``np.asarray`` of each leaf: ``router`` (d, E)
+``decoder_params_from_jax`` takes the whole parameter tree of a decoder of
+any family (``repro.models.model.build_model(cfg).init(key)``, every leaf
+as a numpy array) and returns the port's: the same nesting and stacked
+layout, bits kept. ``encdec_params_from_jax`` does the same for the
+encoder-decoder. ``moe_params_from_jax`` takes the dict
+``repro.models.moe.moe_init`` returns, as numpy arrays (``router`` (d, E)
 float32, ``wi`` / ``wg`` (E, d, f), ``wo`` (E, f, d) in the config's
 parameter dtype), and returns the port's tensors on ``device``. numpy holds
 a bf16 array as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses:
@@ -34,18 +35,28 @@ def moe_params_from_jax(p_np, device="cuda"):
             for name in ("router", "wi", "wg", "wo")}
 
 
+def _tree_from_jax(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_from_jax(v, device) for v in tree)
+    return tensor_from_numpy(tree, device)
+
+
 def decoder_params_from_jax(p_np, device="cuda"):
     """A decoder's whole parameter tree, JAX layout kept: ``embed``,
-    ``final_norm`` and ``blocks`` (``attn``, ``attn_norm``, ``mlp`` or
-    ``moe``, ``mlp_norm``, each leaf stacked over the layers)."""
-    def conv(tree):
-        if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return tensor_from_numpy(tree, device)
-    out = conv({k: v for k, v in p_np.items() if k != "blocks"})
-    blocks = dict(p_np["blocks"])
-    moe = blocks.pop("moe", None)
-    out["blocks"] = conv(blocks)
-    if moe is not None:
-        out["blocks"]["moe"] = moe_params_from_jax(moe, device)
-    return out
+    ``final_norm`` and the family's stacks (``blocks``, and
+    ``shared_attn`` for Zamba2; ``mlstm`` (groups, k - 1, ...) and
+    ``slstm`` for xLSTM; ``local`` / ``global`` for Gemma-2), the MoE
+    sub-trees wherever they sit."""
+    return _tree_from_jax(p_np, device)
+
+
+def encdec_params_from_jax(p_np, device="cuda"):
+    """The encoder-decoder's parameter tree, JAX layout kept: ``embed``,
+    ``enc_blocks`` and ``dec_blocks`` stacked over their layers,
+    ``enc_norm`` and ``final_norm``."""
+    missing = {"enc_blocks", "dec_blocks", "enc_norm"} - set(p_np)
+    if missing:
+        raise ValueError(f"not an encoder-decoder tree: no {sorted(missing)}")
+    return _tree_from_jax(p_np, device)

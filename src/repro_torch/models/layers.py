@@ -16,11 +16,11 @@ import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
-               device="cuda") -> torch.Tensor:
+               device="cuda", scale: float = 1.0) -> torch.Tensor:
     """An (in_dim, out_dim) weight: float32 normals from ``gen`` times
-    ``1 / sqrt(in_dim)``, cast to ``dtype``. ``gen`` lives on
+    ``scale / sqrt(in_dim)``, cast to ``dtype``. ``gen`` lives on
     ``device``."""
-    std = 1.0 / (in_dim ** 0.5)
+    std = scale / (in_dim ** 0.5)
     w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
                     device=device)
     return (w * std).to(dtype)

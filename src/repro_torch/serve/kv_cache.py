@@ -9,10 +9,12 @@ prefix-reuse hook is left out until a connector serves prefixes.
 
 :class:`SlotKVCache` is the default connector: one static super-batch cache
 (``model.init_cache(n_slots, max_seq)``) and a free-list slot allocator.
-The slot axis is the model's ``cache_batch_axis``, the same for every leaf
-of its cache (axis 1 of the decoder's (L, B, W, K, hd) caches), where the
-JAX package finds it by building two caches; ``insert`` writes the slot's
-slice in place.
+The slot axis of every leaf is found from the structure, as the JAX package
+finds it: the cache is built at two widths on the ``meta`` device, which
+allocates nothing, and the one dimension that differs is the leaf's slot
+axis. So attention caches (L, B, W, K, hd), the Mamba2 states, the xLSTM
+states with their batch on axis 2 and the hybrid caches all insert without
+code of their own; ``insert`` writes the slot's slice in place.
 """
 from __future__ import annotations
 
@@ -47,6 +49,20 @@ class KVConnectorBase:
         raise NotImplementedError
 
 
+def _batch_axes(build):
+    """The slot axis of every leaf, a tree of ints: the one dimension in
+    which ``build(2)`` and ``build(3)``, built on ``meta``, differ."""
+    def one(a, b):
+        diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape)) if x != y]
+        if len(diff) != 1:
+            raise ValueError(
+                f"cache leaf {tuple(a.shape)} vs {tuple(b.shape)}: expected "
+                f"exactly one batch-dependent dimension, found {len(diff)}")
+        return diff[0]
+
+    return tree_map(one, build(2, "meta"), build(3, "meta"))
+
+
 class SlotKVCache(KVConnectorBase):
     """Static super-batch KV residency: ``n_slots`` rows of
     ``model.init_cache(n_slots, max_seq, device=device)`` behind a free-list
@@ -57,9 +73,9 @@ class SlotKVCache(KVConnectorBase):
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.n_slots = int(n_slots)
         self.max_seq = int(max_seq)
-        self.axis = int(model.cache_batch_axis)
-        self.cache = model.init_cache(self.n_slots, self.max_seq,
-                                      device=device)
+        build = lambda b, dev: model.init_cache(b, self.max_seq, device=dev)
+        self.axes = _batch_axes(build)
+        self.cache = build(self.n_slots, device)
         self._free: List[int] = list(range(self.n_slots))
 
     @property
@@ -89,8 +105,8 @@ class SlotKVCache(KVConnectorBase):
     def insert(self, slot: int, subcache) -> None:
         if not 0 <= slot < self.n_slots:
             raise ValueError(f"slot {slot} outside [0, {self.n_slots})")
-        tree_map(lambda leaf, sub: leaf.narrow(self.axis, slot, 1).copy_(sub),
-                 self.cache, subcache)
+        tree_map(lambda leaf, sub, ax: leaf.narrow(ax, slot, 1).copy_(sub),
+                 self.cache, subcache, self.axes)
 
     def swap(self, cache) -> None:
         self.cache = cache

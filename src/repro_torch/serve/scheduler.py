@@ -87,8 +87,8 @@ class Scheduler:
     """Admits, decodes and retires requests continuously.
 
     ``model`` / ``params`` are a :func:`repro_torch.models.model.build_model`
-    decoder and its weights (or anything with ``decode_step``,
-    ``init_cache`` and ``cache_batch_axis``); the scheduler runs on the
+    decoder and its weights (or anything with ``decode_step`` and
+    ``init_cache(batch, max_seq, device=)``); the scheduler runs on the
     device of ``params`` unless ``device=`` says otherwise. ``n_slots`` is
     the static super-batch width, ``max_seq`` the cache length,
     ``prefill_len`` the static padded prompt width of every admission.

@@ -1136,3 +1136,66 @@ def test_moonlight_decode_step_matches_torch_route(card):
     assert bool(torch.isfinite(logits).all())
     rel = float((logits - ref).norm() / ref.norm())
     assert rel <= 2.0 ** -6, rel
+
+
+def _rel_frob(got, ref):
+    return float((got - ref).norm() / ref.norm())
+
+
+@pytest.mark.cuda
+def test_zamba2_group_decode_matches_forward(card):
+    """One group of the ``zamba2_2p7b`` config at its widths (d 2560, 80
+    Mamba2 heads of 64 with state 64, the shared attention block of 32
+    heads of 80, vocab 32000), 6 layers, float32: token-by-token decode
+    logits within 1e-3 relative Frobenius of the teacher-forced
+    forward's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.models.transformer import lm_logits
+    cfg = dataclasses.replace(get_config("zamba2_2p7b"), n_layers=6,
+                              param_dtype="float32", compute_dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    params = model.init(gen)
+    B, S = 2, 12
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device=card, dtype=torch.int32)
+    full = lm_logits(params, model.forward(params, {"tokens": toks}), cfg)
+    cache = model.init_cache(B, S, device=card)
+    steps = []
+    for t in range(S):
+        logits, cache = model.decode_step(
+            params, toks[:, t], torch.full((B,), t, dtype=torch.int32,
+                                           device=card), cache)
+        steps.append(logits)
+    got = torch.stack(steps, dim=1)
+    assert got.shape == full.shape == (B, S, cfg.vocab_size)
+    assert bool(torch.isfinite(got).all())
+    assert _rel_frob(got, full) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_slot_kv_insert_xlstm_on_card(card):
+    """``SlotKVCache.insert`` on an xLSTM cache on the card writes only its
+    slot, on each leaf's own axis (2 for the mLSTM states, 1 for the
+    sLSTM's), and leaves every other slot as it was."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.butterfly import tree_leaves, tree_map
+    from repro_torch.models.model import build_model
+    from repro_torch.serve import SlotKVCache
+    model = build_model(get_config("xlstm_1p3b").reduced())
+    kv = SlotKVCache(model, n_slots=4, max_seq=16, device=card)
+    before = tree_map(lambda t: t.clone(), kv.cache)
+    leaves = tree_leaves(kv.cache)
+    sub = tree_map(lambda t: torch.full_like(t, 7.0),
+                   model.init_cache(1, 16, device=card))
+    kv.insert(2, sub)
+    assert all(a is b for a, b in zip(tree_leaves(kv.cache), leaves))
+    for leaf, old, ax in zip(leaves, tree_leaves(before),
+                             tree_leaves(kv.axes)):
+        assert leaf.is_cuda
+        assert bool((leaf.narrow(ax, 2, 1) == 7.0).all())
+        for s in (0, 1, 3):
+            assert torch.equal(leaf.narrow(ax, s, 1), old.narrow(ax, s, 1))
+    assert {ax for ax in tree_leaves(kv.axes)} == {1, 2}

@@ -8,17 +8,26 @@ the port decodes the same tokens. Cases:
 
 - ``decode_step`` logits, step by step: reduced Moonlight-16B-A3B (64 -> 4
   experts, top-2, the ``ep`` path, which runs ``grouped`` on one device on
-  both sides, so every decode step routes through ``engine.moe_route``) and
+  both sides, so every decode step routes through ``engine.moe_route``),
   reduced Mixtral-8x22B with ``sliding_window=8`` over 20 steps, so the
-  rolling buffer wraps twice; within rtol 1e-4 / atol 1e-4. The routing is
-  the same on both sides (lanes bit for bit, ``tests/test_torch_moe.py``),
-  and only the order of float32 sums differs (matrix products, the
-  streaming softmax, the MoE combine);
-- ``forward`` logits of the same configs, within the same bound;
+  rolling buffer wraps twice, reduced Zamba2 (12 Mamba2 layers, the shared
+  attention block at two applications), xLSTM (two groups of 7 mLSTM and
+  1 sLSTM), Gemma-2-9B with ``sliding_window=8`` over 20 steps (the local
+  buffer wraps, the global one does not), Qwen1.5-110B (QKV bias) and
+  InternVL2 (a 16-patch vision prefix in ``forward`` / ``prefill``);
+  within rtol 1e-4 / atol 1e-4. The routing is the same on both sides
+  (lanes bit for bit, ``tests/test_torch_moe.py``), and only the order of
+  float32 sums differs (matrix products, the streaming softmax, the MoE
+  combine, the SSD and mLSTM einsums);
+- ``forward`` and ``prefill`` logits of the same configs, within the same
+  bound;
 - the port's own invariants, as ``tests/test_models.py`` holds the JAX
   package's: token-by-token decode equals the teacher-forced forward
-  (Qwen3 dense with qk-norm and GQA; Mixtral's rolling window), within
-  the JAX test's 2e-3;
+  (Qwen3 dense with qk-norm and GQA; Mixtral's and Gemma-2's rolling
+  windows; Zamba2; xLSTM), within the JAX test's 2e-3; the Mamba2 and
+  mLSTM chunked scans do not depend on the chunk (1e-4) and equal their
+  decode steps (1e-3), and so does the sLSTM loop; every architecture
+  decodes three greedy steps to finite logits;
 - the layers (rmsnorm, layernorm, RoPE, SwiGLU / GeGLU, soft cap) against
   the JAX functions, within 1e-6;
 - routing at the decode step's shapes: ``moe_route`` at (1, 8, 64) and
@@ -28,8 +37,6 @@ the port decodes the same tokens. Cases:
   interpret mode, every lane bit for bit and the weights within
   ``WEIGHT_ULPS`` (``tests/test_torch_moe.py``'s bound).
 """
-import dataclasses
-
 import numpy as np
 import pytest
 
@@ -43,11 +50,13 @@ from repro.kernels.route_fuse import moe_route_pallas, moe_route_xla  # noqa: E4
 from repro.models import layers as JL  # noqa: E402
 from repro.models.model import build_model as jbuild  # noqa: E402
 from repro.models.transformer import lm_logits as jlm_logits  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import ARCHS, get_config  # noqa: E402
 from repro_torch.core.butterfly import tree_leaves  # noqa: E402
 from repro_torch.kernels import route_fuse as TR  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from repro_torch.models import ssm as TS  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
+from repro_torch.models import xlstm as TX  # noqa: E402
 from repro_torch.models.convert import decoder_params_from_jax  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -61,6 +70,11 @@ CASES = {
     "moonlight": ("moonshot_v1_16b_a3b", {}, 3, 6),
     "mixtral_swa": ("mixtral_8x22b", dict(sliding_window=8, n_experts=2,
                                           n_experts_active=1), 1, 20),
+    "zamba2": ("zamba2_2p7b", {}, 2, 8),
+    "xlstm": ("xlstm_1p3b", {}, 2, 8),
+    "gemma2_swa": ("gemma2_9b", dict(sliding_window=8), 1, 20),
+    "qwen1p5": ("qwen1p5_110b", {}, 2, 6),
+    "internvl2": ("internvl2_76b", {}, 2, 6),
 }
 
 
@@ -68,16 +82,30 @@ def _np_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
 
+def _batch(case, lib):
+    """The forward batch: the tokens, and the vision prefix where the
+    config has one (InternVL2), as ``lib`` (torch or jnp) arrays."""
+    conv = torch.from_numpy if lib is torch else jnp.array
+    batch = {"tokens": conv(case["toks"])}
+    if case["vision"] is not None:
+        batch["vision"] = conv(case["vision"])
+    return batch
+
+
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request):
-    """The JAX model, its weights (numpy), seeded tokens, the JAX decode
-    logits of every step and the JAX forward logits: computed once."""
+    """The JAX model, its weights (numpy), seeded tokens (and vision
+    prefix), the JAX decode logits of every step and the JAX forward
+    logits: computed once."""
     arch, kw, B, S = CASES[request.param]
     jcfg = jget_config(arch).reduced(**kw)
     cfg = get_config(arch).reduced(**kw)
     jm = jbuild(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     toks = RNG.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    vision = (0.5 * RNG.standard_normal((B, cfg.n_vision_tokens,
+                                         cfg.d_model)).astype(np.float32)
+              if cfg.n_vision_tokens else None)
     cache = jm.init_cache(B, S)
     step = jax.jit(jm.decode_step)
     steps = []
@@ -85,10 +113,11 @@ def case(request):
         logits, cache = step(jp, jnp.array(toks[:, t]),
                              jnp.full((B,), t, jnp.int32), cache)
         steps.append(np.asarray(logits))
-    h = jm.forward(jp, {"tokens": jnp.array(toks)})
-    fwd = np.asarray(jlm_logits(jp, h, jcfg))
-    return dict(name=request.param, cfg=cfg, p_np=_np_tree(jp), toks=toks,
-                steps=steps, fwd=fwd)
+    out = dict(name=request.param, cfg=cfg, p_np=_np_tree(jp), toks=toks,
+               vision=vision, steps=steps)
+    h = jm.forward(jp, _batch(out, jnp))
+    out["fwd"] = np.asarray(jlm_logits(jp, h, jcfg))
+    return out
 
 
 def test_decode_step_matches_jax(case):
@@ -111,17 +140,18 @@ def test_forward_matches_jax(case):
     cfg = case["cfg"]
     model = build_model(cfg)
     params = decoder_params_from_jax(case["p_np"], "cpu")
-    h = model.forward(params, {"tokens": torch.from_numpy(case["toks"])})
-    np.testing.assert_allclose(TT.lm_logits(params, h, cfg).numpy(),
-                               case["fwd"], **TOL)
+    h = model.forward(params, _batch(case, torch))
+    got = TT.lm_logits(params, h, cfg).numpy()
+    B, S = case["toks"].shape
+    assert got.shape == (B, cfg.n_vision_tokens + S, cfg.vocab_size)
+    np.testing.assert_allclose(got, case["fwd"], **TOL)
 
 
 def test_prefill_matches_jax(case):
     """``prefill``: the last position's logits of the prompt."""
     cfg = case["cfg"]
     params = decoder_params_from_jax(case["p_np"], "cpu")
-    got = build_model(cfg).prefill(
-        params, {"tokens": torch.from_numpy(case["toks"])}, 32)
+    got = build_model(cfg).prefill(params, _batch(case, torch), 32)
     np.testing.assert_allclose(got.numpy(), case["fwd"][:, -1], **TOL)
 
 
@@ -134,8 +164,23 @@ def test_params_carry_over_bit_for_bit(case):
             t = t[k.key]
         assert tuple(t.shape) == leaf.shape
         np.testing.assert_array_equal(t.numpy(), leaf)
-    L = case["cfg"].n_layers
-    assert all(t.shape[0] == L for t in tree_leaves(params["blocks"]))
+    cfg = case["cfg"]
+    for name, lead in _stacks(cfg).items():
+        assert all(tuple(t.shape[:len(lead)]) == lead
+                   for t in tree_leaves(params[name])), name
+
+
+def _stacks(cfg):
+    """Each stack of a family's parameters and its leading layer axes."""
+    L = cfg.n_layers
+    if cfg.arch_kind == "mamba_hybrid":
+        return {"blocks": (L,)}
+    if cfg.arch_kind == "xlstm":
+        k = cfg.slstm_every
+        return {"mlstm": (L // k, k - 1), "slstm": (L // k,)}
+    if cfg.local_global_alternate:
+        return {"local": (L // 2,), "global": (L // 2,)}
+    return {"blocks": (L,)}
 
 
 def test_init_shapes_match_jax(case):
@@ -163,11 +208,15 @@ def test_init_shapes_match_jax(case):
     ("qwen3_1p7b", {}, 2, 12),
     ("mixtral_8x22b", dict(sliding_window=8, n_experts=2,
                            n_experts_active=1), 1, 20),
-], ids=["qwen3_dense", "mixtral_swa"])
+    ("zamba2_2p7b", {}, 2, 16),
+    ("xlstm_1p3b", {}, 2, 16),
+    ("gemma2_27b", dict(sliding_window=8), 1, 20),
+], ids=["qwen3_dense", "mixtral_swa", "zamba2", "xlstm", "gemma2_swa"])
 def test_decode_matches_forward(arch, kw, B, S):
     """Token-by-token decode logits equal the teacher-forced forward's; the
-    rolling-buffer cache (window 8 over 20 tokens) equals windowed full
-    attention."""
+    rolling-buffer caches (window 8 over 20 tokens: Mixtral's, Gemma-2's
+    local layers beside its global ones) equal windowed full attention, and
+    the Mamba2 / xLSTM recurrences their chunked forms."""
     cfg = get_config(arch).reduced(**kw)
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(1))
@@ -176,7 +225,10 @@ def test_decode_matches_forward(arch, kw, B, S):
     full = TT.lm_logits(params, model.forward(params, {"tokens": toks}), cfg)
     cache = model.init_cache(B, S, device="cpu")
     if cfg.sliding_window:
-        assert cache[0].shape[2] == cfg.sliding_window < S
+        kc = cache["local"][0] if cfg.local_global_alternate else cache[0]
+        assert kc.shape[2] == cfg.sliding_window < S
+    if cfg.local_global_alternate:
+        assert cache["global"][0].shape[2] == S
     for t in range(S):
         logits, cache = model.decode_step(
             params, toks[:, t], torch.full((B,), t, dtype=torch.int32), cache)
@@ -223,14 +275,87 @@ def test_attn_prefill_matches_jax(window, cache_len):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), **TOL)
 
 
-def test_unported_architectures_raise():
-    base = get_config("qwen3_1p7b").reduced()
-    for cfg in (dataclasses.replace(base, arch_kind="encdec"),
-                dataclasses.replace(base, arch_kind="mamba_hybrid"),
-                dataclasses.replace(base, arch_kind="xlstm"),
-                dataclasses.replace(base, local_global_alternate=True)):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            build_model(cfg)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_decode(arch):
+    """Every architecture builds, inits and decodes three greedy steps to
+    finite logits (``tests/test_models.py::test_smoke_decode``)."""
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    B = 2
+    if cfg.arch_kind == "encdec":
+        cache = model.init_cache(B, 16, enc_len=8, device="cpu")
+    else:
+        cache = model.init_cache(B, 16, device="cpu")
+    tok = torch.tensor([3, 5], dtype=torch.int32)
+    for t in range(3):
+        logits, cache = model.decode_step(
+            params, tok, torch.full((B,), t, dtype=torch.int32), cache)
+        assert logits.shape == (B, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all()), (arch, t)
+        tok = logits.argmax(-1).to(torch.int32)
+
+
+# --------------------------------------------------------------------------
+# the recurrent mixers' invariants (tests/test_models.py's, at its bounds)
+# --------------------------------------------------------------------------
+
+def _x(B, S, d, scale=1.0):
+    return torch.from_numpy(
+        (scale * RNG.standard_normal((B, S, d))).astype(np.float32))
+
+
+def _decode_all(step, p, x, state, cfg):
+    outs = []
+    for t in range(x.shape[1]):
+        y, state = step(p, x[:, t:t + 1], state, cfg)
+        outs.append(y)
+    return torch.cat(outs, dim=1)
+
+
+def test_mamba_chunk_invariance():
+    """The SSD chunked scan does not depend on the chunk size."""
+    cfg = get_config("zamba2_2p7b").reduced()
+    p = TS.mamba2_init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    x = _x(2, 64, cfg.d_model)
+    np.testing.assert_allclose(TS.mamba2_apply(p, x, cfg, chunk=8).numpy(),
+                               TS.mamba2_apply(p, x, cfg, chunk=64).numpy(),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_mamba_decode_matches_train():
+    cfg = get_config("zamba2_2p7b").reduced()
+    p = TS.mamba2_init(torch.Generator().manual_seed(4), cfg, device="cpu")
+    x = _x(1, 16, cfg.d_model)
+    y_dec = _decode_all(TS.mamba2_decode, p, x,
+                        TS.mamba2_decode_init(cfg, 1, device="cpu"), cfg)
+    np.testing.assert_allclose(TS.mamba2_apply(p, x, cfg, chunk=8).numpy(),
+                               y_dec.numpy(), rtol=1e-3, atol=1e-3)
+
+
+def test_mlstm_chunk_invariance_and_decode():
+    cfg = get_config("xlstm_1p3b").reduced()
+    p = TX.mlstm_init(torch.Generator().manual_seed(5), cfg, device="cpu")
+    x = _x(2, 32, cfg.d_model, 0.5)
+    y1 = TX.mlstm_apply(p, x, cfg, chunk=4)
+    np.testing.assert_allclose(y1.numpy(),
+                               TX.mlstm_apply(p, x, cfg, chunk=32).numpy(),
+                               rtol=1e-4, atol=1e-4)
+    y_dec = _decode_all(TX.mlstm_decode, p, x,
+                        TX.mlstm_decode_init(cfg, 2, device="cpu"), cfg)
+    np.testing.assert_allclose(y1.numpy(), y_dec.numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def test_slstm_apply_matches_decode():
+    """The whole-sequence sLSTM equals its one-token steps."""
+    cfg = get_config("xlstm_1p3b").reduced()
+    p = TX.slstm_init(torch.Generator().manual_seed(6), cfg, device="cpu")
+    x = _x(2, 24, cfg.d_model, 0.5)
+    y_dec = _decode_all(TX.slstm_decode, p, x,
+                        TX.slstm_decode_init(cfg, 2, device="cpu"), cfg)
+    np.testing.assert_allclose(TX.slstm_apply(p, x, cfg).numpy(),
+                               y_dec.numpy(), rtol=1e-3, atol=1e-3)
 
 
 # --------------------------------------------------------------------------

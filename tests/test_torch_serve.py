@@ -16,7 +16,13 @@ the JAX package's ``serve_batch``.
   ``serve_batch`` equal JAX ``serve_batch``'s token for token, over more
   requests than slots (admissions overlap retirements, EOS and length
   stops). The CPU planner serves ``topk`` from ``torch`` here and ``xla``
-  there, which order the same way (``tests/test_torch_guard.py``).
+  there, which order the same way (``tests/test_torch_guard.py``). The
+  same for reduced Zamba2, xLSTM and Gemma-2-9B (window 8), where most
+  prompts are shorter than ``prefill_len``: the pad tokens must leave the
+  recurrent states and the rolling buffer untouched.
+- ``SlotKVCache`` finds each leaf's slot axis by building the cache at two
+  widths on ``meta`` (``tests/test_serve.py``'s layouts, and xLSTM's
+  states with their batch on axis 2).
 """
 from types import SimpleNamespace
 
@@ -37,6 +43,7 @@ from repro.serve import serve_batch as jserve_batch  # noqa: E402
 from repro_torch import engine as TE  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core.butterfly import tree_map  # noqa: E402
 from repro_torch.models.convert import decoder_params_from_jax  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.obs import reporting as TRP  # noqa: E402
@@ -71,8 +78,7 @@ def _fake_model(vocab=VOCAB):
         logits[tok == POISON] = float("nan")
         return logits, cache
 
-    return SimpleNamespace(init_cache=init_cache, decode_step=decode_step,
-                           cache_batch_axis=0)
+    return SimpleNamespace(init_cache=init_cache, decode_step=decode_step)
 
 
 def _greedy_req(last, n, eos=None):
@@ -142,13 +148,16 @@ def test_submit_validates_static_geometry():
 
 
 def test_kv_insert_writes_one_slot_on_the_models_axis():
-    """The connector writes the slot's slice in place, on the axis the
-    model names (axis 1 of the decoder's (L, B, W, K, hd) caches)."""
+    """The connector writes the slot's slice in place, on each leaf's own
+    slot axis, found by building the model's cache at two widths on
+    ``meta``: axis 1 of the decoder's (L, B, W, K, hd) caches, axis 2 of
+    xLSTM's mLSTM states (groups, k - 1, B, ...)."""
     def build(batch, max_seq, device="cpu"):
-        return (torch.zeros((4, batch, max_seq)),
-                {"b": torch.zeros((2, batch, 3))})
-    kv = SlotKVCache(SimpleNamespace(init_cache=build, cache_batch_axis=1),
-                     n_slots=3, max_seq=8, device="cpu")
+        return (torch.zeros((4, batch, max_seq), device=device),
+                {"b": torch.zeros((2, batch, 3), device=device)})
+    kv = SlotKVCache(SimpleNamespace(init_cache=build), n_slots=3,
+                     max_seq=8, device="cpu")
+    assert kv.axes == (1, {"b": 1})
     leaf = kv.cache[0]
     slot = kv.allocate()
     kv.insert(slot, (torch.ones((4, 1, 8)), {"b": torch.full((2, 1, 3), 2.)}))
@@ -157,8 +166,40 @@ def test_kv_insert_writes_one_slot_on_the_models_axis():
     assert float(kv.cache[1]["b"][:, slot].min()) == 2.0
     other = [s for s in range(3) if s != slot]
     assert float(kv.cache[0][:, other].abs().max()) == 0.0
-    assert build_model(get_config("qwen3_1p7b").reduced()) \
-        .cache_batch_axis == 1
+    for arch, axes in (("qwen3_1p7b", (1, 1)),
+                       ("xlstm_1p3b", {"mlstm": {"C": 2, "n": 2, "m": 2},
+                                       "slstm": dict.fromkeys("cnhm", 1)})):
+        kv = SlotKVCache(build_model(get_config(arch).reduced()), n_slots=3,
+                         max_seq=8, device="cpu")
+        assert kv.axes == axes
+
+
+def test_kv_cache_batch_axis_discovery():
+    """The connector finds the slot axis of every cache layout the model
+    zoo produces (dicts, nested tuples, non-leading batch axes), and
+    refuses a leaf with no or two batch-dependent dimensions
+    (``tests/test_serve.py``'s case)."""
+    def build(batch, max_seq, device="cpu"):
+        return {"a": torch.zeros((4, batch, max_seq), device=device),
+                "b": (torch.zeros((batch, 3), device=device),
+                      torch.zeros((2, 5, batch, max_seq, 7), device=device))}
+    kv = SlotKVCache(SimpleNamespace(init_cache=build), n_slots=3,
+                     max_seq=8, device="cpu")
+    slot = kv.allocate()
+    sub = tree_map(lambda x: x + 1.0, build(1, 8))
+    kv.insert(slot, sub)
+    assert float(kv.cache["a"][:, slot].min()) == 1.0
+    assert float(kv.cache["b"][0][slot].min()) == 1.0
+    assert float(kv.cache["b"][1][:, :, slot].min()) == 1.0
+    other = [s for s in range(3) if s != slot]
+    assert float(kv.cache["a"][:, other].abs().max()) == 0.0
+    assert float(kv.cache["b"][1][:, :, other].abs().max()) == 0.0
+    for bad in (lambda b, m, device="cpu": torch.zeros((b, b), device=device),
+                lambda b, m, device="cpu": torch.zeros((4, m),
+                                                       device=device)):
+        with pytest.raises(ValueError, match="batch-dependent"):
+            SlotKVCache(SimpleNamespace(init_cache=bad), n_slots=3,
+                        max_seq=8, device="cpu")
 
 
 def test_admission_mid_run_no_new_signature():
@@ -292,31 +333,70 @@ def _requests(req_cls, params_cls, specs):
             for i, (p, n, e) in enumerate(specs)]
 
 
+def _jax_and_port(arch, kw, seed):
+    """The reduced config's JAX model and weights, and the port's model and
+    the same weights."""
+    jm = jbuild(jget_config(arch).reduced(**kw))
+    jp = jm.init(jax.random.PRNGKey(seed))
+    params = decoder_params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    return jm, jp, build_model(get_config(arch).reduced(**kw)), params
+
+
+def _served(done):
+    return {c.uid: (c.tokens, c.finish_reason, c.status) for c in done}
+
+
+SERVE_KW = dict(n_slots=3, max_seq=24, prefill_len=8, top_k_width=16)
+
+
+def _specs(rng, vocab):
+    """7 greedy requests, prompts of 1-8 tokens (most shorter than
+    ``prefill_len``, so pad tokens pass the commit mask), 2-8 new ones."""
+    return [(rng.integers(1, vocab, int(rng.integers(1, 9))).tolist(),
+             int(rng.integers(2, 9)), None) for _ in range(7)]
+
+
 def test_greedy_serve_batch_matches_jax():
-    jcfg = jget_config("moonshot_v1_16b_a3b").reduced()
-    cfg = get_config("moonshot_v1_16b_a3b").reduced()
-    jm = jbuild(jcfg)
-    jp = jm.init(jax.random.PRNGKey(4))
-    rng = np.random.default_rng(5)
-    specs = [(rng.integers(1, cfg.vocab_size, int(rng.integers(1, 9)))
-              .tolist(), int(rng.integers(2, 9)), None) for _ in range(7)]
-    kw = dict(n_slots=3, max_seq=24, prefill_len=8, top_k_width=16)
+    jm, jp, model, params = _jax_and_port("moonshot_v1_16b_a3b", {}, 4)
+    specs = _specs(np.random.default_rng(5), model.cfg.vocab_size)
     jobs.disable()
     jdone, _, jsched = jserve_batch(
-        jm, jp, _requests(JRequest, JSamplingParams, specs), **kw)
+        jm, jp, _requests(JRequest, JSamplingParams, specs), **SERVE_KW)
     jtok = {c.uid: c.tokens for c in jdone}
     # EOS on the token JAX emits third, for two requests
     specs[1] = specs[1][:2] + (jtok[1001][min(2, len(jtok[1001]) - 1)],)
     specs[4] = specs[4][:2] + (jtok[1004][0],)
     jdone, _, _ = jserve_batch(
-        jm, jp, _requests(JRequest, JSamplingParams, specs), **kw)
-    params = decoder_params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+        jm, jp, _requests(JRequest, JSamplingParams, specs), **SERVE_KW)
     done, _, sched = serve_batch(
-        build_model(cfg), params,
-        _requests(Request, SamplingParams, specs), **kw)
+        model, params, _requests(Request, SamplingParams, specs), **SERVE_KW)
     assert sched.traces == 2
-    got = {c.uid: (c.tokens, c.finish_reason, c.status) for c in done}
-    exp = {c.uid: (c.tokens, c.finish_reason, c.status) for c in jdone}
+    got, exp = _served(done), _served(jdone)
     assert got == exp
     assert {r for _, r, _ in got.values()} == {"eos", "length"}
+    assert [c.uid for c in done] == [c.uid for c in jdone]
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("zamba2_2p7b", {}),
+    ("xlstm_1p3b", {}),
+    ("gemma2_9b", dict(sliding_window=8)),
+], ids=["zamba2", "xlstm", "gemma2_swa"])
+def test_greedy_serve_batch_matches_jax_families(arch, kw):
+    """The recurrent and local / global families through the scheduler:
+    greedy completions equal JAX ``serve_batch``'s token for token, over
+    more requests than slots, so slots are reused and each prefill passes
+    pad tokens that must leave every state leaf (Mamba2 ``S`` / ``conv``,
+    the mLSTM / sLSTM states with their -30 stabilisers, the rolling local
+    buffer) as it was."""
+    jm, jp, model, params = _jax_and_port(arch, kw, 6)
+    specs = _specs(np.random.default_rng(7), model.cfg.vocab_size)
+    assert sum(len(p) < SERVE_KW["prefill_len"] for p, _, _ in specs) >= 5
+    jobs.disable()
+    jdone, _, _ = jserve_batch(
+        jm, jp, _requests(JRequest, JSamplingParams, specs), **SERVE_KW)
+    done, _, sched = serve_batch(
+        model, params, _requests(Request, SamplingParams, specs), **SERVE_KW)
+    assert sched.traces == 2
+    assert _served(done) == _served(jdone)
     assert [c.uid for c in done] == [c.uid for c in jdone]
