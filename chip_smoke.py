@@ -89,6 +89,35 @@ the CUDA toolkit. It
      every completion checked, ``traces == 2``, one ``engine.topk`` a
      step, no kernel launched, no fallback, greedy tokens equal; one
      ``serve`` line with the step's byte bound;
+   - training (K7, now with its gradient): the ``moonshot_v1_16b_a3b``
+     config at its widths, 4 of 48 layers, bf16, remat on, batch 4 x
+     1024, checkpoints in a private temporary directory: ``TrainLoop.run``
+     takes steps 1-3 and writes the state at step 3 (36.6 GB: bf16
+     parameters, float32 m, v and master), the loop's ``step_fn`` takes
+     steps 4-6 (``train_loss``, its backward and AdamW; the synthetic
+     stream): finite losses, step p50, tokens/s, peak memory, K7 launched
+     16 times a step (8 in the forward, 8 in remat's recompute); on the
+     final state one step split into forward, backward and optimizer by
+     CUDA events, the route Function's backward called once a routed
+     chunk, and the router's gradient through K7 within
+     ``ROUTER_GRAD_REL_FROB`` of the same gradient through the ``torch``
+     route and non-zero; then a fresh loop restores the step-3 checkpoint
+     (``TrainLoop.resume_state``) and takes steps 4-6, its losses within
+     ``RESUME_RTOL`` of the straight run's (one checkpoint is written: a
+     second would take the run past the machine's 45 GiB of disk writes
+     a call). The ``qwen3_1p7b`` config at its
+     widths and all 28 layers, bf16, remat, batch 4 x 2048: four steps of
+     ``make_train_step``, finite losses and non-zero gradient norms, step
+     p50, tokens/s, peak memory and the model's FLOP rate;
+   - the guard on the card: with ``guard.enable_verify()``, ``sort``,
+     ``argsort``, ``merge``, ``segment_sort``, ``merge_runs(tree_cuda)``
+     and ``external_sort`` on their kernels at 2^20-2^22 keys with no
+     failed check, a bit-flipped sort output failing
+     ``check_permutation``; a ``failing_variant("sort")`` stub at the head
+     of the plan demoted to ``cuda``, bit for bit its output (the one
+     demotion the run allows); ``poison_model`` under the scheduler
+     retiring the poisoned request alone, the others' greedy tokens those
+     of the same requests served without it;
 3. holds every kernel against its plain PyTorch version on the card (floats
    compared as int32 bit patterns; K7's weights lane within
    ``ROUTE_WEIGHT_ULPS``), on inputs with heavy duplicates, +0.0/-0.0 and
@@ -139,7 +168,7 @@ the CUDA toolkit. It
    and its plain version are timed at one shape.
 
 Each phase prints its seconds. Any mismatch or error, or any demotion by
-the fallback ladder, exits non-zero. The
+the fallback ladder but the chaos phase's injected one, exits non-zero. The
 last three lines are the kernel table (JSON), the card's name and power
 limit from nvidia-smi, and ``{"ok": true, "device": {...}}``. Inputs and
 weights come from seeded generators.
@@ -151,8 +180,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -2640,6 +2671,420 @@ def phase_serve_zamba2(engine, kernels, slice5):
     return line
 
 
+# --------------------------------------------------------------------------
+# training: the trainer on one card, and the guard's chaos checks
+# --------------------------------------------------------------------------
+
+TRAIN_MOE_ARCH = "moonshot_v1_16b_a3b"
+TRAIN_MOE_LAYERS = 4
+TRAIN_MOE_BATCH, TRAIN_MOE_SEQ = 4, 1024
+TRAIN_MOE_STEPS, TRAIN_MOE_CKPT = 6, 3
+TRAIN_ARCH = "qwen3_1p7b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+# a resumed run's losses against the straight run's, relative: the restored
+# state is bit for bit the saved one and the data is replayed per step, so
+# only a run-to-run order of float additions on the card moves them (the
+# embedding's backward accumulates with atomics); bf16 activations carry
+# such a difference at ~2^-8 of an element, much less of the mean loss
+RESUME_RTOL = 1e-3
+# the router's gradient through K7's Function against the same gradient
+# through the torch route, relative Frobenius: the lanes are bit for bit
+# the same and the weights within 8 float32 ulps, which the bf16 rounding
+# of the weights and activations between the products can carry through
+# four layers' backward (the serving step's bound, BF16_REL_FROB)
+ROUTER_GRAD_REL_FROB = 2.0 ** -6
+BF16_OPS_PER_S = 989e12        # H100 SXM, dense bf16 tensor-core rate
+
+
+def _import_train():
+    from types import SimpleNamespace
+    from repro_torch.core.butterfly import tree_leaves
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.guard import inject, verify
+    from repro_torch.kernels import route_fuse
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import TrainLoop
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.optim import adamw_init, adamw_update, lr_schedule
+    return SimpleNamespace(**{k: v for k, v in locals().items()
+                              if k != "SimpleNamespace"})
+
+
+def _events(n: int):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def _p50(xs) -> float:
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _train_split(kernels, tr, model, params, opt, batch, tcfg):
+    """One training step on the loop's final state, split with CUDA events
+    into forward (``train_loss``, its end marked by a hook on the model's
+    ``train_loss``), backward (the rest of ``loss_and_grads``) and the
+    AdamW update: K7's launches in the forward and in the backward (remat
+    recomputes each MoE layer's forward), and the calls of the route
+    Function's backward. Returns the split, the counts and the gradient
+    list (``tree_leaves`` order) taken before the update."""
+    rf = tr.route_fuse
+    real_bwd, real_loss = rf.route_backward, model.train_loss
+    calls, fwd, ev = [0], {}, _events(5)
+
+    def counting(*args):
+        calls[0] += 1
+        return real_bwd(*args)
+
+    def loss_then_mark(p, b):
+        out = real_loss(p, b)
+        ev[1].record()
+        fwd.update(kernels.launch_counts())
+        kernels.reset_launches()
+        return out
+
+    rf.route_backward, model.train_loss = counting, loss_then_mark
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        ev[0].record()
+        loss, _, grads = tr.loss_and_grads(model, params, batch)
+        ev[2].record()
+        bwd = kernels.launch_counts()
+    finally:
+        rf.route_backward, model.train_loss = real_bwd, real_loss
+    lr = tr.lr_schedule(opt.step, tcfg.lr, tcfg.warmup_steps,
+                        tcfg.total_steps)
+    ev[3].record()
+    tr.adamw_update(grads, opt, params, lr=lr, b1=tcfg.b1, b2=tcfg.b2,
+                    weight_decay=tcfg.weight_decay, grad_clip=tcfg.grad_clip)
+    ev[4].record()
+    torch.cuda.synchronize()
+    split = {"forward_ms": ev[0].elapsed_time(ev[1]),
+             "backward_ms": ev[1].elapsed_time(ev[2]),
+             "optimizer_ms": ev[3].elapsed_time(ev[4]),
+             "loss": float(loss)}
+    counts = {"k7_forward": fwd.get("moe_route", 0),
+              "k7_backward_recompute": bwd.get("moe_route", 0),
+              "route_backward_calls": calls[0],
+              "other_kernels": sorted((set(fwd) | set(bwd)) - {"moe_route"})}
+    return split, counts, grads
+
+
+def _steps(loop, params, opt, steps):
+    """The loop's steps ``steps`` through its own parts (``step_fn``,
+    ``data``), with no checkpoint, timed on the host clock. Returns the
+    state, the losses and the seconds."""
+    losses, step_s = [], []
+    for s in steps:
+        t0 = time.perf_counter()
+        params, opt, met = loop.step_fn(params, opt, loop.data.batch(s))
+        losses.append(float(met["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    return params, opt, losses, step_s
+
+
+def _dir_gb(path: str) -> float:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e9
+
+
+def _resume(tr, cfg, tcfg, straight):
+    """A fresh ``TrainLoop`` on the checkpoint directory: its
+    ``resume_state`` (what ``run`` starts from) restores the newest
+    checkpoint, then its ``step_fn`` on its ``data`` takes the steps from
+    there to the last. ``run`` itself would write a second checkpoint at
+    its last step, which would take the smoke past the card machine's
+    disk writes a call (45 GiB; a checkpoint is 36.6 GB). Returns the
+    summary, held to the straight run's losses within ``RESUME_RTOL``."""
+    t0 = time.perf_counter()
+    loop = tr.TrainLoop(cfg, tcfg)
+    params, opt, start = loop.resume_state()
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    _, _, resumed, _ = _steps(loop, params, opt,
+                              range(start, TRAIN_MOE_STEPS))
+    gap = max((abs(a - b) / abs(a) for a, b in
+               zip(straight[TRAIN_MOE_CKPT:], resumed)), default=math.inf)
+    if start != TRAIN_MOE_CKPT \
+            or len(resumed) != TRAIN_MOE_STEPS - TRAIN_MOE_CKPT \
+            or not all(math.isfinite(v) for v in resumed) \
+            or gap > RESUME_RTOL:
+        raise AssertionError(f"train resume: from step {start}, straight "
+                             f"{straight}, resumed {resumed}")
+    return {"resumed_at_step": start,
+            "straight_steps_4_to_6": straight[TRAIN_MOE_CKPT:],
+            "resumed_steps_4_to_6": resumed,
+            "steps_4_to_6_max_rel_gap": gap, "bound": RESUME_RTOL,
+            "restore_s": restore_s}
+
+
+def phase_train_moe(engine, kernels, slice5, tr):
+    """The ``moonshot_v1_16b_a3b`` config at its widths, 4 of 48 layers,
+    bf16, remat on, batch 4 x 1024, checkpoints in a directory of its own
+    (removed at the end). ``TrainLoop.run`` takes steps 1-3 and saves its
+    state at step 3, the loop's ``step_fn`` steps 4-6 (step p50, tokens/s,
+    peak memory, K7's launches); on the final state and one fixed batch,
+    the router's gradient through the ``torch`` route, then one step split
+    by part with K7 counted in its forward, the route Function's backward
+    counted, and the router's gradient through K7 held to the torch
+    route's. A fresh loop then resumes from the checkpoint to step 6
+    against the straight run. Returns the summary line and K7's launches
+    in the phase's training steps."""
+    obs, serve, get_config, planner, fallback, tf, build_model = slice5
+    base = get_config(TRAIN_MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=TRAIN_MOE_LAYERS)
+    print(f"reduced: {TRAIN_MOE_ARCH} n_layers {base.n_layers} -> "
+          f"{TRAIN_MOE_LAYERS} (training)", flush=True)
+    if not cfg.remat or cfg.param_dtype != "bfloat16":
+        raise AssertionError("train moe: expected remat and bf16")
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        tcfg = tr.TrainConfig(
+            global_batch=TRAIN_MOE_BATCH, seq_len=TRAIN_MOE_SEQ, lr=TRAIN_LR,
+            warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_MOE_STEPS,
+            checkpoint_every=TRAIN_MOE_CKPT, checkpoint_dir=ckdir, seed=SEED)
+        line, train_k7, straight = _train_moe(engine, kernels, planner, tr,
+                                              base, cfg, tcfg, ckdir)
+        resume = _resume(tr, cfg, tcfg, straight)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print("train resume: " + json.dumps(resume), flush=True)
+    line["resume_max_rel_gap"] = resume["steps_4_to_6_max_rel_gap"]
+    print("train: " + json.dumps(line), flush=True)
+    return line, train_k7
+
+
+def _train_moe(engine, kernels, planner, tr, base, cfg, tcfg, ckdir):
+    """The straight run and the checks on its final state (see
+    :func:`phase_train_moe`); returns the line, K7's launches and the six
+    losses. The run's state is freed on return."""
+    loop = tr.TrainLoop(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, losses = loop.run(resume="no", max_steps=TRAIN_MOE_CKPT)
+    run_s = time.perf_counter() - t0
+    saved = sorted(os.listdir(ckdir))
+    ck_gb = _dir_gb(ckdir)
+    params, opt, more, more_s = _steps(
+        loop, params, opt, range(TRAIN_MOE_CKPT, TRAIN_MOE_STEPS))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    train_k7 = kernels.launch_counts().get("moe_route", 0)
+    losses += more
+    step_s = loop.step_times + more_s
+    if saved != [f"step_{TRAIN_MOE_CKPT}"] \
+            or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"train moe: checkpoints {saved}, losses "
+                             f"{losses}")
+    leaves = tr.tree_leaves(params)
+    router = params["blocks"]["moe"]["router"]
+    ri = next(i for i, t in enumerate(leaves) if t is router)
+    batch = loop.data.batch(TRAIN_MOE_STEPS)
+    # the grouped path routes B * 512 tokens of a (1, T, E) group a call
+    T = TRAIN_MOE_BATCH * min(512, TRAIN_MOE_SEQ)
+    key = planner.plan_key("moe_route", n=T * cfg.n_experts_active,
+                           dtype=torch.float32, backend="cuda", segments=1)
+    engine.default_planner.put(key, engine.Plan("torch"))
+    try:
+        (_, _, grads), torch_launches = counted(
+            kernels, lambda: tr.loss_and_grads(loop.model, params, batch))
+    finally:
+        engine.default_planner.put(key, planner.heuristic_plan("moe_route",
+                                                               key))
+    g_torch = grads[ri].clone()
+    del grads
+    split, counts, grads = _train_split(kernels, tr, loop.model, params, opt,
+                                        batch, tcfg)
+    g_k7 = grads[ri].clone()
+    del grads
+    rel = rel_frob(g_k7, g_torch)
+    per_step = TRAIN_MOE_LAYERS * (TRAIN_MOE_SEQ // min(512, TRAIN_MOE_SEQ))
+    if torch_launches or train_k7 != 2 * per_step * TRAIN_MOE_STEPS \
+            or counts["k7_forward"] != per_step \
+            or counts["k7_backward_recompute"] != per_step \
+            or counts["route_backward_calls"] != per_step:
+        raise AssertionError(f"train moe: K7 launches {counts}, in the "
+                             f"steps {train_k7}, torch-routed step "
+                             f"{torch_launches}")
+    if not (float(g_k7.norm()) > 0 and math.isfinite(rel)
+            and rel <= ROUTER_GRAD_REL_FROB):
+        raise AssertionError(f"train moe: router gradient through K7 "
+                             f"|g| {float(g_k7.norm())}, rel {rel}")
+    n_par = sum(t.numel() for t in leaves)
+    state_gb = _nbytes(params, [opt.step, opt.m, opt.v, opt.master]) / 1e9
+    del params, opt, leaves, router, g_k7, g_torch, loop
+    torch.cuda.empty_cache()
+    tokens = TRAIN_MOE_BATCH * TRAIN_MOE_SEQ
+    p50 = _p50(step_s[1:])
+    line = {"train": f"{cfg.name} {TRAIN_MOE_LAYERS} of {base.n_layers} "
+                     f"layers, {cfg.param_dtype}, remat, batch "
+                     f"{TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ}",
+            "parameters": n_par, "state_gb": state_gb, "losses": losses,
+            "step_s": step_s, "step_p50_ms": p50 * 1e3,
+            "tokens_per_s": tokens / p50,
+            "max_memory_allocated_gb": peak / 1e9, "split": split,
+            "k7": dict(counts, train_launches=train_k7),
+            "router_grad_rel_frob": rel,
+            "router_grad_bound": ROUTER_GRAD_REL_FROB,
+            "checkpoint_gb": ck_gb,
+            "run_to_checkpoint_s": run_s,
+            "init_and_checkpoint_s": run_s - sum(step_s[:TRAIN_MOE_CKPT])}
+    return line, train_k7 + 2 * counts["k7_forward"], losses
+
+
+def phase_train(kernels, slice5, tr):
+    """``make_train_step`` on the ``qwen3_1p7b`` config at its widths and
+    all 28 layers, bf16, remat on, batch 4 x 2048: finite losses and
+    finite, non-zero gradient norms over 4 steps; step p50, tokens/s, peak
+    memory and the model's FLOP rate (6 * parameters * tokens plus the
+    attention's 12 * layers * heads * head_dim * seq_len a token); then
+    one more step split into forward, backward and optimizer."""
+    get_config = slice5[2]
+    cfg = get_config(TRAIN_ARCH)
+    if not cfg.remat or cfg.param_dtype != "bfloat16":
+        raise AssertionError("train: expected remat and bf16")
+    tcfg = tr.TrainConfig(global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                          lr=TRAIN_LR, warmup_steps=TRAIN_WARMUP,
+                          total_steps=TRAIN_STEPS, seed=SEED)
+    model, step = tr.make_train_step(cfg, tcfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = tr.adamw_init(params)
+    data = tr.SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, SEED)
+    n_par = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_s = [], [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, data.batch(i))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses + norms) or min(norms) <= 0:
+        raise AssertionError(f"train: losses {losses}, grad norms {norms}")
+    split, _, grads = _train_split(kernels, tr, model, params, opt,
+                                   data.batch(TRAIN_STEPS), tcfg)
+    del grads
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = _p50(step_s[1:])
+    flops = (6 * n_par + 12 * cfg.n_layers * cfg.n_heads * cfg.hd
+             * TRAIN_SEQ) * tokens
+    line = {"train": f"{cfg.name} {cfg.n_layers} of {cfg.n_layers} layers, "
+                     f"{cfg.param_dtype}, remat, batch {TRAIN_BATCH} x "
+                     f"{TRAIN_SEQ}",
+            "parameters": n_par, "losses": losses, "grad_norms": norms,
+            "step_s": step_s, "step_p50_ms": p50 * 1e3,
+            "tokens_per_s": tokens / p50,
+            "max_memory_allocated_gb": peak / 1e9,
+            "model_flops_per_step": flops,
+            "model_tflop_s": flops / p50 / 1e12,
+            "model_flops_share_of_bf16_peak": flops / p50 / BF16_OPS_PER_S,
+            "split": split}
+    print("train: " + json.dumps(line), flush=True)
+    del params, opt, model, step
+    torch.cuda.empty_cache()
+    return line
+
+
+def phase_chaos(engine, kernels, slice5, tr, gen):
+    """The guard layer on the card. With ``enable_verify()``: ``sort``,
+    ``argsort``, ``merge``, ``segment_sort``, ``merge_runs(tree_cuda)``
+    and ``external_sort`` on their kernels, no failed check; a bit-flipped
+    output fails ``check_permutation``; a ``failing_variant("sort")`` stub
+    at the head of the plan demotes to the next rung (``cuda``), bit for
+    bit that rung's output; ``poison_model`` under the scheduler retires
+    the poisoned slot alone. Returns the summary line and the demotions
+    it caused (the stub's one)."""
+    obs, serve, get_config, planner, fallback, tf, build_model = slice5
+    verify, inject = tr.verify, tr.inject
+    n = 1 << 20
+    x = torch.randn(n, generator=gen, device="cuda")
+    a = torch.sort(torch.randn(n // 2, generator=gen, device="cuda"),
+                   descending=True).values
+    b = torch.sort(torch.randn(n // 2, generator=gen, device="cuda"),
+                   descending=True).values
+    _, offs = seg_offsets(n, gen, longest=SHORT_MAX)
+    # no signed zeros: the key-only merges' max / min rule moves the sign
+    # bit of a zero (ROADMAP queue 3), which the bit checksum would see
+    runs, starts, lens = sorted_runs(ragged_lens(64, n, gen), gen,
+                                     keys=tie_keys)
+    roffs = torch.cat([starts, (starts[-1:] + lens[-1:])])
+    xe = torch.randn(1 << 22, generator=gen, device="cuda")
+    verify.reset_failures()
+    verify.enable_verify()
+    try:
+        def ops():
+            engine.sort(x)
+            engine.argsort(x)
+            engine.merge(a, b)
+            engine.segment_sort(x, offs)
+            engine.merge_runs(runs, roffs, variant="tree_cuda")
+            return engine.external_sort(xe, tile_elems=1 << 20, fan_in=8)
+        _, launches = counted(kernels, ops)
+        checks, fails = verify.checked(), verify.failures()
+        out = engine.sort(x)
+        verify.check_permutation(x, inject.bitflip(out, 1e-3, seed=SEED),
+                                 op="sort")
+        flip_fails = verify.failures() - fails
+    finally:
+        verify.disable_verify()
+        verify.reset_failures()
+    need = ("sort_chunks", "sort_chunks_kv", "merge_tree_runs",
+            "merge_tree_runs_kv", "flims_merge", "stream_merge_runs")
+    missing = [k for k in need if not launches.get(k)]
+    if fails or checks != 11 or flip_fails != 1 or missing:
+        raise AssertionError(f"chaos verify: {checks} checks, {fails} "
+                             f"failed, bit flip -> {flip_fails}, kernels "
+                             f"never launched {missing}: {launches}")
+    want = {"sort", "argsort", "merge", "segment_sort", "merge_runs",
+            "external_sort"}
+    before = fallback.demotions()
+    with inject.failing_variant("sort") as name:
+        got, stub_launches = counted(kernels,
+                                     lambda: engine.sort(x, variant=name))
+    demoted = fallback.demotions() - before
+    ref = engine.sort(x, variant="cuda")
+    if demoted != 1 or not bit_equal(got, ref) or not stub_launches:
+        raise AssertionError(f"chaos stub: {demoted} demotions, launches "
+                             f"{stub_launches}, equal {bit_equal(got, ref)}")
+    # poison: a reduced float32 decoder on the card, one poisoned request
+    # among three greedy ones, against the three served alone
+    cfg = get_config("qwen3_1p7b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    greedy = serve.SamplingParams(temperature=0.0)
+    prompts = [[1, 2, 10 * (i + 1)] for i in range(3)]
+    kw = dict(n_slots=4, max_seq=64, prefill_len=8, top_k_width=8)
+    good = [serve.Request(prompt=p, max_new_tokens=6, params=greedy, uid=i)
+            for i, p in enumerate(prompts)]
+    bad = serve.Request(prompt=[5, inject.POISON_TOKEN], max_new_tokens=6,
+                        params=greedy, uid=3)
+    done = {c.uid: c for c in serve.Scheduler(
+        inject.poison_model(model), params, **kw).run(good + [bad])}
+    alone = {c.uid: c for c in serve.Scheduler(model, params, **kw).run(
+        [serve.Request(prompt=p, max_new_tokens=6, params=greedy, uid=i)
+         for i, p in enumerate(prompts)])}
+    if done[3].status != "ERROR" or done[3].tokens or any(
+            done[i].status != "OK" or done[i].tokens != alone[i].tokens
+            for i in range(3)):
+        raise AssertionError("chaos poison: " + repr(done))
+    line = {"chaos": "verify, bit flip, failing variant, poison",
+            "verify_checks": checks, "verify_failures": fails,
+            "ops": sorted(want), "kernel_launches": launches,
+            "bitflip_failures": flip_fails,
+            "stub_demotions": demoted, "stub_rung": "cuda",
+            "stub_launches": stub_launches,
+            "poisoned_status": done[3].status,
+            "others_tokens_equal_alone": True}
+    print("chaos: " + json.dumps(line), flush=True)
+    return line, demoted
+
+
 def timed(name: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -2714,17 +3159,27 @@ def main() -> int:
                                     slice5, slice2)
     timed("families", phase_families, slice5)
     timed("serve zamba2", phase_serve_zamba2, engine, kernels, slice5)
+    tr = _import_train()
+    train_moe, train_k7 = timed("train moe", phase_train_moe, engine,
+                                kernels, slice5, tr)
+    timed("train", phase_train, kernels, slice5, tr)
+    _, chaos_demotions = timed("chaos", phase_chaos, engine, kernels, slice5,
+                               tr, gen)
     errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
     errs4 = {k: max(v, path_errs[k]) for k, v in errs4.items()}
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
     for row in table:
         if row["name"] == "moe_route":
-            # the serving path's K7 launches, and K7 at its route shapes
-            row["launches"] += serve_k7
+            # the serving and training paths' K7 launches, and K7 at its
+            # route shapes
+            row["launches"] += serve_k7 + train_k7
             row["serve_shapes"] = serve_k7_rows
-    if slice5[4].demotions():
-        raise AssertionError(f"{slice5[4].demotions()} fallback demotions")
+            row["train"] = dict(train_moe["k7"], launches=train_k7,
+                                backward="plain torch (route_backward)")
+    if slice5[4].demotions() != chaos_demotions:
+        raise AssertionError(f"{slice5[4].demotions()} fallback demotions, "
+                             f"{chaos_demotions} of them injected")
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

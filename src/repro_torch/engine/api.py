@@ -11,6 +11,9 @@ absorbs only ``torch.cuda.OutOfMemoryError``: on the card by running the
 same plan once more, on the CPU by moving down the variant ladder (a
 kernel's failure always reaches the caller). ``autotune`` times the registered variants on an example workload
 and installs the winner; ``run_op`` runs an op under an explicit plan.
+With ``guard.verify`` enabled (``REPRO_VERIFY=1``), ``sort``,
+``argsort``, ``merge``, ``segment_sort``, ``merge_runs`` and
+``external_sort`` check their results at the JAX package's sites.
 
 Every op runs on its input's device. A tensor stays where it is (or moves to
 ``device=`` when given); anything else (numpy arrays, lists) becomes a
@@ -50,6 +53,7 @@ from repro_torch.engine.planner import (Plan, _key_str, backend_of,
 from repro_torch.engine.schedule import MergeSchedule
 from repro_torch.guard import fallback as _fallback
 from repro_torch.guard import validate as _validate
+from repro_torch.guard import verify as _verify
 
 __all__ = ["sort", "argsort", "merge", "merge_runs", "topk", "sample_topp",
            "sample_minp", "segment_sort", "segment_argsort", "segment_merge",
@@ -188,10 +192,17 @@ def sort(x, *, descending: bool = True, values=None, stable: bool = False,
         perm = argsort(x if ik is None else ik, descending=descending,
                        plan=plan, variant=variant)
         keys = x[perm]
+        if ik is not None and _verify.verify_enabled():
+            _verify.check_sorted(ik[perm], descending=descending, op="sort")
+            _verify.check_permutation(x, keys, op="sort")
         return keys if values is None else (keys, _gather(perm, values))
     plan = _resolve("sort", plan, variant, x)
     out = _gcall("sort", plan, x)
-    return out if descending else torch.flip(out, [0])
+    out = out if descending else torch.flip(out, [0])
+    if _verify.verify_enabled():
+        _verify.check_sorted(out, descending=descending, op="sort")
+        _verify.check_permutation(x, out, op="sort")
+    return out
 
 
 def argsort(keys, *, descending: bool = True, nan: Optional[str] = None,
@@ -205,7 +216,13 @@ def argsort(keys, *, descending: bool = True, nan: Optional[str] = None,
     if ik is not None:
         keys = ik
     plan = _resolve("argsort", plan, variant, keys)
-    return _gcall("argsort", plan, keys, descending=descending)
+    perm = _gcall("argsort", plan, keys, descending=descending)
+    if _verify.verify_enabled():
+        _verify.check_permutation(
+            torch.arange(keys.shape[-1], dtype=torch.int32,
+                         device=keys.device).expand(keys.shape), perm,
+            op="argsort")
+    return perm
 
 
 def merge(a, b, *, descending: bool = True, values=None,
@@ -252,7 +269,11 @@ def merge(a, b, *, descending: bool = True, values=None,
     plan = _resolve("merge", plan, variant, a, b)
     if tie is not None and tie != plan.tie:
         plan = plan.replace(tie=tie)
-    return _gcall("merge", plan, a, b)
+    out = _gcall("merge", plan, a, b)
+    if _verify.verify_enabled():
+        _verify.check_sorted(out, descending=True, op="merge")
+        _verify.check_permutation(torch.cat([a, b]), out, op="merge")
+    return out
 
 
 def _merge_kv(a, b, values, descending, plan, variant):
@@ -313,8 +334,12 @@ def merge_runs(keys, run_offsets, *, descending: bool = True, values=None,
     if tie is not None and tie != plan.tie:
         plan = plan.replace(tie=tie)
     if values is None and not stable:
-        return _gcall("merge_runs", plan, keys, run_offsets,
-                      descending=descending)
+        out = _gcall("merge_runs", plan, keys, run_offsets,
+                     descending=descending)
+        if _verify.verify_enabled():
+            _verify.check_sorted(out, descending=descending, op="merge_runs")
+            _verify.check_permutation(keys, out, op="merge_runs")
+        return out
     if tie == "skew":
         raise _validate.EngineInputError(
             "merge_runs", "tie='skew' is key-only (stable order has no ties)",
@@ -445,7 +470,12 @@ def external_sort(keys, *, descending: bool = True, values=None,
         return sort(keys, descending=descending, values=values,
                     stable=stable)
     if values is None and not stable:
-        return _gcall("external_sort", plan, keys, descending=descending)
+        out = _gcall("external_sort", plan, keys, descending=descending)
+        if _verify.verify_enabled():
+            _verify.check_sorted(out, descending=descending,
+                                 op="external_sort")
+            _verify.check_permutation(keys, out, op="external_sort")
+        return out
     ranks = torch.arange(n, dtype=torch.int32, device=keys.device)
     mk, mr = _gcall("external_sort", plan, keys, descending=descending,
                     ranks=ranks)
@@ -505,6 +535,10 @@ def segment_sort(keys, offsets, *, descending: bool = True, values=None,
     out = _gcall("segment_sort", plan, keys, offsets)
     if not descending:
         out = segments.reverse_segments(out, offsets, keys.shape[0])
+    if _verify.verify_enabled():
+        _verify.check_segments(out, offsets, descending=descending,
+                               op="segment_sort")
+        _verify.check_permutation(keys, out, op="segment_sort")
     return out
 
 

@@ -185,6 +185,15 @@ class Planner:
     def is_quarantined(self, key: Key, plan: Plan) -> bool:
         return plan in self._quarantined.get(key, ())
 
+    def clear_quarantine(self, variant: Optional[str] = None) -> None:
+        """Drop the quarantine and infeasible records, all of them or only
+        those of ``variant`` (a chaos stub leaving)."""
+        for book in (self._quarantined, self._infeasible):
+            for plans in book.values():
+                for plan in [p for p in plans
+                             if variant is None or p.variant == variant]:
+                    plans.discard(plan)
+
     # -- persistence --------------------------------------------------------
     def to_table(self) -> dict:
         return {_key_str(k): p.to_dict() for k, p in self._plans.items()}

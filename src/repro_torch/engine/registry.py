@@ -40,6 +40,12 @@ def register(op: str, name: str):
     return deco
 
 
+def unregister(op: str, name: str) -> None:
+    """Remove a registered variant (``guard.inject.failing_variant``'s stubs
+    leave through this; an unknown name is a no-op)."""
+    _REGISTRY.get(op, {}).pop(name, None)
+
+
 def get(op: str, name: str) -> Callable:
     try:
         return _REGISTRY[op][name]

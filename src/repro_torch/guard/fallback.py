@@ -1,9 +1,10 @@
-"""Variant fallback ladder: absorb an out-of-memory error, never hide a
-kernel.
+"""Variant fallback ladder: absorb an out-of-memory error or an injected
+fault, never hide a kernel.
 
 Counterpart of ``repro/guard/fallback.py``. ``registry.call`` trusts the
 resolved plan; :func:`guarded_call` wraps it. :func:`recoverable` is true
-only for ``torch.cuda.OutOfMemoryError``; everything else propagates:
+only for ``torch.cuda.OutOfMemoryError`` and for a
+``guard.inject.InjectedFault`` (a chaos stub); everything else propagates:
 
 - ``KernelError`` (a failed ``nvcc`` build, a refusal before launch, a CUDA
   error returned by a launch);
@@ -12,13 +13,15 @@ only for ``torch.cuda.OutOfMemoryError``; everything else propagates:
 - ``EngineInputError`` and its subclasses (a malformed call fails the same
   way on every variant).
 
-What an out-of-memory error does depends on where the tensors are:
+What a recoverable error does depends on where the tensors are:
 
-- **On the card** the variant is never changed, since every rung below a
-  kernel is a plain torch version that needs more memory, and moving a call
-  off its kernel would hide the kernel. The cache allocator is emptied and
-  the same plan runs once more (a ``guard.oom_retry`` event and counter);
-  a second failure reaches the caller.
+- **On the card** an out-of-memory error never changes the variant, since
+  every rung below a kernel is a plain torch version that needs more
+  memory, and moving a call off its kernel would hide the kernel. The
+  cache allocator is emptied and the same plan runs once more (a
+  ``guard.oom_retry`` event and counter); a second failure reaches the
+  caller. An injected fault demotes the call to the next rung, as on the
+  CPU.
 - **On the CPU** every variant is a plain version, so the call moves down
   the op's ladder: the resolved variant first, the other registered
   variants, and the op's reference variant (``torch``; ``ref`` for the
@@ -44,6 +47,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.core.butterfly import tree_leaves
+from repro_torch.guard.inject import InjectedFault
 from repro_torch.guard.validate import EngineInputError
 
 __all__ = ["guarded_call", "recoverable", "reference_variant", "demotions"]
@@ -60,10 +64,11 @@ def reference_variant(op: str) -> str:
 
 def recoverable(exc: BaseException) -> bool:
     """May the guard absorb this failure? Only running out of device
-    memory: any other error, a kernel's above all, reaches the caller."""
+    memory, or an injected fault: any other error, a kernel's above all,
+    reaches the caller."""
     if isinstance(exc, EngineInputError):
         return False
-    return isinstance(exc, torch.cuda.OutOfMemoryError)
+    return isinstance(exc, (torch.cuda.OutOfMemoryError, InjectedFault))
 
 
 def demotions() -> int:
@@ -119,9 +124,7 @@ def _card_call(op: str, plan, key, args, kw):
     from repro_torch.engine.planner import _key_str
     try:
         return registry.call(op, plan.variant, *args, plan=plan, **kw)
-    except Exception as e:
-        if not recoverable(e):
-            raise
+    except torch.cuda.OutOfMemoryError as e:
         torch.cuda.empty_cache()
         obs.inc("guard.oom_retry")
         obs.event("guard.oom_retry", op=op, variant=plan.variant,
@@ -133,15 +136,15 @@ def _card_call(op: str, plan, key, args, kw):
 def guarded_call(op: str, plan, *args, **kw):
     """``registry.call`` under the guard: dispatch ``op`` with ``plan``
     (passed down as ``plan=``). On the card an out-of-memory error retries
-    the plan once; on the CPU it quarantines the plan and moves to the next
+    the plan once and an injected fault moves to the next rung; on the CPU
+    every recoverable error quarantines the plan and moves to the next
     rung. The last rung's failure, and every error :func:`recoverable`
     refuses, propagates."""
     from repro_torch.engine import registry
     from repro_torch.engine.planner import _key_str, default_planner
 
     key = _bucket(op, args)
-    if _on_card(key, args):
-        return _card_call(op, plan, key, args, kw)
+    on_card = _on_card(key, args)
     rungs = _ladder(op, plan)
     for i, variant in enumerate(rungs):
         last_rung = i + 1 == len(rungs)
@@ -152,9 +155,13 @@ def guarded_call(op: str, plan, *args, **kw):
             _demote(op, key, variant, rungs[i + 1], "quarantined")
             continue
         try:
+            if on_card:
+                return _card_call(op, p, key, args, kw)
             return registry.call(op, p.variant, *args, plan=p, **kw)
         except Exception as e:
-            if last_rung or not recoverable(e):
+            demotes = isinstance(e, InjectedFault) if on_card \
+                else recoverable(e)
+            if last_rung or not demotes:
                 raise
             if key is not None:
                 default_planner.quarantine(key, p)

@@ -62,57 +62,88 @@ def _node_index(group: int):
     return {(lo, hi): idx for lo, mid, hi, idx in _tree_nodes(group)}
 
 
-def _tree_fns(buf, rbuf, starts_g, lens_g, *, steps: int, descending: bool):
-    """(elem, corank, node_len) over one group's leaves, vectorised over
-    grid steps (``starts_g[j]`` / ``lens_g[j]`` are (G,) tensors).
+def _tree_fns(buf, rbuf, starts_u, lens_u, *, steps: int, descending: bool):
+    """(elem, corank, materialize) over one tree's leaves in every distinct
+    group (``starts_u[j]`` / ``lens_u[j]`` are (U,) tensors); each index
+    comes with ``u``, the group of each of its entries.
 
-    ``elem(lo, hi, i)`` is element ``i`` of the node's merged sequence under
-    the selector's order, guarded past both ends; ``corank(lo, mid, hi, o)``
+    ``elem(lo, hi, i, u)`` is element ``i`` of the node's merged sequence
+    under the selector's order, guarded past both ends (an inner node reads
+    the table ``materialize(lo, hi)`` made); ``corank(lo, mid, hi, o, u)``
     the left child's count among the node's top-``o``, found in ``steps``
-    binary-search steps."""
+    binary-search steps. A table holds the node's merged sequence of every
+    group, each element found by the co-rank search over its children's:
+    the nested search stays one level deep, where searching through the
+    children's own searches costs ``steps ** depth`` reads."""
     kv = rbuf is not None
     wins = wins_fn(kv, descending)
+    tables = {}
 
-    def node_len(lo, hi):
-        return sum(lens_g[j] for j in range(lo, hi))
+    def node_len(lo, hi, u):
+        return sum(lens_u[j][u] for j in range(lo, hi))
 
-    def elem(lo, hi, i):
+    def elem(lo, hi, i, u):
         if hi - lo == 1:
-            return run_elem(buf, rbuf, starts_g[lo], lens_g[lo], i,
+            return run_elem(buf, rbuf, starts_u[lo][u], lens_u[lo][u], i,
                             descending)
-        mid = (lo + hi) // 2
-        ln = node_len(lo, hi)
-        c = corank(lo, mid, hi, torch.minimum(i.clamp(min=0), ln))
-        ea, eb = elem(lo, mid, c), elem(mid, hi, i - c)
-        take = wins(ea, eb)
-        out = tuple(torch.where(take, xa, xb) for xa, xb in zip(ea, eb))
-        return guard(out, i, ln, kv, descending)
+        lanes, off = tables[(lo, hi)]
+        ln = node_len(lo, hi, u)
+        src = off[u] + torch.minimum(i.clamp(min=0), (ln - 1).clamp(min=0))
+        return guard(tuple(x[src] for x in lanes), i, ln, kv, descending)
 
-    def corank(lo, mid, hi, o):
-        la, lb = node_len(lo, mid), node_len(mid, hi)
+    def corank(lo, mid, hi, o, u):
+        la, lb = node_len(lo, mid, u), node_len(mid, hi, u)
         lo_b, hi_b = (o - lb).clamp(min=0), torch.minimum(o, la)
         for _ in range(steps):
             m = (lo_b + hi_b + 1) // 2
-            ok = wins(elem(lo, mid, m - 1), elem(mid, hi, o - m))
+            ok = wins(elem(lo, mid, m - 1, u), elem(mid, hi, o - m, u))
             lo_b, hi_b = torch.where(ok, m, lo_b), torch.where(ok, hi_b, m - 1)
         return lo_b
 
-    return elem, corank, node_len
+    def materialize(lo, hi):
+        mid = (lo + hi) // 2
+        for clo, chi in ((lo, mid), (mid, hi)):
+            if chi - clo > 1:
+                materialize(clo, chi)
+        ln = node_len(lo, hi, torch.arange(lens_u[0].shape[0],
+                                           device=lens_u[0].device))
+        off = _exclusive_cumsum(ln)
+        u = torch.repeat_interleave(torch.arange(ln.shape[0],
+                                                 device=ln.device), ln)
+        i = torch.arange(u.shape[0], device=ln.device) - off[u]
+        c = corank(lo, mid, hi, i, u)
+        ea, eb = elem(lo, mid, c, u), elem(mid, hi, i - c, u)
+        take = wins(ea, eb)
+        # one spare element past the last group: an empty group's reads
+        # (all guarded) index it
+        tables[(lo, hi)] = (tuple(
+            torch.cat([torch.where(take, xa, xb), xa.new_zeros(1)])
+            for xa, xb in zip(ea, eb)), off)
+
+    return elem, corank, materialize
 
 
 def _tree_meta(starts_g, lens_g, o, buf, rbuf, *, group: int, w: int,
                steps: int, descending: bool):
     """The nested partition of every grid step (``_tree_meta_one``): the
     aligned start of each leaf and, per internal node in preorder, the
-    (left, right) initial rotations."""
-    _, corank, _ = _tree_fns(buf, rbuf, starts_g, lens_g, steps=steps,
-                             descending=descending)
+    (left, right) initial rotations. The searches run once per distinct
+    group of the grid steps' leaves."""
+    rows = torch.stack(list(starts_g) + list(lens_g), dim=1)
+    uniq, u = torch.unique(rows, dim=0, return_inverse=True)
+    _, corank, materialize = _tree_fns(
+        buf, rbuf, list(uniq[:, :group].unbind(1)),
+        list(uniq[:, group:].unbind(1)), steps=steps, descending=descending)
+    mid = group // 2
+    for clo, chi in ((0, mid), (mid, group)):
+        if chi - clo > 1:
+            materialize(clo, chi)
     leaf_base = [None] * group
     rots = []
 
     def assign(lo, hi, a):
         mid = (lo + hi) // 2
-        sx = corank(lo, mid, hi, a)
+        sx = corank(lo, mid, hi, a, u)
         sy = a - sx
         rots.append((sx % w, sy % w))
         for clo, chi, s in ((lo, mid, sx), (mid, hi, sy)):

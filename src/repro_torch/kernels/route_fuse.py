@@ -23,6 +23,20 @@ ascending, then pair position): experts, tokens, perm (int32), weights
 (float32), slabs (``e * cap + rank``, or ``E * cap`` when dropped) and keep
 (int32). The integer lanes are exact; the weights differ between the three
 only by the ulps of their ``exp`` and of the order of the softmax sum.
+
+Gradient: ``moe_route`` and ``moe_route_plain`` are one
+``torch.autograd.Function`` (:class:`RouteFn`), whose forward is K7 on the
+card and the plain version elsewhere, and whose backward maps the gradient
+of the weights lane to the (G, T, E) logits; the integer lanes take none.
+It is the JAX gradient of ``softmax(top_k(logits))``: for the k picks
+``e_j`` of a token, ``dlogit[t, e_j] += w_j * (g_j - sum_i w_i g_i)``,
+and 0 for every logit not picked. The backward is plain torch over the
+T*k pairs, as the JAX package's is XLA autodiff of plain ops (it has no
+backward kernel). It scatter-adds by expert id, since the fused rule can
+pick one expert more than once (only where every unpicked key is
+INT32_MIN, NaN logits); two addends give the same float32 sum in either
+order, more than two may add in a run-dependent order on the card.
+``moe_route_torch`` differentiates through autograd of its own ops.
 """
 from __future__ import annotations
 
@@ -35,7 +49,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic_sort import _bitonic_rows_kv
 
 __all__ = ["moe_route", "moe_route_plain", "moe_route_torch", "topk_softmax",
-           "untwist", "MAX_PAIRS"]
+           "untwist", "route_backward", "RouteFn", "MAX_PAIRS"]
 
 #: the most (padded) pairs a token group may have on the card, the limit of
 #: the JAX kernel's VMEM-resident sort (a larger group needs the multi-CTA
@@ -136,18 +150,59 @@ def _moe_route(logits, k, capacity, cuda):
     return _route_plain(logits, k, int(capacity), G, T, E, N, Np)
 
 
+def route_backward(g_w, experts, perm, weights, shape, k: int):
+    """The (G, T, E) gradient of the logits from the gradient ``g_w`` of
+    the (G, T*k) sorted weights lane: un-sort the pairs by ``perm`` into
+    (G, T, k), take the softmax's gradient per token and scatter-add it by
+    expert id into zeros."""
+    G, T, E = shape
+    p = perm.long()
+    unsort = lambda lane: torch.empty_like(lane).scatter_(-1, p, lane).view(
+        G, T, k)
+    w, g = unsort(weights), unsort(g_w.to(weights.dtype))
+    e = unsort(experts.long())
+    d = w * (g - (w * g).sum(-1, keepdim=True))
+    return torch.zeros(shape, dtype=weights.dtype,
+                       device=weights.device).scatter_add_(-1, e, d)
+
+
+class RouteFn(torch.autograd.Function):
+    """K7 (``cuda=True``) or its plain version, differentiable in the
+    weights lane (:func:`route_backward`)."""
+
+    @staticmethod
+    def forward(ctx, logits, k: int, capacity: int, cuda: bool):
+        outs = _moe_route(logits, k, capacity, cuda)
+        experts, _, perm, weights = outs[:4]
+        ctx.save_for_backward(experts, perm, weights)
+        ctx.shape, ctx.k = tuple(logits.shape), k
+        ctx.mark_non_differentiable(*(outs[:3] + outs[4:]))
+        return outs
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g_w = grads[3]
+        if g_w is None:
+            return None, None, None, None
+        experts, perm, weights = ctx.saved_tensors
+        return (route_backward(g_w, experts, perm, weights, ctx.shape,
+                               ctx.k), None, None, None)
+
+
 @obs.scoped("kernels.route_fuse")
 def moe_route(logits: torch.Tensor, k: int, capacity: int):
     """Fused routing of (G, T, E) float32 router logits (counterpart of
     ``moe_route_pallas``). Returns, each (G, T*k) in stable sorted pair
     order: ``(experts, tokens, perm, weights, slabs, keep)``. On the card
-    T*k pads to at most ``MAX_PAIRS``."""
-    return _moe_route(logits, k, capacity, logits.is_cuda)
+    T*k pads to at most ``MAX_PAIRS``. Differentiable in the weights
+    lane."""
+    return RouteFn.apply(logits, k, capacity, logits.is_cuda)
 
 
 def moe_route_plain(logits: torch.Tensor, k: int, capacity: int):
-    """``moe_route``' plain version, on any device."""
-    return _moe_route(logits, k, capacity, False)
+    """``moe_route``' plain version, on any device, with the same
+    gradient."""
+    return RouteFn.apply(logits, k, capacity, False)
 
 
 def topk_softmax(logits: torch.Tensor, k: int):

@@ -1,1 +1,3 @@
-"""Launch-side helpers of the port: the streaming-traffic roofline model."""
+"""Launch-side code of the port: the step factories (``steps``), the
+trainer (``train``) and the serving CLI (``serve``), and the
+streaming-traffic roofline model (``roofline``)."""

@@ -5,7 +5,9 @@ configuration files under ``repro_torch/configs`` are copies of the JAX
 package's, published widths and all. The MoE layer reads ``d_model``,
 ``d_ff`` / ``moe_d_ff``, ``n_experts``, ``n_experts_active``, ``moe_path``
 and ``param_dtype``; ``reduced()`` gives the same family at smoke-test
-size. ``torch_dtype`` maps a dtype name to torch's.
+size. ``TrainConfig`` is the JAX package's, field for field; only
+``grad_compression="none"`` is taken until the sharded ops are ported
+(ROADMAP queue 1 item 4). ``torch_dtype`` maps a dtype name to torch's.
 """
 from __future__ import annotations
 
@@ -93,3 +95,30 @@ class ModelConfig:
             base["n_layers"] = 2 * self.slstm_every
         base.update(kw)
         return dataclasses.replace(self, **base)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    b1: float = 0.9
+    b2: float = 0.95
+    z_loss: float = 1e-4
+    microbatch: int = 0            # 0 = no gradient accumulation
+    grad_compression: str = "none" # "none" | "int8_ef" (not ported yet)
+    checkpoint_every: int = 100
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    async_checkpoint: bool = True
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.grad_compression != "none":
+            raise ValueError(
+                f"grad_compression={self.grad_compression!r}: only 'none' "
+                "runs in the port; int8 error-feedback compression needs "
+                "the sharded ops (ROADMAP queue 1 item 4)")

@@ -10,6 +10,9 @@ float32, ``wi`` / ``wg`` (E, d, f), ``wo`` (E, f, d) in the config's
 parameter dtype), and returns the port's tensors on ``device``. numpy holds
 a bf16 array as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses:
 its bits go through ``uint16`` and are viewed as ``torch.bfloat16``.
+``opt_state_from_jax`` carries a JAX ``AdamWState`` (its step, ``m``, ``v``
+and ``master`` as numpy) into the port's ``optim.AdamWState``, so a JAX
+step and a port step start from the same state.
 """
 from __future__ import annotations
 
@@ -60,3 +63,13 @@ def encdec_params_from_jax(p_np, device="cuda"):
     if missing:
         raise ValueError(f"not an encoder-decoder tree: no {sorted(missing)}")
     return _tree_from_jax(p_np, device)
+
+
+def opt_state_from_jax(state_np, device="cuda"):
+    """A JAX ``AdamWState`` (a NamedTuple of ``step``, ``m``, ``v``,
+    ``master``; leaves as numpy arrays) as the port's, layout kept."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(tensor_from_numpy(state_np.step, device),
+                      _tree_from_jax(state_np.m, device),
+                      _tree_from_jax(state_np.v, device),
+                      _tree_from_jax(state_np.master, device))

@@ -7,7 +7,9 @@ where Whisper has learned / sinusoidal absolute embeddings. The encoder
 attends without a mask; each decoder block is causal self attention, cross
 attention over the encoder states (no mask, no RoPE) and a GeGLU MLP.
 Decoding reads the cross keys and values from a cache filled once per
-prompt (``encdec_fill_cross_cache``), its queries at position 0.
+prompt (``encdec_fill_cross_cache``), its queries at position 0. Each
+encoder and decoder block runs under ``transformer.remat`` (recomputed in
+the backward under ``cfg.remat`` while a gradient is taken).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ from repro_torch.models.config import torch_dtype
 from repro_torch.models.layers import (embed_init, mlp_geglu, mlp_init,
                                        rmsnorm, rmsnorm_init)
 from repro_torch.models.transformer import (_at, _attn_cache_init, _bcast,
-                                            _stack, _stacked)
+                                            _stack, _stacked, remat)
 
 
 def _enc_block_init(gen, cfg, device):
@@ -67,13 +69,18 @@ def encode(params, frames, cfg):
     B, Sf, _ = frames.shape
     pos = _positions(B, Sf, frames.device)
     x = frames.to(torch_dtype(cfg.compute_dtype))
-    for i in range(cfg.n_encoder_layers or cfg.n_layers):
+
+    def block(x, i):
         bp = _at(params["enc_blocks"], i)
         h = rmsnorm(x, bp["attn_norm"], cfg.norm_eps)
         x = x + attn.attn_apply(bp["attn"], h, cfg, positions=pos,
                                 causal=False)
         h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_geglu(h, bp["mlp"])
+        return x + mlp_geglu(h, bp["mlp"])
+
+    block = remat(block, params, cfg)
+    for i in range(cfg.n_encoder_layers or cfg.n_layers):
+        x = block(x, i)
     return rmsnorm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -82,14 +89,19 @@ def decode_train(params, enc_out, tokens, cfg):
     B, St = tokens.shape
     x = params["embed"][tokens.long()].to(torch_dtype(cfg.compute_dtype))
     pos = _positions(B, St, tokens.device)
-    for i in range(cfg.n_layers):
+
+    def block(x, i):
         bp = _at(params["dec_blocks"], i)
         h = rmsnorm(x, bp["self_norm"], cfg.norm_eps)
         x = x + attn.attn_apply(bp["self"], h, cfg, positions=pos)
         h = rmsnorm(x, bp["cross_norm"], cfg.norm_eps)
         x = x + attn.cross_attn_apply(bp["cross"], h, enc_out, cfg)
         h = rmsnorm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + mlp_geglu(h, bp["mlp"])
+        return x + mlp_geglu(h, bp["mlp"])
+
+    block = remat(block, params, cfg)
+    for i in range(cfg.n_layers):
+        x = block(x, i)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 

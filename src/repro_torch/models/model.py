@@ -1,6 +1,7 @@
-"""The model API: ``init`` / ``forward`` / ``init_cache`` / ``prefill`` /
-``decode_step`` of every architecture of ``repro_torch.configs``
-(counterpart of ``repro/models/model.py``).
+"""The model API: ``init`` / ``forward`` / ``train_loss`` / ``init_cache`` /
+``prefill`` / ``decode_step`` of every architecture of
+``repro_torch.configs`` (counterpart of ``repro/models/model.py``), and the
+serving sampler ``sample_topk``.
 
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
@@ -13,9 +14,14 @@
 its device (or ``device=``); everything else runs where its inputs are.
 A decoder's batch may carry ``"vision"`` (B, P, d) patch embeddings, put
 before the tokens when the config has ``n_vision_tokens``; the
-encoder-decoder's carries ``"frames"`` (B, S_frames, d). ``train_loss``
-and the chunked cross-entropy wait for the training slice (ROADMAP queue
-1 item 5).
+encoder-decoder's carries ``"frames"`` (B, S_frames, d).
+
+``train_loss(params, batch)`` returns ``(ce + 1e-4 * z_loss, {"ce": ce})``
+over ``batch["targets"]`` and ``batch["mask"]``: the cross-entropy of the
+tied head with a z-loss, by ``_chunked_ce`` over sequence chunks of 512, so
+that only one chunk's (B, c, V) float32 logits is held; under
+``cfg.remat`` each chunk (and each block, ``transformer.remat``) is
+recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -27,7 +33,49 @@ import torch
 from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig, torch_dtype
-from repro_torch.models.layers import embed_lookup
+from repro_torch.models.layers import embed_lookup, softcap
+
+
+# --------------------------------------------------------------------------
+# losses
+# --------------------------------------------------------------------------
+
+def _chunked_ce(params, h, targets, mask, cfg, chunk: int = 512):
+    """Cross-entropy and z-loss of the tied head, summed over sequence
+    chunks (S halved from ``chunk`` until it divides) in order, then
+    divided by the mask's total. h: (B, S, d); targets / mask: (B, S).
+    Returns ``(ce, z_loss)`` float32 scalars."""
+    B, S, _ = h.shape
+    c = min(chunk, S)
+    while S % c:
+        c //= 2
+    mask = mask.float()
+
+    def one(hc, tc, mc):
+        logits = softcap((hc @ params["embed"].T).float(), cfg.logit_softcap)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, tc.long()[..., None])[..., 0]
+        return ((lse - gold) * mc).sum(), (lse.square() * mc).sum(), mc.sum()
+
+    one = tf.remat(one, params, cfg)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
+    loss, zsum, cnt = zero, zero, zero
+    for i in range(S // c):
+        sl = slice(i * c, (i + 1) * c)
+        dl, dz, dc = one(h[:, sl], targets[:, sl], mask[:, sl])
+        loss, zsum, cnt = loss + dl, zsum + dz, cnt + dc
+    cnt = torch.clamp(cnt, min=1.0)
+    return loss / cnt, zsum / cnt
+
+
+def _loss(params, h, batch, cfg):
+    targets = batch["targets"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(targets.shape, dtype=torch.float32,
+                          device=targets.device)
+    ce, zl = _chunked_ce(params, h, targets, mask, cfg)
+    return ce + 1e-4 * zl, {"ce": ce}
 
 
 def build_model(cfg: ModelConfig) -> SimpleNamespace:
@@ -61,6 +109,13 @@ def _build_decoder(cfg: ModelConfig) -> SimpleNamespace:
         x, pos = _embed_inputs(params, batch, cfg)
         return tf.decoder_forward(params, x, cfg, pos)
 
+    def train_loss(params, batch):
+        """Next-token loss over the text positions (the vision prefix's
+        hidden states are dropped)."""
+        h = forward(params, batch)
+        P = cfg.n_vision_tokens if "vision" in batch else 0
+        return _loss(params, h[:, P:, :], batch, cfg)
+
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         return tf.decoder_cache_init(cfg, batch_size, max_seq, device)
 
@@ -77,8 +132,8 @@ def _build_decoder(cfg: ModelConfig) -> SimpleNamespace:
         return tf.lm_logits(params, h, cfg)[:, 0, :], cache
 
     return SimpleNamespace(cfg=cfg, init=init, forward=forward,
-                           init_cache=init_cache, prefill=prefill,
-                           decode_step=decode_step)
+                           train_loss=train_loss, init_cache=init_cache,
+                           prefill=prefill, decode_step=decode_step)
 
 
 def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
@@ -89,6 +144,9 @@ def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
         """Decoder hidden states (B, St, d) over the encoded frames."""
         enc = ed.encode(params, batch["frames"], cfg)
         return ed.decode_train(params, enc, batch["tokens"], cfg)
+
+    def train_loss(params, batch):
+        return _loss(params, forward(params, batch), batch, cfg)
 
     def init_cache(batch_size: int, max_seq: int, enc_len: int = 1500,
                    device="cuda"):
@@ -112,5 +170,29 @@ def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
         return tf.lm_logits(params, h, cfg)[:, 0, :], cache
 
     return SimpleNamespace(cfg=cfg, init=init, forward=forward,
-                           init_cache=init_cache, prefill=prefill,
-                           decode_step=decode_step)
+                           train_loss=train_loss, init_cache=init_cache,
+                           prefill=prefill, decode_step=decode_step)
+
+
+# --------------------------------------------------------------------------
+# sampling
+# --------------------------------------------------------------------------
+
+def sample_topk(generator, logits, k: int = 64, temperature: float = 1.0,
+                use_flims=None):
+    """logits (B, V) -> sampled token ids (B,) int32: one ``engine.topk``
+    call, then Gumbel-max over the sorted prefix
+    (``serve.sampler.sorted_prefix_sample``); greedy (``temperature <=
+    0``) is index 0 of the prefix. ``generator`` (a ``torch.Generator`` on
+    the logits' device) stands where the JAX function takes a key;
+    ``use_flims`` pins the top-k variant (True -> ``flims``, False ->
+    ``torch``, None -> the planner's choice)."""
+    from repro_torch import engine
+    from repro_torch.serve.sampler import SamplingState, sorted_prefix_sample
+    variant = None if use_flims is None else ("flims" if use_flims
+                                              else "torch")
+    vals, idx = engine.topk(logits, min(k, logits.shape[-1]),
+                            variant=variant)
+    state = SamplingState.full(logits.shape[0], temperature=temperature,
+                               device=logits.device)
+    return sorted_prefix_sample(generator, vals, idx.to(torch.int32), state)

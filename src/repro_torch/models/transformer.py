@@ -20,12 +20,20 @@ decode cache has its batch on one axis, which ``serve.kv_cache`` finds by
 itself: axis 1 of the attention caches (layers, B, W, K, hd) and of the
 Mamba2 and sLSTM states, axis 2 of the mLSTM states (groups, k - 1, B,
 ...).
+
+Remat: under ``cfg.remat``, while a gradient is taken (grad mode on and
+the parameters require grad), each unit the JAX package wraps in
+``jax.checkpoint`` (a block; a Zamba2, xLSTM or Gemma-2 group) runs under
+``torch.utils.checkpoint`` (:func:`remat`): only its input is kept, and the
+backward recomputes its activations. Decode, prefill and inference run as
+they are.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.butterfly import tree_map
 from repro_torch.models import attention as attn
@@ -129,31 +137,55 @@ def _apply_mixer_block(p, x, cfg, kind: str):
     return x + mixer(p[kind], rmsnorm(x, p["norm"], cfg.norm_eps), cfg)
 
 
+def remat(fn, params, cfg):
+    """``fn`` as it is, or under ``torch.utils.checkpoint`` when
+    ``cfg.remat`` is set and a gradient is being taken (grad mode on, the
+    parameters requiring grad)."""
+    if not (cfg.remat and torch.is_grad_enabled()
+            and params["final_norm"].requires_grad):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def decoder_forward(params, x, cfg, positions):
     """Backbone over embedded input x: (B, S, d) -> (B, S, d) normalised."""
     L = cfg.n_layers
     if cfg.arch_kind == "mamba_hybrid":
         k = cfg.hybrid_attn_every
-        for g in range(L // k):
+
+        def group(x, g):
             x = _apply_attn_block(params["shared_attn"], x, cfg, positions, 0)
             for i in range(g * k, (g + 1) * k):
                 x = _apply_mixer_block(layer(params, i), x, cfg, "mamba")
+            return x
+
+        n, unit = L // k, group
     elif cfg.arch_kind == "xlstm":
-        for g in range(L // cfg.slstm_every):
+        def group(x, g):
             mp = _at(params["mlstm"], g)
             for j in range(cfg.slstm_every - 1):
                 x = _apply_mixer_block(_at(mp, j), x, cfg, "mlstm")
-            x = _apply_mixer_block(_at(params["slstm"], g), x, cfg, "slstm")
+            return _apply_mixer_block(_at(params["slstm"], g), x, cfg,
+                                      "slstm")
+
+        n, unit = L // cfg.slstm_every, group
     elif cfg.local_global_alternate:
-        for g in range(L // 2):
+        def group(x, g):
             x = _apply_attn_block(_at(params["local"], g), x, cfg, positions,
                                   cfg.sliding_window)
-            x = _apply_attn_block(_at(params["global"], g), x, cfg,
-                                  positions, 0)
+            return _apply_attn_block(_at(params["global"], g), x, cfg,
+                                     positions, 0)
+
+        n, unit = L // 2, group
     else:
-        for i in range(L):
-            x = _apply_attn_block(layer(params, i), x, cfg, positions,
-                                  cfg.sliding_window)
+        def block(x, i):
+            return _apply_attn_block(layer(params, i), x, cfg, positions,
+                                     cfg.sliding_window)
+
+        n, unit = L, block
+    unit = remat(unit, params, cfg)
+    for i in range(n):
+        x = unit(x, i)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps)
 
 

@@ -1199,3 +1199,94 @@ def test_slot_kv_insert_xlstm_on_card(card):
         for s in (0, 1, 3):
             assert torch.equal(leaf.narrow(ax, s, 1), old.narrow(ax, s, 1))
     assert {ax for ax in tree_leaves(kv.axes)} == {1, 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n_tok,E,k,cap,per_row", [
+    (1, 2048, 64, 6, 241, None), (1, 2048, 64, 6, 241, 60),
+    (2, 16, 8, 6, 5, 3), (1, 1, 4, 4, 8, 2)])
+def test_k7_backward_matches_plain(card, G, n_tok, E, k, cap, per_row):
+    """K7's autograd Function against the plain version's on the card, at
+    Moonlight's grouped route shape and on logits whose monotone key is
+    INT32_MIN (a repeated pick, a NaN weight): the (G, T, E) gradient of
+    the logits NaN at the same places and within rtol 1e-5 / atol 1e-7
+    elsewhere (the weights differ by a few float32 ulps), zero where no
+    pair was picked; the forward launched K7 once."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    rng = np.random.default_rng(G * n_tok + E + k)
+    lg = rng.standard_normal((G, n_tok, E)).astype(np.float32)
+    if per_row is not None:
+        pick = np.argsort(rng.random((G, n_tok, E)), axis=-1)[..., :per_row]
+        np.put_along_axis(lg.view(np.int32), pick, -1, axis=-1)
+    g_w = T(rng.standard_normal((G, n_tok * k)).astype(np.float32)).to(card)
+    grads = []
+    for fn in (TR.moe_route, TR.moe_route_plain):
+        x = T(lg).to(card).requires_grad_(True)
+        reset_launches()
+        out = fn(x, k, cap)
+        launches = launch_counts()
+        gx, = torch.autograd.grad((out[3] * g_w).sum(), x)
+        grads.append((gx, out, launches))
+    (got, out_k, l_k), (ref, out_p, l_p) = grads
+    assert l_k == {"moe_route": 1} and l_p == {}
+    _route_same(out_k, out_p, "forward")
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(got), nan)
+    torch.testing.assert_close(got[~nan], ref[~nan], rtol=1e-5, atol=1e-7)
+    picked = torch.zeros_like(ref, dtype=torch.bool)
+    picked.view(G, -1).scatter_(
+        -1, (out_p[1].long() * E + out_p[0].long()), True)
+    assert (got[~picked] == 0).all()
+    if per_row is None:
+        assert float(got.abs().sum()) > 0
+
+
+@pytest.mark.cuda
+def test_reduced_train_step_on_card_matches_cpu(card):
+    """One ``make_train_step`` step of reduced float32 Moonlight-16B-A3B
+    (grouped routing: K7 on the card, the ``torch`` route on the CPU) from
+    the same weights, state and batch: the loss within rtol 1e-5, every
+    gradient leaf (the router's included) within 1e-4 relative Frobenius,
+    ``grad_norm`` within rtol 1e-4; K7 launched in the step. The updated
+    parameters: each leaf within 1e-5 relative Frobenius of the CPU step's,
+    every element within 2 * lr. Adam's first update is lr * g / (|g| +
+    eps) per element, so an element whose gradient is near 0 can move by
+    up to 2 * lr when its float32 rounding differs between the devices
+    (one element of 65536 moved 1.7e-5 on an H100)."""
+    from repro_torch import engine
+    from repro_torch.configs import get_config
+    from repro_torch.core.butterfly import tree_leaves, tree_map
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels import launch_counts, reset_launches
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.optim import adamw_init
+    cfg = get_config("moonshot_v1_16b_a3b").reduced()
+    tcfg = TrainConfig(global_batch=2, seq_len=64, lr=1e-3, warmup_steps=1,
+                       total_steps=10)
+    model, step = make_train_step(cfg, tcfg)
+    p_cpu = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=1, device="cpu").batch(0)
+    out = {}
+    engine.clear_plans()
+    for dev in ("cpu", card):
+        # a copy on either device: the step updates its tensors in place
+        params = tree_map(lambda t: t.to(dev, copy=True), p_cpu)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        _, _, grads = loss_and_grads(model, params, b)
+        reset_launches()
+        params, opt, met = step(params, adamw_init(params), b)
+        out[str(dev)] = (met, [g.cpu() for g in grads],
+                         [t.cpu() for t in tree_leaves(params)],
+                         launch_counts())
+    (m0, g0, p0, l0), (m1, g1, p1, l1) = out["cpu"], out[str(card)]
+    assert l0 == {} and l1.get("moe_route", 0) > 0
+    np.testing.assert_allclose(float(m1["loss"]), float(m0["loss"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(float(m1["grad_norm"]), float(m0["grad_norm"]),
+                               rtol=1e-4)
+    for a, b in zip(g1, g0):
+        assert float((a - b).norm() / max(float(b.norm()), 1e-30)) <= 1e-4
+    for a, b in zip(p1, p0):
+        torch.testing.assert_close(a, b, rtol=0, atol=2 * tcfg.lr)
+        assert float((a - b).norm() / max(float(b.norm()), 1e-30)) <= 1e-5
