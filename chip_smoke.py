@@ -67,6 +67,26 @@ the CUDA toolkit. It
      has MLA, 48 layers where it has 27, no shared experts beside the 64
      routed where it has 2, no dense first layer, softmax routing where it
      scores by sigmoid, and a tied head where its head is untied;
+   - the mesh (``phase_mesh``; K9, K4, K3 and K7 in every rank): 4 ranks
+     spawned on the one card under gloo, so every collective crosses the
+     host. (a) ``engine.sharded_sort`` at 2^24 integral float32 keys a
+     rank, key-only and with the global int32 indices, under
+     ``tree_cuda`` at 2 levels (K4) and 1 (K3) and ``tree_vmapped`` (K9),
+     hist and regular splitters, each rank's run bit for bit its slice of
+     ``torch.sort(descending=True, stable=True)`` of the gathered keys,
+     the payload its stable permutation, one run split per stage; a zipf
+     input at ``cap_factor`` 1 overflowing with ``retries=0`` and recovered
+     by the default ladder; (b) ``sharded_topk`` k 2048 with the payload,
+     bit for bit ``engine.topk(variant="torch")`` of the gathered keys;
+     (c) ``moe_route_ep`` of Moonlight's router (E 64, k 6) at 2048
+     tokens a rank, each owner's kept pairs those of ``engine.moe_route``
+     of the gathered logits; (d) one bf16 decode step of Moonlight's
+     attention at batch 4 over 131072 positions split 4 ways, within
+     2^-6 of one process; (e) ``moonshot_v1_16b_a3b`` (4 of 48 layers,
+     bf16) on a ``model`` axis of 4 (16 experts a rank, ``moe_apply_ep``)
+     serving the 12 requests, the token streams equal on every rank, K7
+     4 a step, and 8 steps each fed the same tokens and cache within 2^-6
+     of the one-process ``grouped`` step;
    - the rest of the model zoo (no kernel; plain torch as the JAX package
      computes these modules outside any Pallas kernel), each config at its
      published widths and the least depth that holds its structure, in
@@ -2439,6 +2459,486 @@ def phase_serve(engine, kernels, slice5, slice2):
 # Mamba2 layers and the shared block; an xLSTM group of 7 mLSTM and 1
 # sLSTM; a Gemma-2 local / global pair; 2 decoder layers; Whisper's 2
 # encoder and 2 decoder layers)
+# --------------------------------------------------------------------------
+# the mesh: 4 ranks on the one card (gloo, the collectives through the host)
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_N = 1 << 24               # keys a rank (2^26 in all)
+MESH_KEY_RANGE = 1 << 20       # integral float32 keys in [-2^20, 2^20)
+MESH_TOPK = 2048
+# router rows a rank: K7 holds one group of at most 16384 padded pairs in a
+# CTA, 2048 tokens at k 6 (4096 would need the multi-CTA K7, ROADMAP)
+MESH_TOKENS = 2048
+MESH_CACHE = 131072            # decode positions, split 4 ways
+MESH_BATCH = 4
+MESH_STEPS = 8                 # decode steps held to the one-process step
+MESH_LIMIT_S = 175             # the phase's whole time, spawns included
+# the sort plans: (variant, levels, splitter); tree_cuda at 2 levels is K4,
+# at 1 level K3, tree_vmapped K9
+MESH_PLANS = (("tree_cuda", 2, "hist"), ("tree_cuda", 1, "regular"),
+              ("tree_vmapped", 1, "hist"), ("tree_vmapped", 1, "regular"))
+MESH_KERNELS = ("lane_merge", "lane_merge_kv", "merge_tree_runs",
+                "merge_tree_runs_kv", "segmented_merge_runs",
+                "segmented_merge_runs_kv", "moe_route")
+
+
+def _mesh_keys(rank: int, n: int) -> torch.Tensor:
+    g = torch.Generator(device="cuda").manual_seed(SEED + 300 + rank)
+    return torch.randint(-MESH_KEY_RANGE, MESH_KEY_RANGE, (n,), generator=g,
+                         device="cuda").float()
+
+
+def _mesh_sort_split(mesh, sharded, comm, x, pay, plan):
+    """One sharded sort split per stage with CUDA events (this rank's
+    timeline; the stages end in collectives, so every rank waits for the
+    slowest): local sort, splitters (with the bucket bounds and the
+    ``pmax``'d need), exchange (host-staged under gloo), reduction."""
+    from repro_torch.engine.schedule import MergeSchedule
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    loc, ploc = sharded._local_sort(x, pay, plan.w)
+    ev[1].record()
+    split = sharded._splitters_hist if plan.splitter == "hist" else \
+        lambda loc, a, m, n: sharded._splitters_regular(loc, a, m, n,
+                                                        plan.w)
+    spl = split(loc, "data", mesh, MESH_RANKS)
+    bounds, sizes = sharded._bucket_bounds(loc, spl)
+    need = int(comm.pmax(sizes.max().reshape(1), "data", mesh)[0])
+    caps = sharded.cap_ladder(x.shape[0], MESH_RANKS, plan.cap_factor,
+                              plan.retries)
+    cap = caps[sharded._rung(need, caps)]
+    ev[2].record()
+    recv, cnt, precv = sharded._exchange(loc, ploc, bounds, sizes, cap=cap,
+                                         axis="data", mesh=mesh)
+    ev[3].record()
+    sched = MergeSchedule.from_plan(plan)
+    if pay is not None:
+        sched = sched.replace(tie="b")
+    sharded._reduce_received(recv, cnt, precv, cap=cap, out_cap=caps[-1],
+                             sched=sched, dtype=x.dtype)
+    ev[4].record()
+    torch.cuda.synchronize()
+    return {k: ev[i].elapsed_time(ev[i + 1]) for i, k in enumerate(
+        ("local_sort", "splitters", "exchange", "reduction"))}
+
+
+def _mesh_sort(engine, kernels, mesh, rank):
+    """(a): sharded_sort at 2^24 float32 keys a rank, key-only and with the
+    global indices as payload, under four plans; the skewed input through
+    the cap ladder. Each rank checks its run against its slice of
+    ``torch.sort(descending=True, stable=True)`` of the gathered input."""
+    from repro_torch.engine import sharded
+    from repro_torch.parallel import comm
+    n = MESH_N
+    x = _mesh_keys(rank, n)
+    gidx = rank * n + torch.arange(n, dtype=torch.int32, device="cuda")
+    gathered = comm.all_gather(x, "data", mesh).reshape(-1)
+    ref_k, ref_p = torch.sort(gathered, descending=True, stable=True)
+    ref_p = ref_p.to(torch.int32)
+    del gathered
+
+    def check(what, res, pay, rk, rp):
+        counts = comm.all_gather(res.count, "data", mesh).reshape(-1)
+        c = int(counts[rank])
+        lo = int(counts[:rank].sum())
+        if bool(res.overflow.any()) or int(counts.sum()) != rk.numel():
+            raise AssertionError(f"{what}: overflow {res.overflow.tolist()}"
+                                 f", counts {counts.tolist()}")
+        check_same(f"{what} keys", res.values[:c], rk[lo:lo + c])
+        if pay is not None:
+            check_same(f"{what} payload", pay[:c], rp[lo:lo + c])
+        return c
+
+    runs, launches, ms, split = [], {}, {}, {}
+    for variant, levels, splitter in MESH_PLANS:
+        plan = engine.Plan(variant, w=32, levels=levels, splitter=splitter)
+        label = f"{variant} L{levels} {splitter}"
+        for kv in (False, True):
+            call = (lambda: engine.sharded_sort(x, mesh, payload=gidx,
+                                                plan=plan)) if kv else \
+                (lambda: engine.sharded_sort(x, mesh, plan=plan))
+            out, got = counted(kernels, call)
+            for k_, v in got.items():
+                launches[k_] = launches.get(k_, 0) + v
+            res, pay = out if kv else (out, None)
+            c = check(f"sharded_sort {label} kv={kv}", res, pay, ref_k,
+                      ref_p)
+            del out, res, pay
+            # the timed run: CUDA events on this rank (all ranks run it)
+            s, e = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            s.record()
+            call()
+            e.record()
+            e.synchronize()
+            ms[f"{label} kv={kv}"] = s.elapsed_time(e)
+            runs.append({"plan": label, "kv": kv, "count": c})
+    for kv in (False, True):
+        split[f"tree_cuda L2 hist kv={kv}"] = _mesh_sort_split(
+            mesh, sharded, comm, x, gidx if kv else None,
+            engine.Plan("tree_cuda", w=32, levels=2, splitter="hist"))
+    del ref_k, ref_p
+    # the skewed input (tests/test_distributed.py's zipf construction): at
+    # P = 4 the default cap_factor 4 makes the base cap n_local, so
+    # cap_factor 1 puts the duplicate mass past the base rung
+    import numpy as np
+    z = np.minimum(np.random.default_rng(SEED + 3 + rank).zipf(2.0, n),
+                   10**6).astype(np.int32)
+    z = torch.from_numpy(z).to("cuda")
+    zg = comm.all_gather(z, "data", mesh).reshape(-1)
+    zref = torch.sort(zg, descending=True, stable=True).values
+    del zg
+    r0 = engine.sharded_sort(z, mesh, plan=engine.Plan(
+        "tree_cuda", w=32, levels=2, cap_factor=1, retries=0))
+    total0 = int(comm.psum(r0.count, "data", mesh)[0])
+    if not bool(r0.overflow.any()) or total0 >= zref.numel():
+        raise AssertionError(f"skewed input: retries=0 gave overflow "
+                             f"{r0.overflow.tolist()}, {total0} keys")
+    del r0
+    r1, got = counted(kernels, lambda: engine.sharded_sort(
+        z, mesh, plan=engine.Plan("tree_cuda", w=32, levels=2,
+                                  cap_factor=1)))
+    for k_, v in got.items():
+        launches[k_] = launches.get(k_, 0) + v
+    check("sharded_sort skewed, cap_factor 1", r1, None, zref, None)
+    torch.cuda.synchronize()
+    return {"runs": runs, "ms": ms, "split_ms": split, "launches": launches,
+            "skew": {"retries0_keys": total0, "n": zref.numel()}}, x, gidx
+
+
+def _mesh_topk(engine, kernels, mesh, x, gidx):
+    """(b): sharded_topk k 2048 over (a)'s keys with the payload, bit for
+    bit the one-process ``engine.topk(variant="torch")`` of the gathered
+    array (ties to the lower global index) on every rank."""
+    from repro_torch.parallel import comm
+    (v, i, p), launches = counted(kernels, lambda: engine.sharded_topk(
+        x, MESH_TOPK, mesh, payload=gidx))
+    gathered = comm.all_gather(x, "data", mesh).reshape(-1)
+    ev, ei = engine.topk(gathered, MESH_TOPK, variant="torch")
+    check_same("sharded_topk values", v, ev)
+    check_same("sharded_topk indices", i, ei.to(torch.int32))
+    check_same("sharded_topk payload", p, ei.to(torch.int32))
+    del gathered
+    ms = time_ms(lambda: engine.sharded_topk(x, MESH_TOPK, mesh,
+                                             payload=gidx), warmup=1, reps=3)
+    return {"k": MESH_TOPK, "ms": ms, "launches": launches}
+
+
+def _mesh_route(engine, kernels, mesh, rank):
+    """(c): moe_route_ep of Moonlight's router (E 64, k 6) at
+    ``MESH_TOKENS`` rows a rank; each owner's kept pairs, weights, slabs
+    and tokens equal ``engine.moe_route`` of the gathered logits restricted
+    to its experts."""
+    from repro_torch.models.moe import expert_capacity
+    from repro_torch.parallel import comm
+    E, k = 64, 6
+    T = MESH_TOKENS * MESH_RANKS
+    cap = expert_capacity(1.25, T, k, E)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 500 + rank)
+    lg = torch.randn(MESH_TOKENS, E, generator=g, device="cuda")
+    shard, launches = counted(kernels, lambda: engine.moe_route_ep(
+        lg, k, cap, mesh, "data"))
+    glob = engine.moe_route(comm.all_gather(lg, "data", mesh).reshape(T, E),
+                            k, cap, variant="torch")
+    E_loc = E // MESH_RANKS
+    c = int(shard.count[0])
+    keep = shard.keep[:c]
+    mine = (torch.div(glob.experts, E_loc, rounding_mode="floor") == rank) \
+        & glob.keep
+    order_g = torch.argsort(glob.perm[mine])
+    order_s = torch.argsort(shard.perm[:c][keep])
+    check_same("moe_route_ep perm", shard.perm[:c][keep][order_s],
+               glob.perm[mine][order_g])
+    check_same("moe_route_ep tokens", shard.tokens[:c][keep][order_s],
+               glob.tokens[mine][order_g])
+    check_same("moe_route_ep slabs", shard.slabs[:c][keep][order_s],
+               glob.slabs[mine][order_g] - rank * E_loc * cap)
+    u = ulps(shard.weights[:c][keep][order_s], glob.weights[mine][order_g])
+    if u > ROUTE_WEIGHT_ULPS:
+        raise AssertionError(f"moe_route_ep weights: {u} ulps")
+    ms = time_ms(lambda: engine.moe_route_ep(lg, k, cap, mesh, "data"),
+                 warmup=1, reps=5)
+    return {"tokens_a_rank": MESH_TOKENS, "E": E, "k": k, "capacity": cap,
+            "arrived": c, "kept": int(keep.sum()), "weight_ulps": u,
+            "ms": ms, "launches": launches}
+
+
+def _mesh_decode(mesh, rank, slice5):
+    """(d): one bf16 decode step of Moonlight's attention (d 2048, 16 heads
+    of 128) at batch 4 over a 131072-position cache split 4 ways, within
+    2^-6 relative Frobenius of the one-process decode (rank 0 builds the
+    whole cache from the same seeds)."""
+    from repro_torch.models.attention import attn_decode, attn_init
+    cfg = slice5[2](SERVE_ARCH)
+    dt = torch.bfloat16
+    cfg = dataclasses.replace(cfg, param_dtype="bfloat16",
+                              compute_dtype="bfloat16")
+    p = attn_init(torch.Generator(device="cuda").manual_seed(SEED + 600),
+                  cfg, device="cuda")
+    W_loc = MESH_CACHE // MESH_RANKS
+    shape = (MESH_BATCH, W_loc, cfg.n_kv_heads, cfg.hd)
+
+    def block(r):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 700 + r)
+        return (torch.randn(shape, generator=g, device="cuda").to(dt),
+                torch.randn(shape, generator=g, device="cuda").to(dt))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 601)
+    x = torch.randn(MESH_BATCH, 1, cfg.d_model, generator=g,
+                    device="cuda").to(dt)
+    pos = torch.tensor([MESH_CACHE - 1, 3 * W_loc + 17, 2 * W_loc - 1, 1000],
+                       device="cuda")
+    kc, vc = block(rank)
+    call = lambda: attn_decode(p, x, (kc, vc), pos, cfg, mesh=mesh,
+                               kv_shard_axis="data")
+    y, _ = call()
+    ms = time_ms(call, warmup=1, reps=5)
+    out = {"cache_gb_a_rank": 2 * kc.numel() * kc.element_size() / 1e9,
+           "ms": ms}
+    if rank == 0:
+        blocks = [block(r) for r in range(MESH_RANKS)]
+        fk = torch.cat([b[0] for b in blocks], dim=1)
+        fv = torch.cat([b[1] for b in blocks], dim=1)
+        del blocks
+        one = lambda: attn_decode(p, x, (fk, fv), pos, cfg)
+        y1, _ = one()
+        err = rel_frob(y, y1)
+        if not err <= BF16_REL_FROB:
+            raise AssertionError(f"sequence-sharded decode: {err} from the "
+                                 f"one-process decode")
+        out.update(rel_frob=err, one_process_ms=time_ms(one, warmup=1,
+                                                        reps=3))
+        del fk, fv
+    torch.cuda.synchronize()
+    return out
+
+
+def _mesh_serve(engine, kernels, slice5, mesh, rank):
+    """(e): ``moonshot_v1_16b_a3b`` at full width, 4 of 48 layers, bf16,
+    on a ``model`` axis of 4 (16 experts a rank, ``moe_path="ep"``): the
+    12 seeded requests of ``phase_serve`` through the scheduler on every
+    rank under ``set_context(mesh)``, the token streams equal on every
+    rank; then 8 decode steps, each fed the same tokens and cache on both
+    sides, the mesh step's logits within 2^-6 relative Frobenius of the
+    one-process ``grouped`` step's (rank 0 holds the whole weights)."""
+    from repro_torch.models.convert import shard_params_for_rank
+    from repro_torch.parallel import act, comm
+    obs, serve, get_config, _, fallback, _, build_model = slice5
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), n_layers=SERVE_LAYERS)
+    model = build_model(cfg)
+    full = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params = shard_params_for_rank(full, mesh)
+    if rank:
+        del full
+        full = None
+    torch.cuda.synchronize()
+    specs = serve_specs(cfg.vocab_size)
+    reqs = serve_requests(serve, specs, {})
+    sched = serve.Scheduler(model, params, n_slots=SERVE_SLOTS,
+                            max_seq=SERVE_SEQ, prefill_len=SERVE_PREFILL,
+                            top_k_width=SERVE_K, seed=SEED, variant="torch")
+    step_s, admit_s, n_admit = [], 0.0, 0
+    staged0 = comm.host_staged_bytes()
+
+    def loop():
+        nonlocal admit_s, n_admit
+        for r in reqs:
+            sched.submit(r)
+        while sched.waiting or sched.live:
+            t0 = time.perf_counter()
+            n = sched.admit()
+            if n:
+                torch.cuda.synchronize()
+                admit_s += time.perf_counter() - t0
+                n_admit += n
+            if sched.live:
+                t0 = time.perf_counter()
+                sched.step()
+                step_s.append(time.perf_counter() - t0)
+    act.set_context(mesh)
+    try:
+        t0 = time.perf_counter()
+        _, launches = counted(kernels, loop)
+        wall = time.perf_counter() - t0
+    finally:
+        act.clear_context()
+    staged = comm.host_staged_bytes() - staged0
+    by_uid, _ = check_completions("mesh serve", sched.completed, reqs,
+                                  cfg.vocab_size)
+    want = SERVE_LAYERS * (len(step_s) + SERVE_PREFILL * n_admit)
+    if launches.get("moe_route", 0) != want:
+        raise AssertionError(f"mesh serve: K7 launches {launches} over "
+                             f"{len(step_s)} steps and {n_admit} "
+                             f"admissions, expected {want}")
+    # every rank's token streams, gathered and compared
+    flat = torch.full((N_SERVE, 24), -1, dtype=torch.int32, device="cuda")
+    for uid, c in by_uid.items():
+        flat[uid, :len(c.tokens)] = torch.tensor(c.tokens, dtype=torch.int32)
+    every = comm.all_gather(flat, "model", mesh)
+    if not bool((every == every[0:1]).all()):
+        raise AssertionError("mesh serve: token streams differ between "
+                             "ranks")
+    tokens = sum(len(c.tokens) for c in sched.completed)
+    del sched
+    # 8 steps, each fed the same tokens and the same cache on both sides:
+    # the mesh step against the one-process grouped step (rank 0)
+    g = torch.Generator().manual_seed(SEED + 800)
+    toks = torch.randint(1, cfg.vocab_size, (MESH_STEPS, SERVE_SLOTS),
+                         generator=g, dtype=torch.int32).to("cuda")
+    cache = model.init_cache(SERVE_SLOTS, SERVE_SEQ)
+    errs = []
+    for t in range(MESH_STEPS):
+        pos = torch.full((SERVE_SLOTS,), t, device="cuda")
+        act.set_context(mesh)
+        try:
+            lg, new_cache = model.decode_step(params, toks[t], pos, cache)
+        finally:
+            act.clear_context()
+        if rank == 0:
+            # outside the context moe_path "ep" runs grouped
+            lg1, _ = model.decode_step(full, toks[t], pos, cache)
+            errs.append(rel_frob(lg.float(), lg1.float()))
+        cache = new_cache
+    if rank == 0 and not max(errs) <= BF16_REL_FROB:
+        raise AssertionError(f"mesh decode step: {errs} from the "
+                             f"one-process grouped step")
+    return {"steps": len(step_s), "admissions": n_admit,
+            "step_p50_ms": _pct(step_s, 0.5) * 1e3,
+            "step_p99_ms": _pct(step_s, 0.99) * 1e3,
+            "prefill_ms": admit_s * 1e3 / max(n_admit, 1),
+            "wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
+            "k7_per_step": SERVE_LAYERS, "launches": launches,
+            "host_staged_bytes": staged, "step_rel_frob": errs,
+            "topk_variant": "torch",
+            "guard.fallback": fallback.demotions()}
+
+
+def _mesh_progress(rank: int, part: str, t: dict) -> None:
+    if rank == 0:
+        print(f"mesh part ({part}): {t[part]:.1f} s on rank 0", flush=True)
+
+
+def _mesh_rank(rank: int, store: str, out_dir: str) -> None:
+    """One rank of ``phase_mesh``: every part on this rank's shard; the
+    results to ``rank<r>.json``. Exits 1 on any failure."""
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    # 4 ranks share the host's cores: 2 intra-op threads each
+    torch.set_num_threads(2)
+    try:
+        engine, kernels, _build, *_ = _import_port()
+        _build.library()             # the parent's build, loaded
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import comm
+        slice5 = _import_slice5()
+        mesh = make_mesh((MESH_RANKS,), ("data",), backend="gloo",
+                         rank=rank, world_size=MESH_RANKS, store_dir=store,
+                         timeout_s=120.0)
+        out, t = {"rank": rank, "device": str(mesh.device)}, {}
+        t0 = time.perf_counter()
+        out["sort"], x, gidx = _mesh_sort(engine, kernels, mesh, rank)
+        t["a"] = time.perf_counter() - t0
+        _mesh_progress(rank, "a", t)
+        t0 = time.perf_counter()
+        out["topk"] = _mesh_topk(engine, kernels, mesh, x, gidx)
+        del x, gidx
+        t["b"] = time.perf_counter() - t0
+        _mesh_progress(rank, "b", t)
+        t0 = time.perf_counter()
+        out["route"] = _mesh_route(engine, kernels, mesh, rank)
+        t["c"] = time.perf_counter() - t0
+        _mesh_progress(rank, "c", t)
+        t0 = time.perf_counter()
+        out["decode"] = _mesh_decode(mesh, rank, slice5)
+        t["d"] = time.perf_counter() - t0
+        _mesh_progress(rank, "d", t)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mmesh = make_mesh((MESH_RANKS,), ("model",))
+        out["serve"] = _mesh_serve(engine, kernels, slice5, mmesh, rank)
+        t["e"] = time.perf_counter() - t0
+        _mesh_progress(rank, "e", t)
+        out["seconds"] = t
+        out["host_staged_bytes"] = comm.host_staged_bytes()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    # skip the process groups' teardown: every rank is done with them
+    os._exit(0)
+
+
+def phase_mesh(kernels):
+    """4 ranks on the one card (``torch.multiprocessing``, spawn, gloo: the
+    kernels run on ``cuda:0`` in every rank and the collectives cross the
+    host). The parent has built the kernels, so the ranks load the built
+    library; it empties its cache allocator first. Parts (a)-(e) run in
+    every rank (their docstrings above); any rank's failure, or a rank
+    still running at ``MESH_LIMIT_S``, fails the phase. Returns the
+    kernels' launches summed over the ranks."""
+    import torch.multiprocessing as mp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    store = tempfile.mkdtemp(prefix="mesh_store_")
+    out_dir = tempfile.mkdtemp(prefix="mesh_out_")
+    ctx = mp.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=_mesh_rank, args=(r, store, out_dir))
+             for r in range(MESH_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break               # a rank failed: stop the others now
+            if time.perf_counter() - t0 > MESH_LIMIT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * MESH_RANKS:
+        raise AssertionError(f"phase_mesh: rank exit codes {codes} after "
+                             f"{time.perf_counter() - t0:.1f} s")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    launches = {}
+    for rk in ranks:
+        for part in ("sort", "topk", "route", "serve"):
+            for k_, v in rk[part]["launches"].items():
+                launches[k_] = launches.get(k_, 0) + v
+    missing = [k_ for k_ in MESH_KERNELS if not launches.get(k_)]
+    if missing:
+        raise AssertionError(f"phase_mesh: kernels not launched: {missing}")
+    note = ("4 ranks on one card, gloo: the collectives crossed the host")
+    r0 = ranks[0]
+    print("mesh: " + json.dumps({
+        "note": note, "seconds": time.perf_counter() - t0,
+        "rank_seconds": [rk["seconds"] for rk in ranks],
+        "sort_ms": r0["sort"]["ms"], "sort_split_ms": r0["sort"]["split_ms"],
+        "skew": r0["sort"]["skew"], "topk": r0["topk"],
+        "route": r0["route"], "decode": r0["decode"],
+        "serve": r0["serve"],
+        "serve_token_streams_equal": True,
+        "host_staged_bytes": [rk["host_staged_bytes"] for rk in ranks],
+        "peak_gb": [rk["peak_gb"] for rk in ranks],
+        "launches": launches}), flush=True)
+    return launches
+
+
 FAMILY_DEPTHS = {"zamba2_2p7b": 6, "xlstm_1p3b": 8, "gemma2_9b": 2,
                  "gemma2_27b": 2, "qwen1p5_110b": 2, "internvl2_76b": 2,
                  "whisper_large_v3": 2}
@@ -3157,6 +3657,7 @@ def main() -> int:
     slice5 = _import_slice5()
     serve_k7, serve_k7_rows = timed("serve", phase_serve, engine, kernels,
                                     slice5, slice2)
+    mesh_launches = timed("mesh", phase_mesh, kernels)
     timed("families", phase_families, slice5)
     timed("serve zamba2", phase_serve_zamba2, engine, kernels, slice5)
     tr = _import_train()
@@ -3170,6 +3671,8 @@ def main() -> int:
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
     for row in table:
+        # the mesh phase's launches, summed over its 4 ranks
+        row["launches"] += mesh_launches.get(row["name"], 0)
         if row["name"] == "moe_route":
             # the serving and training paths' K7 launches, and K7 at its
             # route shapes

@@ -3,8 +3,9 @@
 Counterpart of ``repro/engine/api.py`` for ``sort``, ``argsort``,
 ``merge``, ``merge_runs``, ``topk``, the samplers ``sample_topp`` /
 ``sample_minp``, the ragged ``segment_sort`` / ``segment_argsort`` /
-``segment_merge``, the fused MoE routing op ``moe_route`` and the
-out-of-core ``external_sort``. Each call
+``segment_merge``, the fused MoE routing op ``moe_route``, the
+out-of-core ``external_sort`` and the ops across a mesh axis
+``sharded_sort``, ``sharded_topk`` and ``moe_route_ep``. Each call
 resolves a ``Plan`` (explicit, cache, table, heuristic) and dispatches to
 the registered variant through ``guard.fallback.guarded_call``, which
 absorbs only ``torch.cuda.OutOfMemoryError``: on the card by running the
@@ -33,6 +34,8 @@ raises, it never falls back to the CPU.
     perm = engine.segment_argsort(keys, offsets)   # local stable perms
     r    = engine.moe_route(logits, k=2, capacity=64)  # fused MoE routing
     y    = engine.external_sort(x, tile_elems=1 << 20)  # out-of-core sort
+    r    = engine.sharded_sort(x_local, mesh, "data")  # this rank's run
+    v, i = engine.sharded_topk(x_local, 16, mesh)  # global top-k, replicated
     plan = engine.autotune("topk", logits, 64)     # time the variants
     engine.save_plans("plans.json")
 """
@@ -57,9 +60,24 @@ from repro_torch.guard import verify as _verify
 
 __all__ = ["sort", "argsort", "merge", "merge_runs", "topk", "sample_topp",
            "sample_minp", "segment_sort", "segment_argsort", "segment_merge",
-           "moe_route", "RouteResult", "external_sort", "run_op",
-           "autotune", "save_plans", "load_plans", "clear_plans", "Plan",
+           "moe_route", "RouteResult", "external_sort", "sharded_sort",
+           "sharded_topk", "moe_route_ep", "run_op", "autotune",
+           "save_plans", "load_plans", "clear_plans", "Plan",
            "MergeSchedule"]
+
+#: ops whose variants make collectives over a mesh axis: (index of the
+#: mesh in the registry's argument list, index of the axis)
+COLLECTIVE_OPS = {"sharded_sort": (1, 2), "sharded_topk": (2, 3),
+                  "moe_route_ep": (3, 4)}
+
+
+def mesh_axis_of(op: str, args):
+    """``(mesh, axis)`` of a collective op's registry arguments, else
+    None."""
+    if op not in COLLECTIVE_OPS:
+        return None
+    i, j = COLLECTIVE_OPS[op]
+    return args[i], args[j]
 
 
 def _gcall(op: str, plan: Plan, *args, **kw):
@@ -115,6 +133,14 @@ def infer_key(op: str, *args):
     if op == "moe_route":
         return plan_key(op, n=x.shape[-2] * args[1], dtype=x.dtype,
                         backend=backend, segments=x.shape[0])
+    if op in COLLECTIVE_OPS:
+        # the JAX key: the GLOBAL length, P in segments, the axis name
+        mesh, axis = mesh_axis_of(op, args)
+        P = mesh.axis_size(axis)
+        n = x.shape[-2] * P * args[1] if op == "moe_route_ep" \
+            else x.shape[0] * P
+        return plan_key(op, n=n, dtype=x.dtype, backend=backend, segments=P,
+                        axis=str(axis))
     raise ValueError(f"unknown op {op!r}")
 
 
@@ -136,7 +162,34 @@ def _resolve(op: str, plan: Optional[Plan], variant: Optional[str],
         obs.inc("plan_cache.pinned")
     if variant is not None:
         plan = plan.replace(variant=variant)
+    ma = mesh_axis_of(op, args)
+    if ma is not None:
+        plan = _agree_plan(plan, *ma)
     return plan
+
+
+#: room for one plan's JSON in the agreement broadcast
+_PLAN_BYTES = 512
+
+
+def _agree_plan(plan: Plan, mesh, axis: str) -> Plan:
+    """Rank 0's plan on every rank of the axis (one broadcast): ranks that
+    resolved differently, from their own plan caches or tables, would make
+    different collectives and wait on each other for ever."""
+    import json
+    from repro_torch.parallel import comm
+    if mesh.axis_size(axis) == 1:
+        return plan
+    blob = json.dumps(plan.to_dict(), sort_keys=True).encode()
+    if len(blob) > _PLAN_BYTES:
+        raise ValueError(f"plan too long to agree on: {len(blob)} bytes")
+    buf = torch.zeros(_PLAN_BYTES, dtype=torch.uint8)
+    buf[:len(blob)] = torch.frombuffer(bytearray(blob), dtype=torch.uint8)
+    buf = comm.broadcast(buf, axis, 0, mesh)
+    agreed = Plan.from_dict(json.loads(bytes(buf.tolist()).rstrip(b"\0")))
+    if agreed != plan:
+        obs.inc("plan.agree.adopted")
+    return agreed
 
 
 def run_op(op: str, plan: Plan, *args):
@@ -653,6 +706,93 @@ def moe_route(logits, k: int, capacity: int, *, values=None,
     idx = t_s.long()
     return res, tree_map(lambda v: torch.gather(_tensor(v, logits.device),
                                                 -1, idx), values)
+
+
+def _check_shard(op: str, x, mesh, axis: str):
+    if axis not in mesh.axis_names:
+        raise _validate.EngineInputError(
+            op, f"axis {axis!r} not in the mesh's {mesh.axis_names}",
+            axis=axis)
+    if x.ndim != 1:
+        raise _validate.EngineInputError(
+            op, f"expects this rank's 1-D shard, got shape "
+            f"{tuple(x.shape)}", shape=tuple(x.shape))
+
+
+def sharded_sort(x, mesh, axis: str = "data", *, payload=None,
+                 plan: Optional[Plan] = None, variant: Optional[str] = None):
+    """Sort a 1-D array split over ``axis`` of ``mesh``. Descending. Every
+    rank calls it with its own shard ``x``.
+
+    The planned distributed sample sort: local FLiMS sorts, splitter
+    selection, one ``all_to_all`` bucket exchange, and a K-way reduction of
+    the received runs through the plan's ``MergeSchedule`` executor (the
+    variant: ``torch`` | ``tree_vmapped`` | ``tree_cuda``). The plan also
+    carries ``splitter`` (``'hist'``, oversampled and refined by exact
+    global rank, by default; ``'regular'``), ``cap_factor`` and
+    ``retries``, the rungs of cap escalation: a result is flagged
+    ``overflow`` only when the last rung's cap cannot hold the largest
+    bucket, and a ladder reaching ``n_local`` cannot overflow (true when
+    ``cap_factor * 2**retries >= P``). Every rank adopts rank 0's resolved
+    plan.
+
+    Returns this rank's ``ShardedSort``: ``values`` (its padded run; the
+    runs in axis order concatenate to the global order), ``count`` and
+    ``overflow`` (``parallel.sharding.collect_sorted`` gathers them). With
+    ``payload=`` returns ``(ShardedSort, payload)`` permuted identically
+    and stably.
+    """
+    x = _tensor(x)
+    _check_shard("sharded_sort", x, mesh, axis)
+    payload = _payload(payload, x)
+    plan = _resolve("sharded_sort", plan, variant, x, mesh, axis)
+    return _gcall("sharded_sort", plan, x, mesh, axis, payload=payload)
+
+
+def sharded_topk(x, k: int, mesh, axis: str = "data", *, payload=None,
+                 plan: Optional[Plan] = None, variant: Optional[str] = None):
+    """``(values, global indices)`` of the k largest elements of a 1-D
+    array split over ``axis``, bit for bit ``lax.top_k`` of the gathered
+    array (ties to the lower global index), the same on every rank.
+
+    Local top-k candidates (``variant``: ``'flims'`` or ``'torch'``) are
+    all_gathered and stable-merged. With ``payload=`` returns ``(values,
+    indices, payload_topk)``, the payload riding the lanes.
+    """
+    x = _tensor(x)
+    _check_shard("sharded_topk", x, mesh, axis)
+    payload = _payload(payload, x)
+    plan = _resolve("sharded_topk", plan, variant, x, k, mesh, axis)
+    return _gcall("sharded_topk", plan, x, k, mesh, axis, payload=payload)
+
+
+def moe_route_ep(logits, k: int, capacity: int, mesh, axis: str = "data", *,
+                 plan: Optional[Plan] = None, variant: Optional[str] = None):
+    """Expert-parallel routing across a mesh axis: every rank passes its
+    (T_loc, E) rows of the router logits (tokens split over the P ranks in
+    axis order) and owns E/P experts (rank d the band ``[d*E/P,
+    (d+1)*E/P)``).
+
+    Each rank routes its tokens with the local route (the variant:
+    ``fused``, K7, or ``torch``), whose per-expert capacity cut doubles as
+    ``sharded_topk``'s union-of-local-top-k prefilter; one ``all_to_all``
+    sends the candidates to their expert's owner, which merges the P runs
+    and re-cuts at ``capacity`` by global stable rank. Returns this rank's
+    :class:`~repro_torch.engine.sharded.RouteShard`: bit for bit
+    :func:`moe_route` on the gathered logits, restricted to its experts.
+    """
+    logits = _tensor(logits)
+    if logits.ndim != 2:
+        raise ValueError(f"moe_route_ep expects (T_loc, E) logits, got shape "
+                         f"{tuple(logits.shape)}")
+    if not 1 <= k <= logits.shape[1]:
+        raise ValueError(f"moe_route_ep: k={k} outside [1, E="
+                         f"{logits.shape[1]}]")
+    plan = _resolve("moe_route_ep", plan, variant, logits, k, capacity,
+                    mesh, axis)
+    plan = plan.replace(cap=int(capacity))
+    return _gcall("moe_route_ep", plan, logits, k, int(capacity), mesh,
+                  axis)
 
 
 def save_plans(path: str) -> None:

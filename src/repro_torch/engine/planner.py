@@ -62,6 +62,10 @@ class Plan:
     # external (out-of-core) sort only: engine/external.py
     tile_elems: int = 0    # phase-1 run length; 0 = default (2^20)
     fan_in: int = 0        # runs merged per phase-2 pass; 0 = default (8)
+    # sharded (cross-rank) ops only: engine/sharded.py
+    cap_factor: int = 4    # base bucket cap = cap_factor * n_local / P
+    splitter: str = "hist"  # splitter policy: 'regular' | 'hist'
+    retries: int = 2       # cap-doubling rungs of the overflow ladder
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -88,7 +92,9 @@ def dtype_name(dtype) -> str:
 
 def plan_key(op: str, *, n: int, dtype, backend: str, segments: int = 0,
              axis: str = "") -> Key:
-    """Bucketed cache key: op, backend, dtype, pow2(n), pow2(segments)."""
+    """Bucketed cache key: op, backend, dtype, pow2(n), pow2(segments),
+    and for the sharded ops the mesh axis name (``segments`` then carries
+    the rank count P along it)."""
     return (op, backend, dtype_name(dtype), next_pow2(n),
             next_pow2(segments) if segments else 0, axis)
 
@@ -116,8 +122,11 @@ def heuristic_plan(op: str, key: Key) -> Plan:
                  "segment_sort": "cuda_two_phase",
                  "segment_argsort": "cuda_two_phase", "moe_route": "fused",
                  "external_sort": "stream_cuda", "topk": "flims",
-                 "sample_topp": "flims", "sample_minp": "flims"}
-        levels = 2 if op in ("merge_runs", "external_sort") else 1
+                 "sample_topp": "flims", "sample_minp": "flims",
+                 "sharded_sort": "tree_cuda", "sharded_topk": "flims",
+                 "moe_route_ep": "fused"}
+        levels = 2 if op in ("merge_runs", "sharded_sort",
+                             "external_sort") else 1
     else:
         # other key types, and CPU tensors: the torch reference variants
         table = {"sort": "torch", "argsort": "torch", "merge": "banked",
@@ -125,7 +134,8 @@ def heuristic_plan(op: str, key: Key) -> Plan:
                  "segment_sort": "torch", "segment_argsort": "torch",
                  "moe_route": "torch", "external_sort": "torch",
                  "topk": "torch", "sample_topp": "torch",
-                 "sample_minp": "torch"}
+                 "sample_minp": "torch", "sharded_sort": "torch",
+                 "sharded_topk": "torch", "moe_route_ep": "torch"}
         levels = 1
     return Plan(variant=table[op], w=w, block_out=block_out, chunk=256,
                 levels=levels)
@@ -219,12 +229,20 @@ class Planner:
         """Time candidate plans on an example workload (the registry's
         argument list, run by ``api.run_op``); cache the winner. Candidates
         default to :func:`candidate_plans`. The ``autotune.*`` events and
-        counters are the JAX planner's."""
+        counters are the JAX planner's.
+
+        A collective op (``api.COLLECTIVE_OPS``) is tuned by every rank of
+        its axis together: each runs every candidate the same number of
+        times, a candidate that raised on any rank is infeasible on all
+        (one ``pmax`` of a flag after it), and rank 0's fastest is the
+        winner every rank installs (one broadcast)."""
         from repro_torch import obs
         from repro_torch.engine import api
         key = api.infer_key(op, *example_args)
+        ma = api.mesh_axis_of(op, example_args)
         if candidates is None:
             candidates = candidate_plans(op, key)
+        candidates = list(candidates)
         bad = self._infeasible.setdefault(key, set())
         best, best_t = None, float("inf")
         with obs.span(f"autotune.{op}"):
@@ -234,10 +252,18 @@ class Planner:
                     obs.event("autotune.candidate", op=op, key=_key_str(key),
                               variant=plan.variant, status="known_infeasible")
                     continue
+                err = None
                 try:
                     t = _time(lambda: api.run_op(op, plan, *example_args),
                               cuda=key[1] == "cuda", repeats=repeats)
                 except Exception as e:
+                    err = f"{type(e).__name__}: {e}"[:200]
+                if ma is not None:
+                    from repro_torch.parallel import comm
+                    if comm.agree_flag(err is not None, ma[1], ma[0]) \
+                            and err is None:
+                        err = "raised on another rank"
+                if err is not None:
                     # a raising candidate (a shape past a kernel's limits, a
                     # failed build) is recorded as infeasible; the tune goes
                     # on with the other candidates
@@ -245,8 +271,7 @@ class Planner:
                     obs.inc("autotune.infeasible")
                     obs.event("autotune.candidate", op=op, key=_key_str(key),
                               variant=plan.variant, status="infeasible",
-                              plan=plan.to_dict(),
-                              error=f"{type(e).__name__}: {e}"[:200])
+                              plan=plan.to_dict(), error=err)
                     continue
                 obs.inc("autotune.measured")
                 obs.event("autotune.candidate", op=op, key=_key_str(key),
@@ -254,6 +279,13 @@ class Planner:
                           plan=plan.to_dict())
                 if t < best_t:
                     best, best_t = plan, t
+        if ma is not None:
+            # rank 0 decides, every rank installs the same plan
+            from repro_torch.parallel import comm
+            idx = torch.tensor([-1 if best is None else
+                                candidates.index(best)], dtype=torch.int32)
+            idx = int(comm.broadcast(idx, ma[1], 0, ma[0])[0])
+            best = None if idx < 0 else candidates[idx]
         if best is None:
             best = heuristic_plan(op, key)
             obs.event("autotune.winner", op=op, key=_key_str(key),
@@ -270,7 +302,7 @@ class Planner:
 def candidate_plans(op: str, key: Key):
     """The per-op search grid over the registered variants (the JAX
     planner's, in the port's variant names; K7 has no chunk parameter, so
-    ``moe_route`` has one candidate a variant)."""
+    ``moe_route`` and ``moe_route_ep`` have one candidate a variant)."""
     from repro_torch.engine import registry
     _, _, _, n, _, _ = key
     out = []
@@ -281,6 +313,15 @@ def candidate_plans(op: str, key: Key):
                 out.extend(Plan(variant, w=32, levels=lv) for lv in (1, 2, 3))
             else:
                 out.append(Plan(variant, w=32))
+        elif op == "sharded_sort":
+            # the local reduction's executor (and fused depth) crossed with
+            # the splitter policy; cap_factor / retries keep their defaults
+            for splitter in ("regular", "hist"):
+                if variant == "tree_cuda":
+                    out.extend(Plan(variant, w=32, levels=lv,
+                                    splitter=splitter) for lv in (1, 2))
+                else:
+                    out.append(Plan(variant, w=32, splitter=splitter))
         elif op == "external_sort":
             # phase-1 tile size x phase-2 fan-in
             n2 = next_pow2(max(n, 4))
@@ -299,7 +340,7 @@ def candidate_plans(op: str, key: Key):
             if variant.endswith("two_phase"):
                 # phase 2 is a MergeSchedule: also sweep the fused depth
                 out.append(Plan(variant, w=32, chunk=256, levels=2))
-        elif op == "moe_route":
+        elif op in ("moe_route", "moe_route_ep"):
             out.append(Plan(variant, w=32))
         else:
             out.append(Plan(variant))

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/engine/registry.py`` for ``sort``, ``argsort``,
 ``merge``, ``merge_runs``, ``topk``, ``sample_topp``, ``sample_minp``,
-``segment_sort``, ``segment_argsort``, ``segment_merge``, ``moe_route`` and
-``external_sort``. Variant names map from the JAX package's:
+``segment_sort``, ``segment_argsort``, ``segment_merge``, ``moe_route``,
+``external_sort`` and the sharded ops ``sharded_sort``, ``sharded_topk``
+and ``moe_route_ep``. Variant names map from the JAX package's:
 
     pallas            -> cuda            the hand-written CUDA kernels
     tree_pallas       -> tree_cuda       the fused merge-tree schedule (K3/K4)
@@ -342,3 +343,44 @@ def _moe_route_fused(logits, k, capacity, *, plan):
 def _moe_route_torch(logits, k, capacity, *, plan):
     from repro_torch.kernels.route_fuse import moe_route_torch
     return moe_route_torch(logits, k, capacity)
+
+
+# --- sharded_sort / sharded_topk / moe_route_ep: across a mesh axis --------
+# The variant names the local K-way reduction's executor (sharded_sort),
+# the local top-k (sharded_topk) or the local route (moe_route_ep); the
+# splitter policy, cap_factor and retries ride the plan.
+
+def _sharded_sort_with(executor):
+    def fn(x, mesh, axis, *, plan, payload=None):
+        from repro_torch.engine.sharded import run_sharded_sort
+        return run_sharded_sort(x, mesh, axis, payload=payload,
+                                plan=plan.replace(variant=executor))
+    return fn
+
+
+for _v in ("torch", "tree_vmapped", "tree_cuda"):
+    register("sharded_sort", _v)(_sharded_sort_with(_v))
+
+
+def _sharded_topk_with(variant):
+    def fn(x, k, mesh, axis, *, plan, payload=None):
+        from repro_torch.engine.sharded import run_sharded_topk
+        return run_sharded_topk(x, k, mesh, axis, payload=payload,
+                                plan=plan.replace(variant=variant))
+    return fn
+
+
+for _v in ("flims", "torch"):
+    register("sharded_topk", _v)(_sharded_topk_with(_v))
+
+
+def _moe_route_ep_with(local):
+    def fn(logits, k, capacity, mesh, axis, *, plan):
+        from repro_torch.engine.sharded import run_moe_route_ep
+        return run_moe_route_ep(logits, k, capacity, mesh, axis,
+                                plan=plan.replace(variant=local))
+    return fn
+
+
+for _v in ("fused", "torch"):
+    register("moe_route_ep", _v)(_moe_route_ep_with(_v))

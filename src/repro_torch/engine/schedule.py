@@ -87,6 +87,18 @@ class MergeSchedule:
         return cls(variant=v, levels_per_pass=plan.levels, w=plan.w,
                    block_out=plan.block_out, tie=plan.tie)
 
+    def to_plan(self, **extra):
+        """Lower the schedule into an engine ``Plan`` (the inverse of
+        ``from_plan``): how ``sample_sort(merge_schedule=)`` enters the
+        planned sharded ops. ``extra`` sets further Plan fields
+        (``cap_factor``, ``splitter``, ``retries``)."""
+        from repro_torch.engine.planner import Plan
+        return Plan(variant=self.variant, w=self.w, block_out=self.block_out,
+                    levels=self.levels_per_pass, tie=self.tie, **extra)
+
+    def replace(self, **kw) -> "MergeSchedule":
+        return dataclasses.replace(self, **kw)
+
 
 def schedule_or(schedule: Optional[MergeSchedule], w: int,
                 tie: str = "b") -> MergeSchedule:

@@ -38,6 +38,20 @@ Every demotion is visible, a skipped rung included:
 
 :func:`demotions` counts every demotion of the process whether or not
 ``obs`` is recording, so a run can assert that nothing was demoted.
+
+**The collective ops** (``sharded_sort``, ``sharded_topk``,
+``moe_route_ep``; ``api.COLLECTIVE_OPS``) make collectives over a mesh
+axis from inside the variant, so every rank of the axis must run the same
+plan the same number of times, or the ranks wait on each other for ever.
+A rank cannot demote or retry alone, and by the time one rank fails the
+others are inside the op's next collective, so no collective on a failure
+flag can reach them. The ladder is therefore off for these ops: no
+demotion, no retry, no quarantine, and every error reaches the caller.
+The rank that failed raises at once; the other ranks raise when their
+pending collective reaches the mesh's timeout (``make_mesh(timeout_s=)``),
+so all ranks raise, within the timeout, and none hangs. The plan itself
+is agreed before the call: every rank adopts rank 0's resolved plan
+(``api._agree_plan``).
 """
 from __future__ import annotations
 
@@ -139,10 +153,15 @@ def guarded_call(op: str, plan, *args, **kw):
     the plan once and an injected fault moves to the next rung; on the CPU
     every recoverable error quarantines the plan and moves to the next
     rung. The last rung's failure, and every error :func:`recoverable`
-    refuses, propagates."""
+    refuses, propagates; so does every error of a collective op, which
+    has no ladder (module doc)."""
     from repro_torch.engine import registry
+    from repro_torch.engine.api import COLLECTIVE_OPS
     from repro_torch.engine.planner import _key_str, default_planner
 
+    if op in COLLECTIVE_OPS:
+        # no ladder: a rank may not demote or retry alone (module doc)
+        return registry.call(op, plan.variant, *args, plan=plan, **kw)
     key = _bucket(op, args)
     on_card = _on_card(key, args)
     rungs = _ladder(op, plan)

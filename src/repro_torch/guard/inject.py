@@ -10,7 +10,9 @@ than waits for it:
 - :func:`failing_variant`: register a variant that always raises an
   :class:`InjectedFault` dressed as an allocator failure, which the
   fallback ladder demotes on the card and on the CPU alike; a context
-  manager, the stub and its quarantine records go on exit;
+  manager, the stub and its quarantine records go on exit (a stub under
+  the name of a registered variant shadows it for the block, one rank's
+  fault on a collective op);
 - :func:`poison_model`: wrap a model so any slot fed a magic token emits
   non-finite logits, the serve scheduler's poison-isolation path.
 
@@ -91,18 +93,24 @@ def failing_variant(op: str, name: str = "chaos_fail",
                     message: str = "injected"):
     """Register an always-failing variant ``name`` of ``op`` for the
     block. Pin it with ``variant=name`` to drive the fallback ladder; the
-    registration and its quarantine records are removed on exit."""
+    registration and its quarantine records are removed on exit. A
+    variant already registered under ``name`` is shadowed for the block
+    and restored after it."""
     from repro_torch.engine import registry
     from repro_torch.engine.planner import default_planner
 
     def stub(*args, **kw):
         raise resource_exhausted(f"{op}.{name}: {message}")
 
+    shadowed = registry.get(op, name) if name in registry.variants(op) \
+        else None
     registry.register(op, name)(stub)
     try:
         yield name
     finally:
         registry.unregister(op, name)
+        if shadowed is not None:
+            registry.register(op, name)(shadowed)
         default_planner.clear_quarantine(variant=name)
 
 

@@ -2,10 +2,10 @@
 ``meta``-device stand-ins of a cell's inputs and state (counterpart of
 ``repro/launch/steps.py``).
 
-The trainer and the server build their steps here. The JAX module's
-``shardings_for`` / ``cell_shardings`` and the mesh arguments of
-``make_decode_step`` need a device mesh and wait for the sharded ops
-(ROADMAP queue 1 item 4); everything here runs on one device.
+The trainer and the server build their steps here. ``make_decode_step``
+takes the JAX signature's mesh and sequence-sharding axis; the JAX
+module's ``shardings_for`` / ``cell_shardings`` (a train step on a mesh)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -92,14 +92,17 @@ def make_prefill_step(cfg: ModelConfig):
     return model, prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
+def make_decode_step(cfg: ModelConfig, mesh=None, kv_shard_axis: str = ""):
     """``decode_step(params, token, pos, cache, generator)`` -> ``(next
     tokens, cache)``: one model step, then ``sample_topk(k=64)`` on the
-    ``torch`` top-k."""
+    ``torch`` top-k. With ``mesh`` and ``kv_shard_axis`` the caches are
+    this rank's blocks of sequence-sharded caches."""
     model = build_model(cfg)
 
     def decode_step(params, token, pos, cache, generator):
-        logits, cache = model.decode_step(params, token, pos, cache)
+        logits, cache = model.decode_step(params, token, pos, cache,
+                                          mesh=mesh,
+                                          kv_shard_axis=kv_shard_axis)
         nxt = sample_topk(generator, logits, k=64, use_flims=False)
         return nxt, cache
 

@@ -11,7 +11,9 @@ row with every key masked. ``scaled_dot_product_attention`` masks and
 accumulates otherwise, so it is not used. Feature flags: GQA, qk-norm
 (Qwen3), QKV bias (Qwen1.5), attention soft cap (Gemma-2), sliding window
 (Mixtral, Gemma-2's local layers), cross attention (Whisper: no mask, no
-RoPE). The sequence-sharded decode waits for the sharded ops.
+RoPE). The sequence-sharded decode (``attn_decode(kv_shard_axis=)``)
+splits the cache's positions over a mesh axis and combines the partial
+softmaxes flash-decoding style with one ``pmax`` and two ``psum``.
 """
 from __future__ import annotations
 
@@ -146,21 +148,80 @@ def _kv_positions(pos, W: int, window: int):
     return torch.where(kv_pos < 0, pos[:, None] + 1, kv_pos)
 
 
-def attn_decode(p, x, cache, pos, cfg, *, window: int = 0):
+def attn_decode(p, x, cache, pos, cfg, *, window: int = 0, mesh=None,
+                kv_shard_axis: str = ""):
     """One-token decode. x: (B, 1, d); cache: (k, v) of (B, W, K, hd); pos:
     (B,). Returns ``(y, (k, v))``, the caches new tensors with this token's
-    key and value at slot ``pos mod W`` (rolling) or ``min(pos, W - 1)``."""
+    key and value at slot ``pos mod W`` (rolling) or ``min(pos, W - 1)``.
+
+    With ``mesh`` and ``kv_shard_axis``, ``cache`` is this rank's block of
+    a sequence-sharded cache: the axis's P ranks hold its ``W = P * W_loc``
+    slots in rank order, every rank the same ``x`` and ``pos``. The rank
+    owning the slot writes it; each rank attends over its block and the
+    partial softmaxes combine across the axis (``_sharded_flash_decode``),
+    so every rank returns the same ``y`` and its own updated block.
+    """
     B = x.shape[0]
     kc, vc = cache
-    W = kc.shape[1]
+    sharded = bool(kv_shard_axis) and mesh is not None
+    P = mesh.axis_size(kv_shard_axis) if sharded else 1
+    W_loc = kc.shape[1]
+    W = W_loc * P
     q, k, v = _qkv(p, x, cfg, pos[:, None])
     slot = torch.remainder(pos, W) if window else torch.clamp(pos, max=W - 1)
-    kc = _scatter_slot(kc, k[:, 0], slot)
-    vc = _scatter_slot(vc, v[:, 0], slot)
-    y = _flash_over_kv(q, kc, vc, cfg, causal=True, window=window,
-                       q_positions=pos[:, None],
-                       kv_positions=_kv_positions(pos, W, window))
+    kv_pos = _kv_positions(pos, W, window)
+    if not sharded:
+        kc = _scatter_slot(kc, k[:, 0], slot)
+        vc = _scatter_slot(vc, v[:, 0], slot)
+        y = _flash_over_kv(q, kc, vc, cfg, causal=True, window=window,
+                           q_positions=pos[:, None], kv_positions=kv_pos)
+        return y.reshape(B, 1, -1) @ p["wo"], (kc, vc)
+    lo = mesh.axis_index(kv_shard_axis) * W_loc
+    kc = _scatter_slot_masked(kc, k[:, 0], slot - lo)
+    vc = _scatter_slot_masked(vc, v[:, 0], slot - lo)
+    y = _sharded_flash_decode(q, kc, vc, kv_pos[:, lo:lo + W_loc], pos, cfg,
+                              window, mesh, kv_shard_axis)
     return y.reshape(B, 1, -1) @ p["wo"], (kc, vc)
+
+
+def _sharded_flash_decode(q, kc, vc, kv_pos, pos, cfg, window, mesh, axis):
+    """Flash decoding over a sequence-sharded KV cache: each rank's partial
+    ``(m, l, acc)`` over its block, rescaled to the axis-wide maximum
+    (``pmax``), summed (``psum``) and normalised."""
+    from repro_torch.parallel import comm
+    m, l, acc = _partial_attn(q, kc, vc, kv_pos, pos, cfg, window)
+    m_g = comm.pmax(m, axis, mesh)
+    corr = torch.where(torch.isfinite(m), torch.exp(m - m_g), 0.0)
+    l_g = comm.psum(l * corr, axis, mesh)
+    acc_g = comm.psum(acc * corr[..., None], axis, mesh)
+    out = acc_g / torch.clamp(l_g[..., None], min=1e-37)
+    B, S, K, G, hd = out.shape
+    return out.reshape(B, S, K * G, hd).to(q.dtype)
+
+
+def _partial_attn(q, k, v, kv_pos, pos, cfg, window):
+    """Un-normalised attention over a local KV block -> ``(m, l, acc)``,
+    float32: the row maximum, the exponent sum and the weighted values."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg = (q * hd ** -0.5).reshape(B, S, K, G, hd).float()
+    s = torch.einsum("bskgd,btkd->bskgt", qg, k.float())
+    if cfg.attn_softcap:
+        s = softcap(s, cfg.attn_softcap)
+    qp = pos[:, None, None, None, None]
+    kp = kv_pos[:, None, None, None, :]
+    mask = qp >= kp
+    if window:
+        mask = mask & ((qp - kp) < window)
+    s = torch.where(mask, s, float("-inf"))
+    m = s.amax(-1)
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    pexp = torch.where(mask, torch.exp(s - m_safe[..., None]), 0.0)
+    l = pexp.sum(-1)
+    acc = torch.einsum("bskgt,btkd->bskgd", pexp.to(v.dtype).float(),
+                       v.float())
+    return m, l, acc
 
 
 def _scatter_slot(cache, new, slot):
@@ -170,6 +231,15 @@ def _scatter_slot(cache, new, slot):
     out[torch.arange(cache.shape[0], device=cache.device),
         slot.long()] = new.to(cache.dtype)
     return out
+
+
+def _scatter_slot_masked(cache, new, slot):
+    """``_scatter_slot`` where ``slot`` may fall outside ``[0, W)`` (another
+    rank's block of a sharded cache): such a row writes nothing."""
+    hit = torch.arange(cache.shape[1], device=cache.device)[None, :] \
+        == slot[:, None]
+    return torch.where(hit[:, :, None, None], new[:, None].to(cache.dtype),
+                       cache)
 
 
 def cross_attn_init(gen: torch.Generator, cfg, device="cuda"):

@@ -12,7 +12,9 @@ a bf16 array as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses:
 its bits go through ``uint16`` and are viewed as ``torch.bfloat16``.
 ``opt_state_from_jax`` carries a JAX ``AdamWState`` (its step, ``m``, ``v``
 and ``master`` as numpy) into the port's ``optim.AdamWState``, so a JAX
-step and a port step start from the same state.
+step and a port step start from the same state. ``shard_params_for_rank``
+cuts a converted (or seeded) tree down to one rank's expert band for
+expert parallelism.
 """
 from __future__ import annotations
 
@@ -73,3 +75,36 @@ def opt_state_from_jax(state_np, device="cuda"):
                       _tree_from_jax(state_np.m, device),
                       _tree_from_jax(state_np.v, device),
                       _tree_from_jax(state_np.master, device))
+
+
+#: the stacked expert weights of an MoE sub-tree; the expert axis is the
+#: third from the end (``wi`` / ``wg`` (..., E, d, f), ``wo`` (..., E, f, d))
+EXPERT_LEAVES = ("wi", "wg", "wo")
+
+
+def shard_params_for_rank(params, mesh, axis: str = "model"):
+    """This rank's parameters for expert parallelism over ``axis``: every
+    MoE sub-tree's expert stacks cut to the rank's band of E/P experts
+    (rank ``i`` of the axis holds ``[i*E/P, (i+1)*E/P)``), everything else
+    (the router among it) shared with ``params`` as it is. The cut leaves
+    are copies, so the whole stacks can be freed."""
+    P = mesh.axis_size(axis)
+    i = mesh.axis_index(axis)
+
+    def cut(t):
+        E = t.shape[-3]
+        if E % P:
+            raise ValueError(f"shard_params_for_rank: {E} experts do not "
+                             f"split {P} ways")
+        n = E // P
+        return t.narrow(t.dim() - 3, i * n, n).clone()
+
+    def walk(tree, in_moe=False):
+        if isinstance(tree, dict):
+            return {k: (cut(v) if in_moe and k in EXPERT_LEAVES
+                        else walk(v, in_moe or k == "moe"))
+                    for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(walk(v, in_moe) for v in tree)
+        return tree
+    return walk(params)

@@ -119,16 +119,20 @@ def _build_decoder(cfg: ModelConfig) -> SimpleNamespace:
     def init_cache(batch_size: int, max_seq: int, device="cuda"):
         return tf.decoder_cache_init(cfg, batch_size, max_seq, device)
 
-    def prefill(params, batch, max_seq: int):
-        """The prompt through ``forward``; the last position's logits."""
+    def prefill(params, batch, max_seq: int, mesh=None, kv_shard_axis=""):
+        """The prompt through ``forward``; the last position's logits (the
+        mesh arguments are the JAX signature's; the forward reads
+        neither)."""
         h = forward(params, batch)
         return tf.lm_logits(params, h[:, -1:, :], cfg)[:, 0, :]
 
-    def decode_step(params, token, pos, cache):
+    def decode_step(params, token, pos, cache, mesh=None, kv_shard_axis=""):
         """token: (B,) int32; pos: (B,). Returns ``(logits (B, V) float32,
-        new_cache)``."""
+        new_cache)``. With ``mesh`` and ``kv_shard_axis`` the attention
+        caches are this rank's blocks of sequence-sharded caches."""
         h, cache = tf.decoder_decode_step(
-            params, _token_embedding(params, token, cfg), cache, pos, cfg)
+            params, _token_embedding(params, token, cfg), cache, pos, cfg,
+            mesh=mesh, kv_shard_axis=kv_shard_axis)
         return tf.lm_logits(params, h, cfg)[:, 0, :], cache
 
     return SimpleNamespace(cfg=cfg, init=init, forward=forward,
@@ -153,9 +157,9 @@ def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
         return ed.encdec_cache_init(cfg, batch_size, max_seq, enc_len,
                                     device)
 
-    def prefill(params, batch, max_seq: int):
+    def prefill(params, batch, max_seq: int, mesh=None, kv_shard_axis=""):
         """Encode the frames, fill the cross caches, run the prompt through
-        the decoder. Returns ``(last logits (B, V), cache)``; the cache's
+        the decoder (the mesh arguments are the JAX signature's, unread). Returns ``(last logits (B, V), cache)``; the cache's
         self-attention part is zeros, as the JAX package's."""
         enc = ed.encode(params, batch["frames"], cfg)
         cache = ed.encdec_cache_init(cfg, enc.shape[0], max_seq,
@@ -164,7 +168,9 @@ def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
         h = ed.decode_train(params, enc, batch["tokens"], cfg)
         return tf.lm_logits(params, h[:, -1:, :], cfg)[:, 0, :], cache
 
-    def decode_step(params, token, pos, cache):
+    def decode_step(params, token, pos, cache, mesh=None, kv_shard_axis=""):
+        """As the decoder's; the mesh arguments are unread, as in the JAX
+        package's encoder-decoder."""
         h, cache = ed.encdec_decode_step(
             params, _token_embedding(params, token, cfg), cache, pos, cfg)
         return tf.lm_logits(params, h, cfg)[:, 0, :], cache

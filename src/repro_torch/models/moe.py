@@ -14,8 +14,13 @@ Counterpart of ``repro/models/moe.py`` on one device. Dispatch paths:
   row, one route per chunk. With one device there is one group (G = 1),
   and the JAX package's sharding constraints are the identity, so neither
   appears here.
-- ``ep``: without a mesh the JAX package runs ``grouped``; so does the
-  port, until the sharded ops are ported.
+- ``ep``: expert parallelism over the ``model`` axis of the mesh that
+  ``parallel.act.set_context`` installs. Every rank of the axis holds E/P
+  experts and sees the same tokens; it routes them all (one K7 launch a
+  chunk), keeps the pairs of its own expert band, runs its slabs, and
+  one ``psum`` over the axis gathers the pairs' weighted outputs, summed
+  per token after it. Without a mesh or a model axis, or when P does not
+  divide E, it runs ``grouped``, as the JAX package does.
 
 The expert products are plain batched matrix products outside any kernel
 (``torch.einsum``). The slab scatter is an indexed copy (dropped pairs all
@@ -111,10 +116,10 @@ def _experts(p, xin):
     return torch.einsum("gecf,efd->gecd", h, p["wo"])
 
 
-def _combine(y, route, T: int, k: int):
-    """(G, E, cap, d) expert outputs -> (G, T, d): each pair's slab row
-    times its weight (zero when dropped) goes to its position ``perm =
-    t*k + j``, and each token's k slots are summed in that fixed order."""
+def _contributions(y, route, T: int, k: int):
+    """(G, E, cap, d) expert outputs -> (G, T, k, d): each pair's slab row
+    times its weight (zero when dropped) at its position ``perm = t*k +
+    j``."""
     G, E, cap, d = y.shape
     g = torch.arange(G, device=y.device)[:, None]
     keep, slab = route.keep, route.slabs.long()
@@ -122,7 +127,13 @@ def _combine(y, route, T: int, k: int):
         (route.weights.to(y.dtype) * keep)[..., None]
     out = torch.empty_like(contrib)
     out[g, route.perm.long()] = contrib
-    return out.reshape(G, T, k, d).sum(2)
+    return out.reshape(G, T, k, d)
+
+
+def _combine(y, route, T: int, k: int):
+    """(G, E, cap, d) expert outputs -> (G, T, d): the k contributions of
+    each token summed in that fixed order."""
+    return _contributions(y, route, T, k).sum(2)
 
 
 def _group_dispatch_batched(p, xg, cfg, cap):
@@ -168,13 +179,82 @@ def moe_apply_grouped(p, x, cfg, capacity_factor: float = 1.25,
                 cap).reshape(B, Sc, d) for i in range(S // Sc)], dim=1)
 
 
+def _expert_band(w, E: int, E_loc: int, e0: int):
+    """This rank's experts of a stacked (E or E_loc, ...) expert weight:
+    the band ``[e0, e0 + E_loc)`` of a whole stack, or the rank's own
+    shard as it is (``convert.shard_params_for_rank``)."""
+    if w.shape[0] == E_loc:
+        return w
+    if w.shape[0] == E:
+        return w[e0:e0 + E_loc]
+    raise ValueError(f"expert weights of {w.shape[0]} experts: neither all "
+                     f"{E} nor this rank's {E_loc}")
+
+
+def moe_apply_ep(p, x, cfg, capacity_factor: float = 1.25,
+                 seq_chunk: int = 1024):
+    """Expert parallelism over the context's model axis (SPMD).
+
+    Every rank of the axis holds E/P experts (``p``'s stacks may hold all
+    E; the rank takes its band) and the same tokens ``x`` (B, S, d): its
+    block of the batch when the mesh has data axes. Per sequence chunk of
+    ``Sc`` positions it routes all ``B * Sc`` tokens with
+    ``engine.moe_route`` (one K7 launch), keeps the pairs of its own
+    experts, scatters them into its (E/P, cap, d) slabs, runs them,
+    combines locally, and one ``psum`` over the axis adds the P partial
+    outputs (in rank order: every rank holds the same bits). Falls back to
+    ``moe_apply_grouped`` without a mesh or a model axis, or when P does
+    not divide E.
+    """
+    from repro_torch.parallel import act, comm
+    mesh, tp = act.context_mesh(), act.model_axis()
+    E = cfg.n_experts
+    if mesh is None or tp is None or E % mesh.axis_size(tp):
+        return moe_apply_grouped(p, x, cfg, capacity_factor)
+    B, S, d = x.shape
+    k = cfg.n_experts_active
+    E_loc = E // mesh.axis_size(tp)
+    e0 = mesh.axis_index(tp) * E_loc
+    wl = {n: _expert_band(p[n], E, E_loc, e0) for n in ("wi", "wg", "wo")}
+    Sc = min(seq_chunk, S)
+    while S % Sc:
+        Sc //= 2
+    T = B * Sc
+    cap = expert_capacity(capacity_factor, T, k, E)
+    outs = []
+    for i in range(S // Sc):
+        xf = x[:, i * Sc:(i + 1) * Sc].reshape(T, d)
+        route = engine.moe_route(xf.float() @ p["router"], k, cap)
+        # slabs are e*cap + pos: re-basing to this rank's buffer is one
+        # subtraction; pairs of other ranks' experts become drops
+        mine = (route.experts >= e0) & (route.experts < e0 + E_loc)
+        keep = route.keep & mine
+        slab = torch.where(keep, route.slabs - e0 * cap, E_loc * cap)
+        local = route._replace(slabs=slab, keep=keep)
+        xin = _scatter_slabs(xf[None], _batched(local), E_loc, cap)
+        y = _experts(wl, xin)
+        # the (T, k, d) contributions cross the axis, each nonzero on one
+        # rank only, and a token's k are summed after: the sum of one
+        # device, whose rounding does not depend on how E is split
+        part = _contributions(y, _batched(local), T, k)[0]
+        outs.append(comm.psum(part, tp, mesh).sum(1).reshape(B, Sc, d))
+    return torch.cat(outs, dim=1)
+
+
+def _batched(route):
+    return type(route)(*(t[None] for t in route))
+
+
 def moe_apply(p, x, cfg, mode: str = None):
     """The MoE layer through the path ``mode`` (default ``cfg.moe_path``):
-    ``dense``, ``sorted``, ``grouped``, or ``ep``, which runs ``grouped`` on
-    one device as the JAX package does without a mesh."""
+    ``dense``, ``sorted``, ``grouped``, or ``ep`` (expert parallelism over
+    the context's model axis; ``grouped`` without one, as the JAX package
+    does)."""
     mode = mode or getattr(cfg, "moe_path", "dense")
     if mode == "sorted":
         return moe_apply_sorted(p, x, cfg)
-    if mode in ("grouped", "ep"):
+    if mode == "grouped":
         return moe_apply_grouped(p, x, cfg)
+    if mode == "ep":
+        return moe_apply_ep(p, x, cfg)
     return moe_apply_dense(p, x, cfg)

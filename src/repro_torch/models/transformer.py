@@ -246,9 +246,11 @@ def decoder_cache_init(cfg, batch: int, max_seq: int, device="cuda"):
               else max_seq)
 
 
-def _attn_block_decode(p, x, cache, pos, cfg, window):
+def _attn_block_decode(p, x, cache, pos, cfg, window, mesh=None,
+                       kv_shard_axis=""):
     h = rmsnorm(x, p["attn_norm"], cfg.norm_eps)
-    y, cache = attn.attn_decode(p["attn"], h, cache, pos, cfg, window=window)
+    y, cache = attn.attn_decode(p["attn"], h, cache, pos, cfg, window=window,
+                                mesh=mesh, kv_shard_axis=kv_shard_axis)
     x = x + y
     return x + _ffn(p, rmsnorm(x, p["mlp_norm"], cfg.norm_eps), cfg), cache
 
@@ -260,17 +262,22 @@ def _mixer_block_decode(p, x, state, cfg, kind: str):
     return x + y, state
 
 
-def decoder_decode_step(params, x, cache, pos, cfg):
+def decoder_decode_step(params, x, cache, pos, cfg, mesh=None,
+                        kv_shard_axis=""):
     """x: (B, 1, d) embedded token; pos: (B,), read by the attention caches
     only (a recurrent state has no position). Returns ``(h, new_cache)``;
-    the cache passed in is left unchanged."""
+    the cache passed in is left unchanged. With ``mesh`` and
+    ``kv_shard_axis`` the full-attention caches are this rank's blocks of
+    sequence-sharded caches (``attention.attn_decode``); sliding-window
+    caches stay whole, as in the JAX package."""
     L = cfg.n_layers
     if cfg.arch_kind == "mamba_hybrid":
         k = cfg.hybrid_attn_every
         kvs, states = [], []
         for g in range(L // k):
             x, c = _attn_block_decode(params["shared_attn"], x,
-                                      _at(cache["attn"], g), pos, cfg, 0)
+                                      _at(cache["attn"], g), pos, cfg, 0,
+                                      mesh, kv_shard_axis)
             kvs.append(c)
             for i in range(g * k, (g + 1) * k):
                 x, st = _mixer_block_decode(layer(params, i), x,
@@ -300,14 +307,16 @@ def decoder_decode_step(params, x, cache, pos, cfg):
                                       cfg.sliding_window)
             loc.append(c)
             x, c = _attn_block_decode(_at(params["global"], g), x,
-                                      _at(cache["global"], g), pos, cfg, 0)
+                                      _at(cache["global"], g), pos, cfg, 0,
+                                      mesh, kv_shard_axis)
             glo.append(c)
         new_cache = {"local": _stack(loc), "global": _stack(glo)}
     else:
         kvs = []
         for i in range(L):
             x, c = _attn_block_decode(layer(params, i), x, _at(cache, i),
-                                      pos, cfg, cfg.sliding_window)
+                                      pos, cfg, cfg.sliding_window, mesh,
+                                      kv_shard_axis)
             kvs.append(c)
         new_cache = _stack(kvs)
     return rmsnorm(x, params["final_norm"], cfg.norm_eps), new_cache

@@ -1290,3 +1290,94 @@ def test_reduced_train_step_on_card_matches_cpu(card):
     for a, b in zip(p1, p0):
         torch.testing.assert_close(a, b, rtol=0, atol=2 * tcfg.lr)
         assert float((a - b).norm() / max(float(b.norm()), 1e-30)) <= 1e-5
+
+
+# --------------------------------------------------------------------------
+# the mesh: 2 gloo ranks sharing the card
+# --------------------------------------------------------------------------
+
+def _two_ranks_on_card(rank, store, case, out_dir):
+    """One of 2 gloo ranks on ``cuda:0``: the case's op under its kernel
+    variant and under ``torch``, compared here; the rank exits 1 on a
+    mismatch."""
+    import os
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    try:
+        from repro_torch import engine
+        from repro_torch.kernels import launch_counts, reset_launches
+        from repro_torch.launch.mesh import make_mesh
+        mesh = make_mesh((2,), ("data",), backend="gloo", rank=rank,
+                         world_size=2, store_dir=store, timeout_s=60.0)
+        gen = torch.Generator(device="cuda").manual_seed(31 + rank)
+        if case == "sort":
+            pool = torch.tensor([-np.inf, -1.0, 0.0, 0.5, 2.0, 7.0],
+                                device="cuda")
+            x = pool[torch.randint(0, 6, (1 << 16,), generator=gen,
+                                   device="cuda")]
+            gidx = rank * x.numel() + torch.arange(
+                x.numel(), dtype=torch.int32, device="cuda")
+            for levels in (1, 2):
+                plan = engine.Plan("tree_cuda", w=32, levels=levels)
+                reset_launches()
+                got = engine.sharded_sort(x, mesh, plan=plan)
+                gkv, gp = engine.sharded_sort(x, mesh, payload=gidx,
+                                              plan=plan)
+                n = launch_counts()
+                want = engine.sharded_sort(x, mesh, variant="torch")
+                wkv, wp = engine.sharded_sort(x, mesh, payload=gidx,
+                                              variant="torch")
+                # 2 runs a rank: one tree level, a K3 pass at either depth
+                assert n.get("segmented_merge_runs", 0) >= 1 and \
+                    n.get("segmented_merge_runs_kv", 0) >= 1, n
+                for a, b in ((got.values, want.values),
+                             (got.count, want.count),
+                             (got.overflow, want.overflow),
+                             (gkv.values, wkv.values), (gp, wp)):
+                    assert torch.equal(_bits(a), _bits(b))
+        else:
+            lg = torch.randn(512, 16, generator=gen, device="cuda")
+            for cap in (1, 40, 1024):
+                reset_launches()
+                got = engine.moe_route_ep(lg, 2, cap, mesh, "data",
+                                          variant="fused")
+                assert launch_counts().get("moe_route", 0) == 1
+                want = engine.moe_route_ep(lg, 2, cap, mesh, "data",
+                                           variant="torch")
+                for f in got._fields:
+                    a, b = getattr(got, f), getattr(want, f)
+                    if f == "weights":
+                        d = (a.view(torch.int32).long()
+                             - b.view(torch.int32).long()).abs().max()
+                        assert int(d) <= ROUTE_WEIGHT_ULPS, (cap, int(d))
+                    else:
+                        assert torch.equal(a, b), (cap, f)
+        open(os.path.join(out_dir, f"ok{rank}"), "w").close()
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        os._exit(1)
+    os._exit(0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sort", "route"])
+def test_two_ranks_share_the_card(card, case, tmp_path):
+    """``sharded_sort`` on ``tree_cuda`` (2 runs a rank: one K3 pass at
+    levels 1 and 2; key-only and KV) and ``moe_route_ep`` on ``fused`` (K7; capacities 1, 40 and
+    slack) on 2 gloo ranks sharing the card, each against its ``torch``
+    variant on the same shard: bit for bit (K7's weights within
+    ``ROUTE_WEIGHT_ULPS``)."""
+    import os
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_two_ranks_on_card,
+                         args=(r, str(tmp_path / "store"), case,
+                               str(tmp_path))) for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(180)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    assert all(os.path.exists(tmp_path / f"ok{r}") for r in range(2))

@@ -245,7 +245,9 @@ def test_plans_from_jax_maps_backends_and_drops_unserved():
     assert out["merge|cuda|int32|n64|s0"]["w"] == 8
     assert out["topk|cuda|float32|n64|s0"]["variant"] == "flims"
     assert out["merge_runs|cuda|int32|n64|s8"]["variant"] == "tree_vmapped"
-    assert len(out) == 4
+    # served since the sharded ops were ported: kept, axis and P intact
+    assert out["sharded_topk|cuda|float32|n64|s8|adev"]["variant"] == "flims"
+    assert len(out) == 5
 
 
 def test_planner_keeps_and_routes_the_reference_sorters(tmp_path):
