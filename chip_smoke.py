@@ -129,6 +129,23 @@ the CUDA toolkit. It
      widths and all 28 layers, bf16, remat, batch 4 x 2048: four steps of
      ``make_train_step``, finite losses and non-zero gradient norms, step
      p50, tokens/s, peak memory and the model's FLOP rate;
+   - training on the mesh (``phase_train_mesh``; K7 in every rank): the
+     parent takes 3 one-process steps of the training phase's Moonlight
+     config (4 of 48 layers, bf16, remat, batch 4 x 1024) and frees the
+     card; then 4 ranks spawned on it under gloo run (a) the same 3 steps
+     on a (2, 2) ``("data", "model")`` mesh (FSDP, data parallelism,
+     expert parallelism with 32 experts a rank and the ZeRO layout at
+     once; ``launch.steps.make_train_step(mesh=)``), the blocks drawn from
+     the same generator: each loss within 2^-6 relative of the one
+     process's, the loss bits the same on every rank, every leaf's norm
+     and 64 seeded elements within 2^-6, K7 4 times a step in the forward
+     and 4 in remat's recompute; step times, tokens/s, peak and state GB
+     a rank, staged bytes a step by collective; (b) ``gpipe`` over a
+     ``stage`` axis of 4 (M 8 microbatches of (256, 2048) float32 through
+     ``tanh(x @ W)``) within 1e-5 of each microbatch through the stages in
+     sequence; (c) ``compressed_psum_int8`` over a ``pod`` axis of 4 on one
+     Qwen3-1.7B layer's gradient shapes, within 1.5 quantisation steps of
+     the float32 mean, its bytes on the wire against float32's;
    - the guard on the card: with ``guard.enable_verify()``, ``sort``,
      ``argsort``, ``merge``, ``segment_sort``, ``merge_runs(tree_cuda)``
      and ``external_sort`` on their kernels at 2^20-2^22 keys with no
@@ -3436,6 +3453,476 @@ def _train_moe(engine, kernels, planner, tr, base, cfg, tcfg, ckdir):
     return line, train_k7 + 2 * counts["k7_forward"], losses
 
 
+# --------------------------------------------------------------------------
+# the training half of the mesh: 4 ranks on the one card
+# --------------------------------------------------------------------------
+
+TMESH_SHAPE = (2, 2)           # ("data", "model"): FSDP, DP, EP and ZeRO
+TMESH_RANKS = 4
+TMESH_STEPS = 3
+TMESH_LIMIT_S = 240            # the phase's whole time, spawns included
+TMESH_REL = 2.0 ** -6          # losses, leaf norms and samples
+TMESH_SAMPLE = 64              # seeded elements of each leaf
+GPIPE_S, GPIPE_M, GPIPE_D, GPIPE_BM = 4, 8, 2048, 256
+GPIPE_TOL = 1e-5
+COMPRESS_ARCH = "qwen3_1p7b"   # one layer's gradient shapes
+COMPRESS_STEPS = 1.5           # bound, in quantisation steps of the mean
+# the leaves whose gradient depends on which pairs the capacity cut keeps
+CAPACITY_LEAVES = tuple(f"blocks/moe/{n}" for n in ("router", "wi", "wg",
+                                                    "wo"))
+
+
+def _tmesh_cfg(tr, get_config):
+    base = get_config(TRAIN_MOE_ARCH)
+    cfg = dataclasses.replace(base, n_layers=TRAIN_MOE_LAYERS)
+    tcfg = tr.TrainConfig(
+        global_batch=TRAIN_MOE_BATCH, seq_len=TRAIN_MOE_SEQ, lr=TRAIN_LR,
+        warmup_steps=TRAIN_WARMUP, total_steps=TRAIN_MOE_STEPS, seed=SEED)
+    return base, cfg, tcfg
+
+
+def _tmesh_sample_index(i: int, numel: int):
+    import numpy as np
+    rng = np.random.default_rng([SEED, 910, i])
+    return rng.integers(0, numel, TMESH_SAMPLE)
+
+
+def _tmesh_reference(kernels, tr, cfg, tcfg, per_shard: bool):
+    """The one-process steps on the same seeded weights and batches: the
+    losses, gradient norms, step times, K7's launches a step, and each
+    leaf's Frobenius norm and seeded sample after the last step; the
+    state is freed. ``per_shard``: under an ``AbstractMesh`` of the mesh's
+    shape, where ``moe_apply_ep`` routes each data shard's rows as one
+    group a 1024-position chunk, as the mesh cuts capacity, so the one
+    process computes the mesh's function; otherwise the plain step, whose
+    ``grouped`` MoE layer routes the whole batch as one group a
+    512-position chunk, and whose capacity cut drops other pairs."""
+    import contextlib
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.launch.mesh import AbstractMesh
+    from repro_torch.parallel import act
+    with (act.context(AbstractMesh(TMESH_SHAPE, ("data", "model")))
+          if per_shard else contextlib.nullcontext()):
+        return _tmesh_steps(kernels, tr, cfg, tcfg, _flatten)
+
+
+def _tmesh_steps(kernels, tr, cfg, tcfg, _flatten):
+    model, step = tr.make_train_step(cfg, tcfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = tr.adamw_init(params)
+    state_gb = _nbytes(params, [opt.step, opt.m, opt.v, opt.master]) / 1e9
+    data = tr.SyntheticLM(cfg.vocab_size, tcfg.seq_len, tcfg.global_batch,
+                          SEED)
+    losses, norms, step_s, k7 = [], [], [], []
+    for s in range(TMESH_STEPS):
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, data.batch(s))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        k7.append(kernels.launch_counts().get("moe_route", 0))
+    leaves = {}
+    for i, (name, t) in enumerate(_flatten(params)):
+        idx = _tmesh_sample_index(i, t.numel())
+        leaves[name] = {
+            "i": i, "shape": list(t.shape),
+            "norm": float(t.double().norm()),
+            "sample": t.reshape(-1)[torch.from_numpy(idx).to("cuda")]
+            .float().cpu().tolist()}
+    del params, opt, model, step, met
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norms": norms, "leaves": leaves,
+            "step_s": step_s, "k7_a_step": k7, "state_gb": state_gb}
+
+
+def _tmesh_check_leaves(mesh, comm, lay, params, ref, no_sample=()):
+    """Each leaf's norm and seeded sample from this rank's blocks (square
+    sums and owned elements summed over the axes the spec names; an
+    element has one owner along them) against the one-process leaf's:
+    the worst relative errors, the leaves past ``TMESH_REL``, and the
+    sample errors of the leaves named in ``no_sample``, read, not held."""
+    import numpy as np
+    from repro_torch.core.butterfly import tree_leaves
+    from repro_torch.parallel.sharding import block_slices, spec_axes
+    worst_norm, worst_sample, bad, unheld = 0.0, 0.0, [], {}
+    for lf, b in zip(lay.plans(params), tree_leaves(params)):
+        name = "/".join(lf.path)
+        r = ref[name]
+        axes = [a for e in lf.pspec for a in spec_axes(e)]
+        sq = b.double().square().sum().reshape(1)
+        shape = tuple(r["shape"])
+        idx = _tmesh_sample_index(r["i"], int(np.prod(shape)))
+        coords = np.unravel_index(idx, shape)
+        sl = block_slices(shape, lf.pspec, mesh)
+        own = np.ones(len(idx), bool)
+        for c, s_ in zip(coords, sl):
+            own &= (c >= s_.start) & (c < s_.stop)
+        local = [c - s_.start for c, s_ in zip(coords, sl)]
+        vals = torch.zeros(len(idx), dtype=torch.float32, device="cuda")
+        if own.any():
+            pick = tuple(torch.from_numpy(l_[own]).to("cuda") for l_ in local)
+            vals[torch.from_numpy(np.nonzero(own)[0]).to("cuda")] = \
+                b[pick].float()
+        for a in axes:
+            sq = comm.psum(sq, a, mesh)
+            vals = comm.psum(vals, a, mesh)
+        norm = float(sq.sqrt())
+        rel_n = abs(norm - r["norm"]) / max(r["norm"], 1e-30)
+        want = torch.tensor(r["sample"], dtype=torch.float64)
+        rel_s = float((vals.double().cpu() - want).norm() /
+                      max(float(want.norm()), 1e-30))
+        worst_norm = max(worst_norm, rel_n)
+        if name in no_sample:
+            unheld[name], rel_s = rel_s, 0.0
+        worst_sample = max(worst_sample, rel_s)
+        if not (rel_n <= TMESH_REL and rel_s <= TMESH_REL):
+            bad.append(f"leaf {name}: norm {norm} vs {r['norm']}, sample "
+                       f"{rel_s}")
+    return worst_norm, worst_sample, bad, unheld
+
+
+def _tmesh_train(kernels, tr, slice5, mesh, rank, refs):
+    """(a): Moonlight, 4 of 48 layers, bf16, remat, batch 4 x 1024 on the
+    (2, 2) mesh: the blocks drawn from the one-process init's generator,
+    3 steps. Within ``TMESH_REL``: losses, gradient norms, leaf norms and
+    samples against the one-process steps that compute the mesh's
+    function (``refs["per_shard"]``); losses, leaf norms and the dense
+    leaves' samples against the plain one-process steps
+    (``refs["one_group"]``, ``CAPACITY_LEAVES``). The loss and norm bits
+    the same on every rank. Step times, staged bytes by collective and
+    K7's launches a step (forward and remat's recompute apart)."""
+    import torch.distributed as dist
+    from repro_torch.parallel import comm
+    get_config = slice5[2]
+    base, cfg, tcfg = _tmesh_cfg(tr, get_config)
+    _, step = tr.make_train_step(cfg, tcfg, mesh)
+    lay = step.layout
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lay.init(torch.Generator(device="cuda").manual_seed(SEED))
+    opt = lay.opt_init(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = _nbytes(params, [opt.step, opt.m, opt.v, opt.master]) / 1e9
+    data = tr.SyntheticLM(cfg.vocab_size, tcfg.seq_len, tcfg.global_batch,
+                          SEED)
+    # marks on the host clock, the card synchronised: the forward's end
+    # (K7's forward launches read there) and the gradients' (reduced)
+    real, real_grads, fwd = lay.model.train_loss, lay.loss_and_grads, {}
+
+    def loss_then_mark(p, b):
+        out = real(p, b)
+        torch.cuda.synchronize()
+        fwd["t"] = time.perf_counter()
+        fwd["k7"] = kernels.launch_counts().get("moe_route", 0)
+        return out
+
+    def grads_then_mark(p, b):
+        out = real_grads(p, b)
+        torch.cuda.synchronize()
+        fwd["t_grads"] = time.perf_counter()
+        return out
+    lay.model.train_loss = loss_then_mark
+    lay.loss_and_grads = grads_then_mark
+    ref, plain = refs["per_shard"], refs["one_group"]
+    losses, norms, step_s, k7_fwd, k7_bwd, staged = [], [], [], [], [], []
+    split = []
+    try:
+        for s in range(TMESH_STEPS):
+            batch = lay.batch_block(data.batch(s))
+            before = comm.host_staged_bytes_by_kind()
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, batch)
+            losses.append(met["loss"].reshape(1).float().cpu())
+            norms.append(met["grad_norm"].reshape(1).float().cpu())
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            step_s.append(t1 - t0)
+            split.append({"forward_s": fwd["t"] - t0,
+                          "backward_and_reductions_s": fwd["t_grads"]
+                          - fwd["t"],
+                          "norm_and_adamw_s": t1 - fwd["t_grads"]})
+            total = kernels.launch_counts().get("moe_route", 0)
+            k7_fwd.append(fwd["k7"])
+            k7_bwd.append(total - fwd["k7"])
+            after = comm.host_staged_bytes_by_kind()
+            staged.append({k: v - before.get(k, 0) for k, v in after.items()
+                           if v - before.get(k, 0)})
+    finally:
+        lay.model.train_loss = real
+        lay.loss_and_grads = real_grads
+    peak = torch.cuda.max_memory_allocated()
+    mine = torch.cat(losses + norms)
+    every = [torch.empty_like(mine) for _ in range(TMESH_RANKS)]
+    dist.all_gather(every, mine)
+    bad = []
+    if not all(torch.equal(e.view(torch.int32), mine.view(torch.int32))
+               for e in every):
+        bad.append(f"loss or norm bits differ between ranks: "
+                   f"{[e.tolist() for e in every]}")
+    got, got_norms = mine[:TMESH_STEPS].tolist(), mine[TMESH_STEPS:].tolist()
+    rel = {}
+    for what, vals, want in (
+            ("losses", got, ref["losses"]),
+            ("gradient norms", got_norms, ref["grad_norms"]),
+            ("losses (plain step)", got, plain["losses"])):
+        rel[what] = [abs(x - y) / abs(y) for x, y in zip(vals, want)]
+        if not (all(map(math.isfinite, vals)) and
+                max(rel[what]) <= TMESH_REL):
+            bad.append(f"{what} {vals} against the one process's {want}")
+    per_step = TRAIN_MOE_LAYERS * max(TRAIN_MOE_SEQ // 1024, 1)
+    if k7_fwd != [per_step] * TMESH_STEPS or \
+            k7_bwd != [per_step] * TMESH_STEPS:
+        bad.append(f"K7 forward {k7_fwd}, recompute {k7_bwd}, expected "
+                   f"{per_step} each a step")
+    worst_norm, worst_sample, bad_leaves, _ = _tmesh_check_leaves(
+        mesh, comm, lay, params, ref["leaves"])
+    bad += bad_leaves
+    # the plain step's capacity cut keeps other pairs, so some MoE
+    # elements get gradients of another sign or none, and Adam moves an
+    # element by up to lr a step whatever its gradient's size: the MoE
+    # leaves' samples are read, not held (their norms are)
+    plain_norm, plain_sample, bad_leaves, unheld = _tmesh_check_leaves(
+        mesh, comm, lay, params, plain["leaves"],
+        no_sample=CAPACITY_LEAVES)
+    bad += [f"(plain step) {b}" for b in bad_leaves]
+    tokens = TRAIN_MOE_BATCH * TRAIN_MOE_SEQ
+    p50 = _p50(step_s)
+    kinds = sorted({k for d in staged for k in d})
+    del params, opt
+    torch.cuda.synchronize()
+    out = {"losses": got, "loss_rel": rel["losses"],
+            "grad_norms": got_norms, "grad_norm_rel": rel["gradient norms"],
+            "leaf_norm_rel": worst_norm, "leaf_sample_rel_frob": worst_sample,
+            "plain_step": {"loss_rel": rel["losses (plain step)"],
+                           "leaf_norm_rel": plain_norm,
+                           "leaf_sample_rel_frob_dense": plain_sample,
+                           "moe_sample_rel_frob_not_held": unheld},
+            "bound": TMESH_REL,
+            "step_s": step_s, "step_p50_ms": p50 * 1e3, "split": split,
+            "tokens_per_s": tokens / p50, "init_s": init_s,
+            "state_gb": state_gb, "peak_gb": peak / 1e9,
+            "staged_bytes_a_step": {k: sum(d.get(k, 0) for d in staged)
+                                    / len(staged) for k in kinds},
+            "k7_forward_a_step": k7_fwd, "k7_recompute_a_step": k7_bwd,
+            "launches": {"moe_route": sum(k7_fwd) + sum(k7_bwd)}}
+    if bad:
+        if rank == 0:
+            print("train mesh (a), failed: " + json.dumps(out), flush=True)
+        raise AssertionError("train mesh: " + "; ".join(bad))
+    return out
+
+
+def _tmesh_gpipe(make_mesh, rank):
+    """(b): ``gpipe`` over a ``stage`` axis of 4, M 8 microbatches of (256,
+    2048) float32 through ``tanh(x @ W_s)``, against each microbatch put
+    through the 4 stages in sequence on the card."""
+    from repro_torch.parallel.pipeline import gpipe
+    smesh = make_mesh((GPIPE_S,), ("stage",))
+    g = torch.Generator(device="cuda").manual_seed(SEED + 950)
+    W = torch.randn(GPIPE_S, GPIPE_D, GPIPE_D, generator=g,
+                    device="cuda") / math.sqrt(GPIPE_D)
+    x = torch.randn(GPIPE_M, GPIPE_BM, GPIPE_D, generator=g, device="cuda")
+    stage = lambda w, x_: torch.tanh(x_ @ w)
+    from repro_torch.parallel import comm
+    before = comm.host_staged_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y = gpipe(stage, W, x, smesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    staged = comm.host_staged_bytes() - before
+    t0 = time.perf_counter()
+    seq = []
+    for m in range(GPIPE_M):
+        h = x[m]
+        for s in range(GPIPE_S):
+            h = stage(W[s], h)
+        seq.append(h)
+    seq = torch.stack(seq)
+    torch.cuda.synchronize()
+    seq_ms = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(y, seq)
+    if not err <= GPIPE_TOL:
+        raise AssertionError(f"gpipe: {err} from the stages in sequence")
+    return {"S": GPIPE_S, "M": GPIPE_M, "ticks": GPIPE_M + GPIPE_S - 1,
+            "d": GPIPE_D, "Bm": GPIPE_BM, "max_abs_err": err, "ms": ms,
+            "sequential_ms": seq_ms, "host_staged_bytes": staged}
+
+
+def _tmesh_compress(make_mesh, rank, slice5):
+    """(c): ``compressed_psum_int8`` over a ``pod`` axis of 4 on one
+    Qwen3-1.7B layer's gradient shapes (float32, seeded per rank): the
+    mean within 1.5 quantisation steps of the float32 mean (the JAX test's
+    bound); the bytes on the wire against a float32 psum's."""
+    from repro_torch.core.butterfly import tree_leaves, tree_map
+    from repro_torch.models.transformer import layer
+    from repro_torch.optim.compress import compressed_psum_int8, \
+        ef_state_init
+    from repro_torch.parallel import comm
+    pmesh = make_mesh((TMESH_RANKS,), ("pod",))
+    build_model, get_config = slice5[6], slice5[2]
+    meta = build_model(get_config(COMPRESS_ARCH)).init(
+        torch.Generator(), device="meta")
+    g = torch.Generator(device="cuda").manual_seed(SEED + 960 + rank)
+    grads = tree_map(lambda t: torch.randn(t.shape, generator=g,
+                                           device="cuda") * 1e-3,
+                     layer(meta, 0))
+    ef = ef_state_init(grads)
+    before = comm.host_staged_bytes()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, ef = compressed_psum_int8(grads, ef, "pod", pmesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    staged = comm.host_staged_bytes() - before
+    t0 = time.perf_counter()
+    exact = tree_map(lambda t: comm.psum(t, "pod", pmesh) / TMESH_RANKS,
+                     grads)
+    torch.cuda.synchronize()
+    f32_ms = (time.perf_counter() - t0) * 1e3
+    worst = 0.0
+    for gl, m, e in zip(tree_leaves(grads), tree_leaves(mean),
+                        tree_leaves(exact)):
+        every = comm.all_gather(gl.abs().max().reshape(1), "pod", pmesh)
+        tol = float(every.mean()) / 127
+        err = max_abs_err(m, e)
+        worst = max(worst, err / tol)
+        if not err <= COMPRESS_STEPS * tol:
+            raise AssertionError(f"compressed psum: {err} from the float32 "
+                                 f"mean, bound {COMPRESS_STEPS * tol}")
+    n = sum(t.numel() for t in tree_leaves(grads))
+    leaves = len(tree_leaves(grads))
+    return {"leaves": leaves, "elements": n,
+            "worst_err_in_quant_steps": worst, "bound": COMPRESS_STEPS,
+            "wire_bytes_a_member": n + 4 * leaves,
+            "float32_bytes_a_member": 4 * n, "ms": ms, "float32_psum_ms":
+            f32_ms, "host_staged_bytes": staged}
+
+
+def _tmesh_rank(rank: int, store: str, out_dir: str, ref_path: str) -> None:
+    """One rank of ``phase_train_mesh``: (a)-(c); the results to
+    ``rank<r>.json``. Exits 1 on any failure."""
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    torch.set_num_threads(2)
+    try:
+        engine, kernels, _build, *_ = _import_port()
+        _build.library()             # the parent's build, loaded
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel import comm
+        slice5 = _import_slice5()
+        tr = _import_train()
+        refs = torch.load(ref_path)
+        mesh = make_mesh(TMESH_SHAPE, ("data", "model"), backend="gloo",
+                         rank=rank, world_size=TMESH_RANKS, store_dir=store,
+                         timeout_s=120.0)
+        out, t = {"rank": rank}, {}
+        for part, fn in (
+                ("a", lambda: _tmesh_train(kernels, tr, slice5, mesh, rank,
+                                           refs)),
+                ("b", lambda: _tmesh_gpipe(make_mesh, rank)),
+                ("c", lambda: _tmesh_compress(make_mesh, rank, slice5))):
+            t0 = time.perf_counter()
+            out[part] = fn()
+            torch.cuda.empty_cache()
+            t[part] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"train mesh part ({part}): {t[part]:.1f} s on rank 0",
+                      flush=True)
+        out["seconds"] = t
+        out["host_staged_bytes"] = comm.host_staged_bytes()
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_train_mesh(kernels, slice5, tr):
+    """The training half of the mesh, 4 ranks on the one card (spawn,
+    gloo: the collectives cross the host). The parent runs the one-process
+    Moonlight steps (``_tmesh_reference``) and frees the card; then every
+    rank runs (a) ``_tmesh_train`` on a (2, 2) ``("data", "model")`` mesh,
+    (b) ``_tmesh_gpipe``, (c) ``_tmesh_compress``. Any rank's failure, or
+    a rank still running at ``TMESH_LIMIT_S`` from the phase's start,
+    fails the phase. Returns the line and K7's launches over the ranks."""
+    import torch.multiprocessing as mp
+    t_start = time.perf_counter()
+    base, cfg, tcfg = _tmesh_cfg(tr, slice5[2])
+    print(f"reduced: {TRAIN_MOE_ARCH} n_layers {base.n_layers} -> "
+          f"{TRAIN_MOE_LAYERS} (training on the mesh)", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref = _tmesh_reference(kernels, tr, cfg, tcfg, per_shard=True)
+    one_group = _tmesh_reference(kernels, tr, cfg, tcfg, per_shard=False)
+    ref_s = time.perf_counter() - t_start
+    store = tempfile.mkdtemp(prefix="tmesh_store_")
+    out_dir = tempfile.mkdtemp(prefix="tmesh_out_")
+    ref_path = os.path.join(out_dir, "ref.pt")
+    torch.save({"per_shard": ref, "one_group": one_group}, ref_path)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_tmesh_rank,
+                         args=(r, store, out_dir, ref_path))
+             for r in range(TMESH_RANKS)]
+    try:
+        for p in procs:
+            p.start()
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break               # a rank failed: stop the others now
+            if time.perf_counter() - t_start > TMESH_LIMIT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TMESH_RANKS:
+        raise AssertionError(f"phase_train_mesh: rank exit codes {codes} "
+                             f"after {time.perf_counter() - t_start:.1f} s")
+    ranks = []
+    for r in range(TMESH_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(store, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    k7 = sum(rk["a"]["launches"]["moe_route"] for rk in ranks)
+    r0 = ranks[0]
+    line = {
+        "note": "4 ranks on one card, gloo: the collectives crossed the "
+                "host",
+        "train": f"{cfg.name} {TRAIN_MOE_LAYERS} of {base.n_layers} "
+                 f"layers, {cfg.param_dtype}, remat, batch "
+                 f"{TRAIN_MOE_BATCH} x {TRAIN_MOE_SEQ}, mesh (data 2, "
+                 f"model 2), {cfg.n_experts // 2} experts a rank",
+        "seconds": time.perf_counter() - t_start, "reference_s": ref_s,
+        "rank_seconds": [rk["seconds"] for rk in ranks],
+        "one_process": {k: ref[k] for k in (
+            "losses", "grad_norms", "step_s", "k7_a_step", "state_gb")},
+        "one_process_one_group": {k: one_group[k] for k in (
+            "losses", "grad_norms", "step_s", "k7_a_step")},
+        "a": r0["a"], "b": r0["b"], "c": r0["c"],
+        "state_gb": [rk["a"]["state_gb"] for rk in ranks],
+        "peak_gb": [rk["peak_gb"] for rk in ranks],
+        "host_staged_bytes": [rk["host_staged_bytes"] for rk in ranks],
+        "k7_launches": k7}
+    print("train mesh: " + json.dumps(line), flush=True)
+    return line, k7
+
+
 def phase_train(kernels, slice5, tr):
     """``make_train_step`` on the ``qwen3_1p7b`` config at its widths and
     all 28 layers, bf16, remat on, batch 4 x 2048: finite losses and
@@ -3663,6 +4150,8 @@ def main() -> int:
     tr = _import_train()
     train_moe, train_k7 = timed("train moe", phase_train_moe, engine,
                                 kernels, slice5, tr)
+    _, tmesh_k7 = timed("train mesh", phase_train_mesh, kernels, slice5,
+                        tr)
     timed("train", phase_train, kernels, slice5, tr)
     _, chaos_demotions = timed("chaos", phase_chaos, engine, kernels, slice5,
                                tr, gen)
@@ -3676,10 +4165,11 @@ def main() -> int:
         if row["name"] == "moe_route":
             # the serving and training paths' K7 launches, and K7 at its
             # route shapes
-            row["launches"] += serve_k7 + train_k7
+            row["launches"] += serve_k7 + train_k7 + tmesh_k7
             row["serve_shapes"] = serve_k7_rows
             row["train"] = dict(train_moe["k7"], launches=train_k7,
                                 backward="plain torch (route_backward)")
+            row["train_mesh"] = tmesh_k7
     if slice5[4].demotions() != chaos_demotions:
         raise AssertionError(f"{slice5[4].demotions()} fallback demotions, "
                              f"{chaos_demotions} of them injected")

@@ -15,6 +15,13 @@
   JAX manager wrote (no ``dtypes``) restores too.
 - ``restore(step, like)`` puts each leaf on the device and in the dtype of
   ``like``'s leaf; a tree whose paths differ raises ``AssertionError``.
+- Elastic, on a mesh (every rank calls): ``save(step, tree, extra,
+  shardings)`` takes a tree of this rank's blocks and the tree of their
+  ``parallel.sharding.NamedSharding``; each leaf is gathered whole and
+  rank 0 writes it, so the directory is the unsharded layout above.
+  ``restore(step, like, shardings)`` returns this rank's blocks under
+  ``shardings``, whatever mesh wrote the checkpoint (or the JAX manager).
+  ``wait`` then also waits for every rank.
 - Retention: keeps the newest ``keep`` checkpoints.
 - Robust restore: construction sweeps stale ``step_N.tmp`` debris, and
   ``restore`` skips directories whose ``meta.json`` is missing or
@@ -32,6 +39,7 @@ from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = ["CheckpointManager"]
 
@@ -86,6 +94,23 @@ def _from_host(a: np.ndarray, dtype_name: Optional[str], like):
     return t.to(device=like.device, dtype=like.dtype)
 
 
+class _Box:
+    """A leaf with its sharding, so that ``_flatten`` stops at it."""
+
+    def __init__(self, leaf, sharding):
+        self.leaf, self.sharding = leaf, sharding
+
+
+def _with_shardings(tree, shardings):
+    """``(name, leaf, sharding)`` in ``_flatten``'s order; ``shardings`` is
+    a tree of ``tree``'s structure down to its leaves, or None."""
+    if shardings is None:
+        return [(n, x, None) for n, x in _flatten(tree)]
+    from repro_torch.parallel.sharding import tree_map_like
+    boxed = tree_map_like(_Box, tree, shardings)
+    return [(n, b.leaf, b.sharding) for n, b in _flatten(boxed)]
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, async_save: bool = True):
         self.dir = directory
@@ -93,6 +118,7 @@ class CheckpointManager:
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._mesh = None
         os.makedirs(directory, exist_ok=True)
         # a crash mid-save leaves step_N.tmp behind; the rename never
         # happened, so the debris is safe to sweep
@@ -104,12 +130,29 @@ class CheckpointManager:
                               ignore_errors=True)
 
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, extra: Optional[dict] = None):
+    def save(self, step: int, tree: Any, extra: Optional[dict] = None,
+             shardings: Any = None):
+        """Write ``tree`` as step ``step`` (async unless the manager was
+        made with ``async_save=False``). On a mesh ``tree`` holds this
+        rank's blocks and ``shardings`` their ``NamedSharding``s: every
+        rank calls, each leaf is gathered, rank 0 writes."""
         self.wait()                                   # one in-flight save max
-        flat = _flatten(tree)
-        names = [n for n, _ in flat]
-        dtypes = [str(x.dtype).replace("torch.", "") for _, x in flat]
-        host = [_to_host(x) for _, x in flat]
+        flat = _with_shardings(tree, shardings)
+        names = [n for n, _, _ in flat]
+        dtypes = [str(x.dtype).replace("torch.", "") for _, x, _ in flat]
+        host = []
+        writer = True
+        for _, x, sh in flat:
+            if sh is not None:
+                from repro_torch.parallel.sharding import gather_leaf
+                self._mesh = sh.mesh
+                writer = sh.mesh.rank == 0
+                x = gather_leaf(x, sh.spec, sh.mesh)
+            if writer:
+                host.append(_to_host(x))
+            del x
+        if not writer:
+            return
 
         def write():
             tmp = os.path.join(self.dir, f"step_{step}.tmp")
@@ -138,10 +181,13 @@ class CheckpointManager:
             write()
 
     def wait(self):
-        """Block until the save in flight is written; re-raise its error."""
+        """Block until the save in flight is written; re-raise its error.
+        After a save on a mesh, every rank waits here for rank 0's."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._mesh is not None:
+            dist.barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -179,9 +225,12 @@ class CheckpointManager:
             return None
         return meta, data
 
-    def restore(self, step: int, like: Any):
+    def restore(self, step: int, like: Any, shardings: Any = None):
         """Restore into the structure of ``like``, each leaf on the device
-        and in the dtype of ``like``'s. Returns ``(tree, extra)``.
+        and in the dtype of ``like``'s. Returns ``(tree, extra)``. With
+        ``shardings`` (a tree of ``NamedSharding`` of ``like``'s structure)
+        each leaf is this rank's block of the saved one: the elastic
+        reshard onto whatever mesh the shardings name.
 
         A corrupt checkpoint dir at ``step`` is skipped with a warning and
         the next-newest intact step restores instead;
@@ -204,10 +253,16 @@ class CheckpointManager:
                 f"no intact checkpoint at or below step {step} in "
                 f"{self.dir}")
         meta, data = loaded
-        flat = _flatten(like)
-        if [n for n, _ in flat] != meta["names"]:
+        flat = _with_shardings(like, shardings)
+        if [n for n, _, _ in flat] != meta["names"]:
             raise AssertionError("checkpoint tree does not match target tree")
         dtypes = meta.get("dtypes", [None] * len(flat))
-        leaves = iter([_from_host(data[f"a{i}"], dtypes[i], leaf)
-                       for i, (_, leaf) in enumerate(flat)])
-        return _unflatten(like, leaves), meta["extra"]
+        out = []
+        for i, (_, leaf, sh) in enumerate(flat):
+            a = data[f"a{i}"]
+            if sh is not None:
+                from repro_torch.parallel.sharding import block_slices
+                if a.ndim:
+                    a = a[block_slices(a.shape, sh.spec, sh.mesh)]
+            out.append(_from_host(a, dtypes[i], leaf))
+        return _unflatten(like, iter(out)), meta["extra"]

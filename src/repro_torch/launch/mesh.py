@@ -20,6 +20,10 @@ caller passes, so concurrent test workers never race for a port.
                      store_dir=tmp)
     with mesh:                      # the current mesh of parallel/comm.py
         ...
+
+:class:`AbstractMesh` is a mesh's axis names and sizes with no process
+behind it: what the sharding rules of ``parallel/sharding.py`` read, so
+they can be asked about the production shapes from one process.
 """
 from __future__ import annotations
 
@@ -32,8 +36,8 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "make_test_mesh", "make_production_mesh",
-           "current_mesh", "DEFAULT_TIMEOUT_S"]
+__all__ = ["Mesh", "AbstractMesh", "make_mesh", "make_test_mesh",
+           "make_production_mesh", "current_mesh", "DEFAULT_TIMEOUT_S"]
 
 #: seconds a collective may wait for its peers before it raises
 DEFAULT_TIMEOUT_S = 300.0
@@ -80,6 +84,22 @@ class Mesh:
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, rank={self.rank}, coords={self.coords}, "
                 f"backend={self.backend!r}, device={self.device})")
+
+
+class AbstractMesh:
+    """Axis names and sizes only (``jax.sharding.AbstractMesh``'s part that
+    the sharding rules read): ``axis_names``, ``shape`` and ``size``."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, (int(s) for s in sizes)))
+        self.size = math.prod(self.shape.values())
+
+    def axis_size(self, axis: str) -> int:
+        return self.shape[axis]
+
+    def __repr__(self) -> str:
+        return f"AbstractMesh({self.shape})"
 
 
 def current_mesh() -> Optional[Mesh]:

@@ -12,8 +12,13 @@
 
 The loop runs on ``device`` ("cuda" unless the caller asks for "cpu");
 weights come from a ``torch.Generator`` seeded with ``tcfg.seed`` there.
-Gradient compression across pods waits for the sharded ops (ROADMAP queue
-1 item 4).
+With ``mesh`` (a ``launch.mesh.Mesh``; every rank runs the loop) it runs
+on the mesh's device under ``parallel.act.set_context(mesh)``: the state
+is this rank's blocks (``launch.steps.MeshLayout``), each parameter leaf
+drawn from the same generator as the one-process init and cut as it is
+drawn, the batch cut from the same global batch, and the checkpoints are
+written whole by rank 0 and restored onto any mesh. Like the JAX trainer,
+the loop applies no gradient compression.
 
 Run small on the CPU:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3_1p7b \\
@@ -35,13 +40,16 @@ from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.config import TrainConfig
 from repro_torch.optim.adamw import adamw_init
+from repro_torch.parallel.act import clear_context, set_context
 
 
 class TrainLoop:
-    def __init__(self, cfg, tcfg: TrainConfig, device="cuda"):
-        self.cfg, self.tcfg = cfg, tcfg
-        self.device = torch.device(device)
-        self.model, self.step_fn = make_train_step(cfg, tcfg)
+    def __init__(self, cfg, tcfg: TrainConfig, mesh=None, device="cuda"):
+        self.cfg, self.tcfg, self.mesh = cfg, tcfg, mesh
+        self.device = torch.device(mesh.device if mesh is not None
+                                   else device)
+        self.model, self.step_fn = make_train_step(cfg, tcfg, mesh)
+        self.layout = getattr(self.step_fn, "layout", None)
         self.ckpt = CheckpointManager(tcfg.checkpoint_dir,
                                       async_save=tcfg.async_checkpoint)
         self.data = SyntheticLM(cfg.vocab_size, tcfg.seq_len,
@@ -60,9 +68,24 @@ class TrainLoop:
                 for sig in (signal.SIGTERM, signal.SIGINT)}
 
     def init_state(self):
+        """``(params, opt)`` of step 0: whole, or on a mesh this rank's
+        blocks of the same draws."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
+        if self.layout is not None:
+            params = self.layout.init(gen)
+            return params, self.layout.opt_init(params)
         params = self.model.init(gen)
         return params, adamw_init(params)
+
+    def batch(self, step: int):
+        """The batch of ``step``: the global one, or this rank's block."""
+        b = self.data.batch(step)
+        return b if self.layout is None else self.layout.batch_block(b)
+
+    def _shardings(self):
+        if self.layout is None:
+            return None
+        return (self.layout.param_shardings(), self.layout.opt_shardings())
 
     def run(self, resume: str = "auto", max_steps=None):
         """Train from step 0 (or the newest checkpoint with ``resume=
@@ -70,9 +93,13 @@ class TrainLoop:
         ``(params, opt, losses of the steps run)``. The signal handlers
         are the caller's again on return."""
         previous = self._install_signals()
+        if self.mesh is not None:
+            set_context(self.mesh)
         try:
             return self._run(resume, max_steps)
         finally:
+            if self.mesh is not None:
+                clear_context()
             for sig, h in previous.items():
                 signal.signal(sig, h)
 
@@ -84,10 +111,17 @@ class TrainLoop:
         start = 0
         if resume == "auto" and self.ckpt.latest_step() is not None:
             s = self.ckpt.latest_step()
-            (params, opt), extra = self.ckpt.restore(s, (params, opt))
+            (params, opt), extra = self.ckpt.restore(s, (params, opt),
+                                                     self._shardings())
             start = int(extra.get("next_step", s))
             print(f"[train] resumed from checkpoint step {s}", flush=True)
         return params, opt, start
+
+    def _agree(self, flag: bool) -> bool:
+        from repro_torch.parallel import comm
+        for a in self.mesh.axis_names:
+            flag = comm.agree_flag(flag, a, self.mesh)
+        return flag
 
     def _run(self, resume, max_steps):
         tc = self.tcfg
@@ -96,8 +130,8 @@ class TrainLoop:
         losses = []
         for step in range(start, total):
             t0 = time.time()
-            batch = self.data.batch(step)
-            params, opt, metrics = self.step_fn(params, opt, batch)
+            params, opt, metrics = self.step_fn(params, opt,
+                                                self.batch(step))
             loss = float(metrics["loss"])
             losses.append(loss)
             dt = time.time() - t0
@@ -110,10 +144,14 @@ class TrainLoop:
             if step % 10 == 0:
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"({dt:.2f}s)", flush=True)
+            if self.mesh is not None:
+                # a signal reaches one rank: every rank stops at this step
+                self._stop = self._agree(self._stop)
             if (step + 1) % tc.checkpoint_every == 0 or self._stop \
                     or step + 1 == total:
                 self.ckpt.save(step + 1, (params, opt),
-                               {"next_step": step + 1, "loss": loss})
+                               {"next_step": step + 1, "loss": loss},
+                               shardings=self._shardings())
             if self._stop:
                 self.ckpt.wait()
                 print("[train] clean preemption exit", flush=True)

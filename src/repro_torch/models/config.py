@@ -5,14 +5,18 @@ configuration files under ``repro_torch/configs`` are copies of the JAX
 package's, published widths and all. The MoE layer reads ``d_model``,
 ``d_ff`` / ``moe_d_ff``, ``n_experts``, ``n_experts_active``, ``moe_path``
 and ``param_dtype``; ``reduced()`` gives the same family at smoke-test
-size. ``TrainConfig`` is the JAX package's, field for field; only
-``grad_compression="none"`` is taken until the sharded ops are ported
-(ROADMAP queue 1 item 4). ``torch_dtype`` maps a dtype name to torch's.
+size. ``ShardingConfig`` and ``TrainConfig`` are the JAX package's, field for
+field. ``TrainConfig`` takes only ``grad_compression="none"``: the JAX
+trainer never applies ``"int8_ef"`` (``repro/launch/train.py`` does not
+read the field), so the port's does not either, and raises rather than
+ignore it; ``optim.compress.compressed_psum_int8`` is there to call
+directly. ``torch_dtype`` maps a dtype name to torch's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Tuple
 
 import torch
 
@@ -98,6 +102,17 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShardingConfig:
+    """How params/activations map onto mesh axes."""
+    data_axes: Tuple[str, ...] = ("pod", "data")   # batch axes
+    model_axis: str = "model"                      # TP axis
+    fsdp_axis: str = "data"                        # ZeRO/FSDP axis ("" = off)
+    fsdp_params: bool = True                       # shard params over fsdp_axis
+    expert_mode: str = "expert"                    # MoE: "expert" | "ffn"
+    shard_kv_seq: bool = False                     # long-context decode (SP)
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     global_batch: int = 256
     seq_len: int = 4096
@@ -110,7 +125,7 @@ class TrainConfig:
     b2: float = 0.95
     z_loss: float = 1e-4
     microbatch: int = 0            # 0 = no gradient accumulation
-    grad_compression: str = "none" # "none" | "int8_ef" (not ported yet)
+    grad_compression: str = "none" # "none" only (see the module's doc)
     checkpoint_every: int = 100
     checkpoint_dir: str = "/tmp/repro_ckpt"
     async_checkpoint: bool = True
@@ -120,5 +135,7 @@ class TrainConfig:
         if self.grad_compression != "none":
             raise ValueError(
                 f"grad_compression={self.grad_compression!r}: only 'none' "
-                "runs in the port; int8 error-feedback compression needs "
-                "the sharded ops (ROADMAP queue 1 item 4)")
+                "is taken. The reference trainer never applies int8 "
+                "error-feedback compression (it does not read this "
+                "field), so neither does the port's; call "
+                "optim.compress.compressed_psum_int8 directly")

@@ -19,7 +19,9 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
                device="cuda", scale: float = 1.0) -> torch.Tensor:
     """An (in_dim, out_dim) weight: float32 normals from ``gen`` times
     ``scale / sqrt(in_dim)``, cast to ``dtype``. ``gen`` lives on
-    ``device``."""
+    ``device``; on ``meta`` nothing is drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty((in_dim, out_dim), dtype=dtype, device="meta")
     std = scale / (in_dim ** 0.5)
     w = torch.randn((in_dim, out_dim), generator=gen, dtype=torch.float32,
                     device=device)

@@ -102,8 +102,11 @@ def _token_embedding(params, token, cfg):
 
 
 def _build_decoder(cfg: ModelConfig) -> SimpleNamespace:
-    def init(gen: torch.Generator, device=None):
-        return tf.decoder_init(gen, cfg, device=device or gen.device)
+    def init(gen: torch.Generator, device=None, cut=None):
+        """``cut``: keep a part of each leaf as it is drawn
+        (``transformer.decoder_init``)."""
+        return tf.decoder_init(gen, cfg, device=device or gen.device,
+                               cut=cut)
 
     def forward(params, batch):
         x, pos = _embed_inputs(params, batch, cfg)

@@ -19,8 +19,10 @@ Counterpart of ``repro/models/moe.py`` on one device. Dispatch paths:
   experts and sees the same tokens; it routes them all (one K7 launch a
   chunk), keeps the pairs of its own expert band, runs its slabs, and
   one ``psum`` over the axis gathers the pairs' weighted outputs, summed
-  per token after it. Without a mesh or a model axis, or when P does not
-  divide E, it runs ``grouped``, as the JAX package does.
+  per token after it. It carries a gradient (``comm.psum_entry`` /
+  ``psum_exit`` around the region). Without a mesh or a model axis, or
+  when P does not divide E, it runs ``grouped``, as the JAX package does;
+  under an ``AbstractMesh`` one process computes the mesh's function.
 
 The expert products are plain batched matrix products outside any kernel
 (``torch.einsum``). The slab scatter is an indexed copy (dropped pairs all
@@ -50,6 +52,8 @@ def moe_init(gen: torch.Generator, cfg, device="cuda"):
     E, d, f = cfg.n_experts, cfg.d_model, (cfg.moe_d_ff or cfg.d_ff)
 
     def stack(din, dout):
+        if torch.device(device).type == "meta":     # shapes only
+            return torch.empty((E, din, dout), dtype=dtype, device="meta")
         return torch.stack([dense_init(gen, din, dout, dtype, device=device)
                             for _ in range(E)])
 
@@ -162,21 +166,30 @@ def moe_apply_sorted(p, x, cfg, capacity_factor: float = 1.25):
     return _routed(p, x.reshape(1, T, d), cfg, cap).reshape(B, S, d)
 
 
-def moe_apply_grouped(p, x, cfg, capacity_factor: float = 1.25,
-                      seq_chunk: int = 512):
-    """FLiMS-sorted capacity dispatch over sequence chunks: each chunk of
-    ``B * Sc`` tokens is routed with one ``engine.moe_route`` call (one K7
-    launch) and dispatched through per-expert slabs; tokens over capacity
-    are dropped (GShard semantics)."""
+def _grouped(p, x, cfg, capacity_factor: float, Sc: int, G: int):
+    """x's rows in ``G`` groups, each chunk of ``Sc`` positions of a group
+    routed and dispatched on its own, all groups in one
+    ``engine.moe_route`` call a chunk."""
     B, S, d = x.shape
-    G = 1
-    Sc = _seq_chunk(S, (seq_chunk, seq_chunk // 2, seq_chunk // 4))
     T = (B // G) * Sc
     cap = expert_capacity(capacity_factor, T, cfg.n_experts_active,
                           cfg.n_experts)
     return torch.cat([
         _routed(p, x[:, i * Sc:(i + 1) * Sc].reshape(G, T, d), cfg,
                 cap).reshape(B, Sc, d) for i in range(S // Sc)], dim=1)
+
+
+def moe_apply_grouped(p, x, cfg, capacity_factor: float = 1.25,
+                      seq_chunk: int = 512):
+    """FLiMS-sorted capacity dispatch over sequence chunks: each chunk of
+    ``B * Sc`` tokens is routed with one ``engine.moe_route`` call (one K7
+    launch) and dispatched through per-expert slabs; tokens over capacity
+    are dropped (GShard semantics). One group: the JAX package's G is the
+    data-shard count of the global batch it sees, and a port rank holds
+    one data shard's rows."""
+    S = x.shape[1]
+    Sc = _seq_chunk(S, (seq_chunk, seq_chunk // 2, seq_chunk // 4))
+    return _grouped(p, x, cfg, capacity_factor, Sc, 1)
 
 
 def _expert_band(w, E: int, E_loc: int, e0: int):
@@ -205,26 +218,46 @@ def moe_apply_ep(p, x, cfg, capacity_factor: float = 1.25,
     outputs (in rank order: every rank holds the same bits). Falls back to
     ``moe_apply_grouped`` without a mesh or a model axis, or when P does
     not divide E.
+
+    Under an ``AbstractMesh`` context one process stands in for the whole
+    mesh: ``x`` is the global batch and ``p`` holds every expert. It then
+    computes what the mesh computes, each data shard's rows
+    (``act.group_count(B)`` groups) routed as one group a chunk, with no
+    collective.
+
+    Under a gradient the tokens and the router logits enter the region
+    through ``comm.psum_entry`` and the partial outputs leave it through
+    ``comm.psum_exit``: a rank's band of pairs gives its experts their
+    whole gradient, and the tokens, the logits (so the router) the sum of
+    every band's, the same bits on every rank. K7's forward and its plain
+    backward run over the rank's route as they are.
     """
+    from repro_torch.launch.mesh import AbstractMesh
     from repro_torch.parallel import act, comm
     mesh, tp = act.context_mesh(), act.model_axis()
     E = cfg.n_experts
     if mesh is None or tp is None or E % mesh.axis_size(tp):
         return moe_apply_grouped(p, x, cfg, capacity_factor)
     B, S, d = x.shape
+    Sc = min(seq_chunk, S)
+    while S % Sc:
+        Sc //= 2
+    if isinstance(mesh, AbstractMesh):
+        return _grouped(p, x, cfg, capacity_factor, Sc, act.group_count(B))
     k = cfg.n_experts_active
     E_loc = E // mesh.axis_size(tp)
     e0 = mesh.axis_index(tp) * E_loc
     wl = {n: _expert_band(p[n], E, E_loc, e0) for n in ("wi", "wg", "wo")}
-    Sc = min(seq_chunk, S)
-    while S % Sc:
-        Sc //= 2
     T = B * Sc
     cap = expert_capacity(capacity_factor, T, k, E)
     outs = []
     for i in range(S // Sc):
         xf = x[:, i * Sc:(i + 1) * Sc].reshape(T, d)
-        route = engine.moe_route(xf.float() @ p["router"], k, cap)
+        # the tokens and the logits enter the region where each rank works
+        # on its own band: their gradients are summed over the axis
+        logits = comm.psum_entry(xf.float() @ p["router"], tp, mesh)
+        xf = comm.psum_entry(xf, tp, mesh)
+        route = engine.moe_route(logits, k, cap)
         # slabs are e*cap + pos: re-basing to this rank's buffer is one
         # subtraction; pairs of other ranks' experts become drops
         mine = (route.experts >= e0) & (route.experts < e0 + E_loc)
@@ -237,7 +270,8 @@ def moe_apply_ep(p, x, cfg, capacity_factor: float = 1.25,
         # rank only, and a token's k are summed after: the sum of one
         # device, whose rounding does not depend on how E is split
         part = _contributions(y, _batched(local), T, k)[0]
-        outs.append(comm.psum(part, tp, mesh).sum(1).reshape(B, Sc, d))
+        outs.append(comm.psum_exit(part, tp, mesh).sum(1)
+                    .reshape(B, Sc, d))
     return torch.cat(outs, dim=1)
 
 

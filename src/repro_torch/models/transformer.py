@@ -54,9 +54,22 @@ def _stack(trees):
     return tree_map(lambda *ts: torch.stack(ts), trees[0], *trees[1:])
 
 
-def _stacked(init_fn, n: int):
-    """``n`` draws of ``init_fn()`` stacked leaf by leaf on a new axis 0."""
-    return _stack([init_fn() for _ in range(n)])
+def _stacked(init_fn, n: int, cut=None, path=()):
+    """``n`` draws of ``init_fn()`` stacked leaf by leaf on a new axis 0.
+    With ``cut``, each draw's leaves are cut as soon as they are drawn:
+    ``cut(path, leaf, n)`` keeps a part of one layer's ``leaf`` of the
+    stack of ``n`` at ``path``."""
+    if cut is None:
+        return _stack([init_fn() for _ in range(n)])
+    return _stack([_with_paths(lambda p, t: cut(path + p, t, n), init_fn())
+                   for _ in range(n)])
+
+
+def _with_paths(fn, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _with_paths(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
 
 
 def _at(tree, i: int):
@@ -81,29 +94,41 @@ def _block_init(gen: torch.Generator, cfg, kind: str, device):
     return p
 
 
-def decoder_init(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
+def decoder_init(gen: torch.Generator, cfg, device="cuda",
+                 cut=None) -> Dict[str, Any]:
     """Random weights from ``gen`` (a generator on ``device``): the token
     embedding (tied with the output head), the final norm, and the layers'
-    blocks, stacked as the family lays them out."""
+    blocks, stacked as the family lays them out.
+
+    ``cut(path, leaf, n)`` (a rank's block of a sharded tree) is applied
+    to every leaf as soon as it is drawn, to one layer's part of a stacked
+    leaf (``n`` the layers of its stack; ``None`` for an unstacked one):
+    the draws are the same, so the kept parts are those of the whole tree,
+    and no more than one layer's leaves is ever whole."""
     dtype = torch_dtype(cfg.param_dtype)
+    c = (lambda path, t: t) if cut is None else \
+        (lambda path, t: _with_paths(lambda p, x: cut(path + p, x, None),
+                                     t))
     params: Dict[str, Any] = {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, device)}
+        "embed": c(("embed",), embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                          dtype, device)),
+        "final_norm": c(("final_norm",),
+                        rmsnorm_init(cfg.d_model, dtype, device))}
     block = lambda kind: (lambda: _block_init(gen, cfg, kind, device))
     L = cfg.n_layers
     if cfg.arch_kind == "mamba_hybrid":
-        params["blocks"] = _stacked(block("mamba"), L)
-        params["shared_attn"] = block("attn")()
+        params["blocks"] = _stacked(block("mamba"), L, cut, ("blocks",))
+        params["shared_attn"] = c(("shared_attn",), block("attn")())
     elif cfg.arch_kind == "xlstm":
         k = cfg.slstm_every
         params["mlstm"] = _stacked(lambda: _stacked(block("mlstm"), k - 1),
-                                   L // k)
-        params["slstm"] = _stacked(block("slstm"), L // k)
+                                   L // k, cut, ("mlstm",))
+        params["slstm"] = _stacked(block("slstm"), L // k, cut, ("slstm",))
     elif cfg.local_global_alternate:
-        params["local"] = _stacked(block("attn"), L // 2)
-        params["global"] = _stacked(block("attn"), L // 2)
+        params["local"] = _stacked(block("attn"), L // 2, cut, ("local",))
+        params["global"] = _stacked(block("attn"), L // 2, cut, ("global",))
     else:
-        params["blocks"] = _stacked(block("attn"), L)
+        params["blocks"] = _stacked(block("attn"), L, cut, ("blocks",))
     return params
 
 

@@ -76,19 +76,27 @@ def clip_by_global_norm(grads, max_norm: float):
 
 @torch.no_grad()
 def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
-                 eps=1e-8, weight_decay=0.1, grad_clip=1.0):
+                 eps=1e-8, weight_decay=0.1, grad_clip=1.0, norm=None,
+                 put=None):
     """One AdamW step from ``grads`` (a tree shaped like ``params``).
     ``m``, ``v``, ``master`` and ``params`` are updated in place (each
     parameter rewritten in its own dtype from its master copy). Returns
-    ``(params, new_state, {"grad_norm": norm})``, the pre-clip norm."""
-    norm = global_norm(grads)
+    ``(params, new_state, {"grad_norm": norm})``, the pre-clip norm.
+
+    On a mesh the trees are a rank's blocks: ``norm`` is then the global
+    norm of the whole gradient (``global_norm`` of the blocks would count
+    only this rank's), and ``put(i, w, p)`` writes parameter block ``p``
+    (leaf ``i``) from its updated master block ``w`` where the two
+    layouts differ (by default ``p.copy_(w)``)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, grad_clip)
     step = state.step + 1
     bc1 = 1.0 - b1 ** step.to(torch.float32)
     bc2 = 1.0 - b2 ** step.to(torch.float32)
-    for g, m, v, w, p in zip(tree_leaves(grads), tree_leaves(state.m),
-                             tree_leaves(state.v),
-                             tree_leaves(state.master), tree_leaves(params)):
+    for i, (g, m, v, w, p) in enumerate(zip(
+            tree_leaves(grads), tree_leaves(state.m), tree_leaves(state.v),
+            tree_leaves(state.master), tree_leaves(params))):
         # JAX's expressions, each product and sum rounded as there, on
         # three leaf-sized float32 temporaries (g, u, t):
         #   g = g * scale
@@ -105,6 +113,10 @@ def adamw_update(grads, state: AdamWState, params, *, lr, b1=0.9, b2=0.95,
         u.div_(t)
         torch.mul(w, weight_decay, out=t)
         w.sub_(u.add_(t).mul_(lr))
-        p.copy_(w)
+        del u, t
+        if put is None:
+            p.copy_(w)
+        else:
+            put(i, w, p)
     return params, AdamWState(step, state.m, state.v, state.master), \
         {"grad_norm": norm}

@@ -1,3 +1,4 @@
-"""Collectives (``comm``), activation-sharding context (``act``) and the
-data-layout helpers of the sharded ops (``sharding``) over
+"""Collectives, differentiable ones among them (``comm``), the
+activation-sharding context (``act``), the sharding rules and SPMD block
+helpers (``sharding``) and GPipe (``pipeline``) over
 ``torch.distributed``: the port's counterpart of ``repro/parallel``."""

@@ -11,10 +11,13 @@ not.
 """
 from __future__ import annotations
 
-import threading
+import contextlib
+import types
 from typing import Optional, Tuple
 
-_ctx = threading.local()
+# process-wide, not thread-local: autograd runs a card's backward (and
+# remat's recompute, which reads the context) on its own device thread
+_ctx = types.SimpleNamespace()
 
 
 def set_context(mesh, data_axes: Tuple[str, ...] = ("pod", "data"),
@@ -30,6 +33,20 @@ def set_context(mesh, data_axes: Tuple[str, ...] = ("pod", "data"),
 
 def clear_context():
     _ctx.mesh = None
+
+
+@contextlib.contextmanager
+def context(mesh, data_axes: Tuple[str, ...] = ("pod", "data"),
+            model_axis: str = "model"):
+    """:func:`set_context` for the ``with`` block; the context before it
+    is back on exit."""
+    before = (getattr(_ctx, "mesh", None), getattr(_ctx, "dp", ()),
+              getattr(_ctx, "tp", None))
+    set_context(mesh, data_axes, model_axis)
+    try:
+        yield
+    finally:
+        _ctx.mesh, _ctx.dp, _ctx.tp = before
 
 
 def context_mesh():

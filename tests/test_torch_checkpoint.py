@@ -3,7 +3,8 @@ its bf16 leaves, and a directory the JAX manager wrote.
 
 Eight of the JAX file's nine tests run here on torch trees; the ninth,
 ``test_elastic_reshard_subprocess`` (save on a 4-device mesh, restore onto
-8), needs the sharded ops (ROADMAP queue 1 item 4). Beside them: a bf16
+8), is ``tests/test_torch_distributed_train.py``'s
+``test_elastic_restore_from_four_ranks`` (gloo ranks). Beside them: a bf16
 leaf goes to disk as its uint16 bits (never float32) with its dtype in
 ``meta.json`` and comes back bit for bit; ``restore`` puts each leaf on
 ``like``'s device and dtype; and a reduced Qwen3 ``(params, opt)`` tree

@@ -1381,3 +1381,99 @@ def test_two_ranks_share_the_card(card, case, tmp_path):
             p.kill()
     assert [p.exitcode for p in procs] == [0, 0]
     assert all(os.path.exists(tmp_path / f"ok{r}") for r in range(2))
+
+
+def _train_rank_on_card(rank, store, out_dir):
+    """One of 2 gloo ranks on ``cuda:0``: one ``make_train_step`` step of
+    reduced Moonlight-16B-A3B on a (1, 2) ``("data", "model")`` mesh (2
+    experts a rank through ``moe_apply_ep``) from the seeded init; the
+    loss, the gathered parameters and K7's launches to ``out_dir``."""
+    import os
+    os.environ["GLOO_SOCKET_IFNAME"] = "lo"
+    try:
+        from repro_torch.configs import get_config
+        from repro_torch.core.butterfly import tree_leaves
+        from repro_torch.data.pipeline import SyntheticLM
+        from repro_torch.kernels import launch_counts, reset_launches
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models.config import TrainConfig
+        from repro_torch.parallel.sharding import gather_leaf
+        mesh = make_mesh((1, 2), ("data", "model"), backend="gloo",
+                         rank=rank, world_size=2, store_dir=store,
+                         timeout_s=120.0)
+        cfg = get_config("moonshot_v1_16b_a3b").reduced()
+        tcfg = TrainConfig(global_batch=2, seq_len=64, lr=1e-3,
+                           warmup_steps=1, total_steps=10)
+        _, step = make_train_step(cfg, tcfg, mesh)
+        lay = step.layout
+        params = lay.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = lay.opt_init(params)
+        batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=1).batch(0)
+        reset_launches()
+        params, opt, met = step(params, opt, lay.batch_block(batch))
+        k7 = launch_counts().get("moe_route", 0)
+        full = {"/".join(lf.path): gather_leaf(b, lf.pspec, mesh).cpu()
+                for lf, b in zip(lay.plans(params), tree_leaves(params))}
+        if rank == 0:
+            torch.save({"loss": float(met["loss"]),
+                        "grad_norm": float(met["grad_norm"]),
+                        "params": full, "k7": k7},
+                       os.path.join(out_dir, "mesh.pt"))
+        open(os.path.join(out_dir, f"ok{rank}"), "w").close()
+    except Exception:
+        import traceback
+        traceback.print_exc()
+        os._exit(1)
+    os._exit(0)
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_card_matches_one_process(card, tmp_path):
+    """A 2-rank (1, 2) train step of reduced float32 Moonlight-16B-A3B
+    (K7 in every MoE layer's forward and in its gradient's path, expert
+    parallel over ``model``) on the shared card against the one-process
+    card step from the same seeded init and batch: the loss and the
+    gradient's norm within rtol 1e-5, each leaf within 1e-5 relative
+    Frobenius and every element within 2 * lr
+    (``test_reduced_train_step_on_card_matches_cpu`` says why an element
+    may move by that much)."""
+    import os
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.config import TrainConfig
+    from repro_torch.optim import adamw_init
+    cfg = get_config("moonshot_v1_16b_a3b").reduced()
+    tcfg = TrainConfig(global_batch=2, seq_len=64, lr=1e-3, warmup_steps=1,
+                       total_steps=10)
+    model, step = make_train_step(cfg, tcfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = SyntheticLM(cfg.vocab_size, 64, 2, seed=1).batch(0)
+    params, _, met = step(params, adamw_init(params), batch)
+    one = {n: t.cpu() for n, t in _flatten(params)}
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_train_rank_on_card,
+                         args=(r, str(tmp_path / "store"), str(tmp_path)))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    got = torch.load(os.path.join(tmp_path, "mesh.pt"))
+    assert got["k7"] > 0
+    np.testing.assert_allclose(got["loss"], float(met["loss"]), rtol=1e-5)
+    # the gradient's norm: a backward that sums where it should slice
+    # scales a leaf's gradient, which AdamW's update does not show
+    np.testing.assert_allclose(got["grad_norm"], float(met["grad_norm"]),
+                               rtol=1e-5)
+    assert set(got["params"]) == set(one)
+    for n, b in one.items():
+        a = got["params"][n]
+        torch.testing.assert_close(a, b, rtol=0, atol=2 * tcfg.lr)
+        assert float((a - b).norm() / max(float(b.norm()), 1e-30)) <= 1e-5, n

@@ -319,3 +319,12 @@ def test_sample_topk_and_decode_step():
     assert nxt.shape == (2,) and ((nxt >= 0) & (nxt < cfg.vocab_size)).all()
 
 
+
+
+def test_train_config_refuses_grad_compression():
+    """The JAX trainer never reads ``grad_compression``, so the port's
+    ``TrainConfig`` takes only ``"none"`` and raises on ``"int8_ef"``
+    (``optim.compress.compressed_psum_int8`` is called directly)."""
+    assert TrainConfig().grad_compression == "none"
+    with pytest.raises(ValueError, match="never applies"):
+        TrainConfig(grad_compression="int8_ef")
