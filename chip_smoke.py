@@ -146,6 +146,23 @@ the CUDA toolkit. It
      sequence; (c) ``compressed_psum_int8`` over a ``pod`` axis of 4 on one
      Qwen3-1.7B layer's gradient shapes, within 1.5 quantisation steps of
      the float32 mean, its bytes on the wire against float32's;
+   - past one CTA's shared memory (``phase_wide``), the shapes the port
+     refused before: ``engine.moe_route`` (fused, K7) at (4096, 64) and
+     (65536, 64) k 6 and at one group of 2^21 tokens (E 8, k 1: 131072
+     tiles, past a grid's y), equal to the ``torch`` variant;
+     ``kernel_sort`` / ``kernel_argsort`` with K1's chunk at 32768 and
+     65536 (tiles of 16384 in shared memory, the wider stages over device
+     memory) equal to ``torch.sort`` / ``torch.argsort(stable=True)``;
+     ``segment_sort`` at caps 65536 and 131072 (K5) and
+     ``segment_argsort`` at caps 32768 and 65536 (K6) under
+     ``cuda_fused`` bit for bit the ``torch`` variant; then each kernel
+     against its plain version there on NaN / +-0 keys, and timed;
+   - the dry run (``phase_dryrun``): ``launch.dryrun.run_cell`` of
+     ``qwen3_1p7b`` ``train_4k`` on rank 0 of the (16, 16) mesh, counted
+     on ``meta`` tensors, an ``OK`` record with every count above 0;
+   - the examples (``phase_examples``): ``python -m
+     repro_torch.examples.<name> --device cuda`` for the five, together,
+     each exiting 0 with its self-check lines true;
    - the guard on the card: with ``guard.enable_verify()``, ``sort``,
      ``argsort``, ``merge``, ``segment_sort``, ``merge_runs(tree_cuda)``
      and ``external_sort`` on their kernels at 2^20-2^22 keys with no
@@ -613,6 +630,7 @@ def phase_times(mods, launches, errs, data):
     written once. Operations: compare-exchanges of the network (K1) or one
     selector compare plus log2(w) butterfly stages per element and level
     (K2-K4)."""
+    from repro_torch.launch.roofline import stream_bytes
     k1, k2, k3, k4 = mods
     dev = "cuda"
     n = N_MAIN
@@ -639,33 +657,33 @@ def phase_times(mods, launches, errs, data):
     cases = [
         (k1.sort_chunks, "bitonic_sort.cu", "bitonic_sort.py:93", (rows,),
          {}, lambda: torch.sort(rows, dim=-1, descending=True),
-         2 * n * 4, sort_ops),
+         stream_bytes(n, 4), sort_ops),
         (k1.sort_chunks_kv, "bitonic_sort.cu", "bitonic_sort.py:123",
          (rows, rr), {},
          lambda: torch.sort(rows, dim=-1, descending=True, stable=True),
-         2 * n * 8, sort_ops),
+         stream_bytes(n, 8), sort_ops),
         (k2.flims_merge, "flims_merge.cu", "flims_merge.py:202", (ma, mb), M,
-         lambda: torch.sort(cat, descending=True), 2 * n * 4, merge_ops),
+         lambda: torch.sort(cat, descending=True), stream_bytes(n, 4), merge_ops),
         (k2.flims_merge_kv, "flims_merge.cu", "flims_merge.py:391",
          (ma, ra, mb, rb), M,
          lambda: torch.sort(cat, descending=True, stable=True),
-         2 * n * 8, merge_ops),
+         stream_bytes(n, 8), merge_ops),
         (k3.segmented_merge_runs, "flims_merge.cu", "segmented_merge.py:208",
          (cat, cat, *pair), dict(M, n_out=n),
-         lambda: torch.sort(cat, descending=True), 2 * n * 4, merge_ops),
+         lambda: torch.sort(cat, descending=True), stream_bytes(n, 4), merge_ops),
         (k3.segmented_merge_runs_kv, "flims_merge.cu",
          "segmented_merge.py:375", (cat, rcat, cat, rcat, *pair),
          dict(M, n_out=n),
          lambda: torch.sort(cat, descending=True, stable=True),
-         2 * n * 8, merge_ops),
+         stream_bytes(n, 8), merge_ops),
         (k4.merge_tree_runs, "merge_tree.cu", "merge_tree.py:393",
          (runs4, st4, ln4), dict(M, group=4, n_out=n),
-         lambda: torch.sort(runs4, descending=True), 2 * n * 4,
+         lambda: torch.sort(runs4, descending=True), stream_bytes(n, 4),
          2 * merge_ops),
         (k4.merge_tree_runs_kv, "merge_tree.cu", "merge_tree.py:393",
          (runs4, rcat, st4, ln4), dict(M, group=4, n_out=n),
          lambda: torch.sort(runs4, descending=True, stable=True),
-         2 * n * 8, 2 * merge_ops),
+         stream_bytes(n, 8), 2 * merge_ops),
     ]
     table = []
     for fn, source, replaces, args, kw, lib, nbytes, ops in cases:
@@ -1289,6 +1307,7 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
     """K5, K6 and K7 at their paths' shapes beside the plain versions, a
     library call and the bound; K5 / K6 also at the many-short-segments
     shape (printed, not in the table)."""
+    from repro_torch.launch import roofline as rl
     _, _, _, k7, k56, _ = slice2
 
     def route_case(lg, k, cap):
@@ -1298,7 +1317,7 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
         return (k7.moe_route, "route_fuse.cu", "route_fuse.py:181",
                 (lg, k, cap), {}, lambda: k7.moe_route_torch(lg, k, cap),
                 "moe_route_torch, the torch variant: no single torch call "
-                "routes", G * T * E * 4 + 6 * G * T * k * 4,
+                "routes", G * rl.moe_route_bytes(T, E, k),
                 G * T * k * (E + 2))
 
     def seg_cases(sh, cap):
@@ -1310,7 +1329,7 @@ def phase_slice2_times(slice2, launches, errs, seg, route_logits):
             (k56.segment_sort, "segment_sort.cu", "segmented_merge.py:422",
              (kf, offs), dict(cap=cap), lambda: torch.sort(bank, dim=-1),
              "torch.sort over the padded (S, cap) bank",
-             2 * n * 4 + (S + 1) * 4, net),
+             rl.stream_bytes(n, 4) + (S + 1) * 4, net),
             (k56.segment_sort_kv, "segment_sort.cu",
              "segmented_merge.py:521", (kf, offs), dict(cap=cap),
              lambda: torch.sort(bank, dim=-1, stable=True),
@@ -1585,7 +1604,7 @@ def phase_slice3_times(slice3, launches, errs, ext):
     runs of 2^20) beside the plain version (at 8 runs of 2^12: the plain
     version is launch-bound, seconds a call), one torch.sort of the
     concatenation and the bound."""
-    _, _, _, k8, _ = slice3
+    _, _, _, k8, roofline = slice3
     n, run_len, fan = N_EXT, 1 << 20, 8
     M = dict(runs=n // run_len, run_len=run_len, fan_in=fan, w=128,
              block_out=4096)
@@ -1608,10 +1627,11 @@ def phase_slice3_times(slice3, launches, errs, ext):
     ops = n * (1 + math.log2(128) / 2) * 3
     cases = [
         (k8.stream_merge_runs, (kbuf,), M, (runs[:8 << 12],),
-         lambda: torch.sort(runs, descending=True), 2 * n * 4, ops),
+         lambda: torch.sort(runs, descending=True),
+         roofline.stream_bytes(n, 4), ops),
         (k8.stream_merge_runs_kv, (kvbuf, rbuf), M, small_kv,
          lambda: torch.sort(kvk, descending=True, stable=True),
-         2 * n * 8, ops),
+         roofline.stream_bytes(n, 8), ops),
     ]
     table = []
     for fn, args, kw, pargs, lib, nbytes, ops_ in cases:
@@ -2405,6 +2425,7 @@ def phase_serve(engine, kernels, slice5, slice2):
                ids["flims"], ids["torch"])
     # K7 at the step's and a prefill token's route shapes, on the step's
     # router logits, against its plain version and the torch variant
+    from repro_torch.launch.roofline import moe_route_bytes
     E, k = cfg.n_experts, cfg.n_experts_active
     k7_rows, errs = [], [0.0, 0]
     for lg in (route_lg[0], route_lg[0][:, :1].contiguous()):
@@ -2415,7 +2436,7 @@ def phase_serve(engine, kernels, slice5, slice2):
             e, ul = check_route(f"K7 {tuple(lg.shape)} k={k}", got,
                                 ref_fn(lg, k, cap))
             errs = [max(errs[0], e), max(errs[1], ul)]
-        b_ms, b_by = _bound(T * E * 4 + 6 * T * k * 4, T * k * (E + 2))
+        b_ms, b_by = _bound(moe_route_bytes(T, E, k), T * k * (E + 2))
         k7_rows.append({
             "shape": list(lg.shape), "k": k, "capacity": cap,
             "ms": time_ms(lambda: k7.moe_route(lg, k, cap)),
@@ -2484,9 +2505,9 @@ MESH_RANKS = 4
 MESH_N = 1 << 24               # keys a rank (2^26 in all)
 MESH_KEY_RANGE = 1 << 20       # integral float32 keys in [-2^20, 2^20)
 MESH_TOPK = 2048
-# router rows a rank: K7 holds one group of at most 16384 padded pairs in a
-# CTA, 2048 tokens at k 6 (4096 would need the multi-CTA K7, ROADMAP)
-MESH_TOKENS = 2048
+# router rows a rank, as the JAX package routes them (one group of 4096
+# tokens at k 6: 24576 pairs, padded to 32768)
+MESH_TOKENS = 4096
 MESH_CACHE = 131072            # decode positions, split 4 ways
 MESH_BATCH = 4
 MESH_STEPS = 8                 # decode steps held to the one-process step
@@ -4072,6 +4093,231 @@ def phase_chaos(engine, kernels, slice5, tr, gen):
     return line, demoted
 
 
+# --------------------------------------------------------------------------
+# past one CTA's shared memory: K7 at any group, K1 / K5 / K6 at wide rows
+# --------------------------------------------------------------------------
+N_WIDE = 1 << 24               # K1's keys at rows past its 16384-key tile
+N_WIDE_SEG = 1 << 22           # K5 / K6's keys at caps past one CTA
+WIDE_ROWS = (32768, 65536)
+WIDE_CAPS = {"segment_sort": (65536, 131072),
+             "segment_sort_kv": (32768, 65536)}
+# (G, T, E, k): Moonlight's router at 4096 and 65536 tokens (Np 32768 and
+# 524288), and one group of 2^21 tokens, 131072 tiles of 16 (past a grid's
+# y of 65535)
+WIDE_ROUTES = ((1, 4096, 64, 6), (1, 65536, 64, 6), (1, 1 << 21, 8, 1))
+
+
+def _wide_route_cap(T: int, E: int, k: int) -> int:
+    return max(1, int(1.25 * T * k / E))
+
+
+def phase_wide(engine, kernels, k1, slice2, gen):
+    """K7, K1, K5 and K6 at shapes past one CTA's shared memory, which the
+    port refused before: (a) the paths, counted: ``engine.moe_route``
+    (default plan, fused) at ``WIDE_ROUTES`` against the ``torch`` variant;
+    ``kernel_sort`` / ``kernel_argsort`` with K1's chunk at ``WIDE_ROWS``
+    against ``torch.sort`` / ``torch.argsort(stable=True)``;
+    ``engine.segment_sort`` / ``segment_argsort`` (``cuda_fused``) at
+    ``WIDE_CAPS`` against the ``torch`` variant; (b) each kernel against
+    its plain version on the card at those shapes, on NaN / +-0 keys; (c)
+    each timed beside its plain version, a library call and its bound from
+    ``launch.roofline``. Returns the launches of (a) and the rows of (c) by
+    kernel name."""
+    from repro_torch.kernels.ops import kernel_argsort, kernel_sort
+    from repro_torch.launch import roofline as rl
+    k7, k56 = slice2[3], slice2[4]
+    xs = dup_keys(N_WIDE, gen)
+    segs = {cap: seg_offsets(N_WIDE_SEG, gen, cap)
+            for cap in sorted({c for cs in WIDE_CAPS.values() for c in cs})}
+    tk = tie_keys(N_WIDE_SEG, gen)
+    logits = {r: torch.randn(r[:3], generator=gen, device="cuda")
+              for r in WIDE_ROUTES}
+
+    def drive():
+        out = {}
+        for c in WIDE_ROWS:
+            out["sort", c] = kernel_sort(xs, chunk=c)
+            out["argsort", c] = kernel_argsort(xs, chunk=c)
+        for name, caps in WIDE_CAPS.items():
+            for cap in caps:
+                offs = segs[cap][1]
+                out[name, cap] = (
+                    engine.segment_sort(tk, offs, cap=cap,
+                                        variant="cuda_fused")
+                    if name == "segment_sort" else
+                    engine.segment_argsort(tk, offs, cap=cap,
+                                           variant="cuda_fused"))
+        for r, lg in logits.items():
+            out["route", r] = engine.moe_route(lg, r[3],
+                                               _wide_route_cap(*r[1:]))
+        return out
+
+    out, launches = counted(kernels, drive)
+    ref_v = torch.sort(xs, descending=True).values
+    ref_p = torch.argsort(xs, descending=True, stable=True).to(torch.int32)
+    for c in WIDE_ROWS:
+        if not torch.equal(out["sort", c], ref_v):
+            raise AssertionError(f"kernel_sort chunk={c}: not torch.sort")
+        check_same(f"kernel_argsort chunk={c}", out["argsort", c], ref_p)
+    for name, caps in WIDE_CAPS.items():
+        for cap in caps:
+            offs = segs[cap][1]
+            ref = (engine.segment_sort(tk, offs, cap=cap, variant="torch")
+                   if name == "segment_sort" else
+                   engine.segment_argsort(tk, offs, cap=cap, variant="torch"))
+            check_same(f"{name} cap={cap} cuda_fused", out[name, cap], ref)
+    for r, lg in logits.items():
+        check_route(f"engine.moe_route {r[:3]} k={r[3]}", out["route", r],
+                    engine.moe_route(lg, r[3], _wide_route_cap(*r[1:]),
+                                     variant="torch"))
+    need = ("sort_chunks", "sort_chunks_kv", "segment_sort",
+            "segment_sort_kv", "moe_route")
+    missing = [k for k in need if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"wide path never launched {missing}: "
+                             f"{launches}")
+    print("wide: engine.moe_route (fused) at " + ", ".join(
+        f"{r[:3]} k={r[3]}" for r in WIDE_ROUTES) + " equal to the torch "
+        f"variant; kernel_sort / kernel_argsort at chunks {WIDE_ROWS} equal "
+        "to torch.sort / torch.argsort(stable=True); segment_sort at caps "
+        f"{WIDE_CAPS['segment_sort']} and segment_argsort at caps "
+        f"{WIDE_CAPS['segment_sort_kv']} (cuda_fused) bit for bit the torch "
+        "variant; launches " + json.dumps(launches), flush=True)
+
+    # (b) and (c): kernel against plain on NaN / +-0 keys, then times
+    rows = {}
+
+    def row(fn, args, kw, lib, lib_call, nbytes, ops, **shape):
+        bound_ms, bound_by = _bound(nbytes, ops)
+        r = dict(shape, ms=time_ms(lambda: fn(*args, **kw)),
+                 plain_ms=time_ms(lambda: plain_of(fn)(*args, **kw),
+                                  warmup=1, reps=3),
+                 bound_ms=bound_ms, bound_by=bound_by,
+                 library_ms=time_ms(lib), library_call=lib_call)
+        rows.setdefault(fn.__name__, []).append(r)
+        print(f"time {fn.__name__} wide: " + json.dumps(r), flush=True)
+
+    xn = nan_keys(N_WIDE, gen)
+    rk = torch.arange(N_WIDE, dtype=torch.int32, device="cuda")
+    for c in WIDE_ROWS:
+        m = N_WIDE // c
+        x, r = xn.view(m, c), rk.view(m, c)
+        err = check_same(f"sort_chunks ({m}, {c})", k1.sort_chunks(x),
+                         k1.sort_chunks_plain(x))
+        for d in (True, False):
+            err = max(err, check_same(
+                f"sort_chunks_kv ({m}, {c}) desc={d}",
+                k1.sort_chunks_kv(x, r, descending=d),
+                k1.sort_chunks_kv_plain(x, r, descending=d)))
+        net = m * c / 2 * math.log2(c) * (math.log2(c) + 1) / 2
+        row(k1.sort_chunks, (x,), {}, lambda: torch.sort(x, dim=-1,
+                                                         descending=True),
+            "torch.sort(dim=-1)", rl.stream_bytes(N_WIDE, 4), net, rows=m,
+            width=c, max_abs_err=err)
+        row(k1.sort_chunks_kv, (x, r), {},
+            lambda: torch.sort(x, dim=-1, descending=True, stable=True),
+            "torch.sort(dim=-1, stable=True)", rl.stream_bytes(N_WIDE, 8),
+            net, rows=m, width=c, max_abs_err=err)
+    for name, caps in WIDE_CAPS.items():
+        fn = getattr(k56, name)
+        for cap in caps:
+            lens, offs = segs[cap]
+            x, _ = nan_segments(lens, gen)
+            kws = [dict(cap=cap)] if name == "segment_sort" else \
+                [dict(cap=cap, descending=d) for d in (True, False)]
+            err = max(check_same(f"{name} cap={cap} {kw}", fn(x, offs, **kw),
+                                 plain_of(fn)(x, offs, **kw)) for kw in kws)
+            bank = k56.padded_bank(x, offs, cap)
+            lanes = 2 if name == "segment_sort" else 3
+            row(fn, (x, offs), dict(cap=cap),
+                lambda: torch.sort(bank, dim=-1, stable=lanes == 3),
+                "torch.sort over the padded (S, cap) bank",
+                lanes * N_WIDE_SEG * 4 + (len(lens) + 1) * 4,
+                _network_ops(lens), keys=N_WIDE_SEG, segments=len(lens),
+                cap=cap, max_abs_err=err)
+    for (G, T, E, k), lg in logits.items():
+        cap = _wide_route_cap(T, E, k)
+        err, u = check_route(f"moe_route {(G, T, E)} k={k}",
+                             k7.moe_route(lg, k, cap),
+                             k7.moe_route_plain(lg, k, cap))
+        check_route(f"moe_route {(G, T, E)} k={k} vs torch",
+                    k7.moe_route(lg, k, cap), k7.moe_route_torch(lg, k, cap))
+        row(k7.moe_route, (lg, k, cap), {},
+            lambda: k7.moe_route_torch(lg, k, cap),
+            "moe_route_torch, the torch variant: no single torch call "
+            "routes", G * rl.moe_route_bytes(T, E, k), G * T * k * (E + 2),
+            shape=[G, T, E], k=k, max_abs_err=err, ulps=u)
+    return launches, rows
+
+
+DRYRUN_CELL = ("qwen3_1p7b", "train_4k")
+DRYRUN_LIMIT_S = 60
+
+
+def phase_dryrun():
+    """The dry run at production shape: ``DRYRUN_CELL`` on rank 0 of the
+    (data 16, model 16) mesh, counted on ``meta`` tensors (no card): an
+    ``OK`` record with FLOPs, bytes, collective bytes by kind, memory and
+    roofline terms, each above 0, within ``DRYRUN_LIMIT_S``."""
+    from repro_torch.launch.dryrun import run_cell
+    t0 = time.perf_counter()
+    rec = run_cell(*DRYRUN_CELL, False, verbose=False)
+    dt = time.perf_counter() - t0
+    print("dryrun: " + json.dumps(rec), flush=True)
+    roof = rec.get("roofline", {})
+    if rec["status"] != "OK" or not (
+            roof["flops"] > 0 and roof["hbm_bytes"] > 0
+            and roof["coll_bytes"] > 0 and rec["memory"]["temp_gb"] > 0):
+        raise AssertionError(f"dryrun {DRYRUN_CELL}: {rec}")
+    if dt > DRYRUN_LIMIT_S:
+        raise AssertionError(f"dryrun took {dt:.1f} s > {DRYRUN_LIMIT_S}")
+    return rec
+
+
+# (example, its arguments, its self-check lines); all five run at once
+EXAMPLES = (("quickstart", [], 6), ("moe_routing", [], 2),
+            ("serve_lm", [], 1), ("train_lm", ["--steps", "40"], 1),
+            ("distributed_sort", ["--ranks", "4"], 3))
+EXAMPLES_LIMIT_S = 240
+
+
+def phase_examples():
+    """The port's five examples (``python -m repro_torch.examples.<name>``)
+    as subprocesses on the card, all started together: each exits 0 with
+    every self-check line (``...: True``) true, as many as it prints."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src, GLOO_SOCKET_IFNAME="lo")
+    check = re.compile(r":\s*(True|False)\s*$")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        for name, extra, n in EXAMPLES:
+            if name == "train_lm":
+                extra = extra + ["--ckpt", os.path.join(tmp, "ckpt")]
+            procs.append((name, n, time.perf_counter(), subprocess.Popen(
+                [sys.executable, "-m", f"repro_torch.examples.{name}",
+                 "--device", "cuda", *extra], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True, env=env, cwd=tmp)))
+        out = {}
+        for name, n, t0, p in procs:
+            try:
+                so, se = p.communicate(timeout=EXAMPLES_LIMIT_S)
+            except subprocess.TimeoutExpired:
+                for *_, q in procs:
+                    q.kill()
+                raise AssertionError(f"example {name}: past "
+                                     f"{EXAMPLES_LIMIT_S} s")
+            checks = [m.group(1) for line in so.splitlines()
+                      for m in [check.search(line)] if m]
+            if p.returncode or checks != ["True"] * n:
+                raise AssertionError(f"example {name}: exit {p.returncode}, "
+                                     f"checks {checks}\n{so[-2000:]}"
+                                     f"\n{se[-2000:]}")
+            out[name] = {"seconds": round(time.perf_counter() - t0, 1),
+                         "checks": len(checks)}
+    print("examples: " + json.dumps(out), flush=True)
+    return out
+
+
 def timed(name: str, fn, *args, **kw):
     t0 = time.perf_counter()
     out = fn(*args, **kw)
@@ -4138,6 +4384,8 @@ def main() -> int:
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
     timed("K1 shapes and chunk sweep", phase_k1_sweep, engine, kernels, k1,
           slice3, data, ext)
+    wide_launches, wide_rows = timed("wide", phase_wide, engine, kernels, k1,
+                                     slice2, gen)
     slice4 = _import_slice4()
     k9_launches, path_errs, ref = timed("sampling", phase_sampling, engine,
                                         kernels, slice4, gen)
@@ -4153,6 +4401,8 @@ def main() -> int:
     _, tmesh_k7 = timed("train mesh", phase_train_mesh, kernels, slice5,
                         tr)
     timed("train", phase_train, kernels, slice5, tr)
+    timed("dryrun", phase_dryrun)
+    timed("examples", phase_examples)
     _, chaos_demotions = timed("chaos", phase_chaos, engine, kernels, slice5,
                                tr, gen)
     errs4 = timed("K9 vs plain", phase_k9_vs_plain, slice4[0], gen)
@@ -4160,8 +4410,12 @@ def main() -> int:
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
     for row in table:
-        # the mesh phase's launches, summed over its 4 ranks
-        row["launches"] += mesh_launches.get(row["name"], 0)
+        # the mesh phase's launches, summed over its 4 ranks; the wide
+        # shapes' path, and the kernels' times there
+        row["launches"] += mesh_launches.get(row["name"], 0) + \
+            wide_launches.get(row["name"], 0)
+        if row["name"] in wide_rows:
+            row["wide"] = wide_rows.pop(row["name"])
         if row["name"] == "moe_route":
             # the serving and training paths' K7 launches, and K7 at its
             # route shapes

@@ -3,6 +3,7 @@ in under ``-DK7_PROFILE``.
 
     python3 scripts/k7_profile.py [--source PATH] [--label NAME]
                                   [--shapes mixtral,sorted,moonlight]
+                                  [--shapes moon4096,moon65536,group2m]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds one K7 source (``--source``, by default
@@ -19,6 +20,11 @@ router logits from a seeded generator at the smoke's three route shapes:
 - ``mixtral``: a grouped Mixtral-8x22B chunk, (1, 2048, 8), k 2;
 - ``sorted``: the sorted Mixtral-8x22B layer, (1, 4096, 8), k 2;
 - ``moonlight``: a grouped Moonlight-16B-A3B chunk, (1, 2048, 64), k 6;
+
+or, with ``--shapes``, at the groups past the kernel's old 16384-pair
+limit that ``chip_smoke.py``'s ``phase_wide`` drives: ``moon4096`` (1,
+4096, 64) k 6, ``moon65536`` (1, 65536, 64) k 6 and ``group2m`` (1, 2^21,
+8) k 1 (131072 tiles: the scan's one CTA a group walks E x tiles counts);
 
 each at the layer's capacity (``models.moe.expert_capacity(1.25, ...)``).
 Each line printed is one JSON object: the call's median time with the plain
@@ -51,7 +57,8 @@ from repro_torch.kernels import route_fuse as k7  # noqa: E402
 from repro_torch.models.moe import expert_capacity  # noqa: E402
 
 SHAPES = {"mixtral": (2048, 8, 2), "sorted": (4096, 8, 2),
-          "moonlight": (2048, 64, 6)}
+          "moonlight": (2048, 64, 6), "moon4096": (4096, 64, 6),
+          "moon65536": (65536, 64, 6), "group2m": (1 << 21, 8, 1)}
 
 
 def main() -> int:

@@ -10,6 +10,7 @@
 // bitonic_sort.cu's header comment gives the design and its measurements.
 #pragma once
 
+#include <algorithm>
 #include <type_traits>
 
 #include "flims.cuh"
@@ -245,12 +246,44 @@ template <int LOGC, int E = kE> struct WarpNet {
   }
 };
 
+// The stages d = 2^ld, ld = top .. LOGT, of 2^logc lanes held
+// register-major in shared memory (element col E + j at s[j N + col], N =
+// 2^logc / E threads), `sync` after each: a stage at d pairs columns d / E
+// apart within one register's stripe. dir(col) is the direction of the
+// pair whose top element is col E + j.
+template <class Ops, int E, class Sync, class Dir>
+__device__ __forceinline__ void smem_stages(typename Ops::V* s, int t, int N, int logc, int top,
+                                            const Sync& sync, const Dir& dir) {
+  constexpr int LOGE = ilog2(E), LOGT = LOGE + 5;
+  const int lhalf = logc - LOGE - 1;
+  for (int ld = top; ld >= LOGT; --ld) {
+    const int lds = ld - LOGE, dd = 1 << lds;
+#pragma unroll
+    for (int u = 0; u < E / 2; ++u) {
+      const int P = t + u * N, stripe = P >> lhalf, q = P & ((1 << lhalf) - 1);
+      const int col = ((q >> lds) << (lds + 1)) | (q & (dd - 1));
+      typename Ops::V* a = s + stripe * N + col;
+      typename Ops::V hi = a[0], lo = a[dd];
+      Ops::cas(hi, lo, dir(col));
+      a[0] = hi;
+      a[dd] = lo;
+    }
+    sync();
+  }
+}
+
 // A row of c = 2^logc > 32 E keys over c / E threads: the warp's phases
 // (its tile sorted in the direction of its k-block), then each phase above
 // with its stages d >= 32 E in shared memory and the rest in registers.
 // The row's threads are the CTA's first c / E. With SUBSET the CTA may hold
 // more (which may have exited), and the row's barriers are the named
 // barrier 1 over its c / E threads instead of __syncthreads.
+// `base` is the thread's first key's index in its row. The row may be wider
+// than these c keys (a tile of a row sorted past shared memory, see
+// sort_rows_past_tile): the network's phases 1 .. logc are then the row's,
+// and the last leaves the tile in the row's direction for it, (base >>
+// logc) & 1 (odd tiles ascend); for a row of c keys that bit is 0, the
+// row's final descending phase.
 template <int E, bool SUBSET = false> struct WideNet {
   int base, lane, logc;
   unsigned char* smem;
@@ -266,11 +299,11 @@ template <int E, bool SUBSET = false> struct WideNet {
     constexpr int LOGE = ilog2(E), LOGT = LOGE + 5;
     warp_phases<Ops, E, 1, LOGT, false>(x, base, lane);
     V* s = reinterpret_cast<V*>(smem);
-    const int t = threadIdx.x, N = SUBSET ? 1 << (logc - LOGE) : blockDim.x,
-              lhalf = logc - LOGE - 1;
+    const int t = threadIdx.x, N = SUBSET ? 1 << (logc - LOGE) : blockDim.x;
+    const int off = base & ~((1 << logc) - 1);  // the tile's first key in the row
+    bool asc = false;
     for (int lk = LOGT + 1; lk <= logc; ++lk) {
-      const bool fin = lk == logc;
-      const bool asc = !fin && ((base >> lk) & 1);
+      asc = (base >> lk) & 1;
       PROF_START(t_m);
       if constexpr (Ops::kFlip) {
         const bool f = ((base >> (lk - 1)) & 1) != asc;
@@ -280,26 +313,54 @@ template <int E, bool SUBSET = false> struct WideNet {
 #pragma unroll
       for (int j = 0; j < E; ++j) s[j * N + t] = x[j];
       sync(N);
-      // element i = col E + j sits at s[j N + col]: a stage at d pairs
-      // columns dd = d / E apart within one register's stripe
-      for (int ld = lk - 1; ld >= LOGT; --ld) {
-        const int lds = ld - LOGE, dd = 1 << lds;
-#pragma unroll
-        for (int u = 0; u < E / 2; ++u) {
-          const int P = t + u * N, stripe = P >> lhalf, q = P & ((1 << lhalf) - 1);
-          const int col = ((q >> lds) << (lds + 1)) | (q & (dd - 1));
-          V* a = s + stripe * N + col;
-          V top = a[0], bot = a[dd];
-          Ops::cas(top, bot, !Ops::kFlip && !fin && ((col >> (lk - LOGE)) & 1));
-          a[0] = top;
-          a[dd] = bot;
-        }
-        sync(N);
-      }
+      smem_stages<Ops, E>(s, t, N, logc, lk - 1, [&] { sync(N); }, [&](int col) {
+        return !Ops::kFlip && (((off | (col << LOGE)) >> lk) & 1);
+      });
 #pragma unroll
       for (int j = 0; j < E; ++j) x[j] = s[j * N + t];
       PROF(3, t_m);
       stages_down<Ops, E, LOGT - 1>(x, lane, ThreadDir{!Ops::kFlip && asc});
+    }
+    if constexpr (Ops::kFlip) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) x[j] = Ops::flip_if(x[j], asc);
+    }
+  }
+};
+
+// One phase of a row wider than the tile, after its stages at d >= 2^logc
+// (row_stage_kernel): the stages d = 2^(logc - 1) .. 1 within the tile's
+// 2^logc keys over the CTA's 2^logc / E threads, all in the direction `asc`
+// of the tile's k-block (the phase's k-blocks hold whole tiles). Shared
+// memory for the stages d >= 32 E, registers below.
+template <int E> struct TileMerge {
+  bool asc;
+  int lane, logc;
+  unsigned char* smem;
+  template <class Ops>
+  __device__ void run(typename Ops::V (&x)[E]) const {
+    using V = typename Ops::V;
+    constexpr int LOGT = ilog2(E) + 5;
+    if constexpr (Ops::kFlip) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) x[j] = Ops::flip_if(x[j], asc);
+    }
+    V* s = reinterpret_cast<V*>(smem);
+    const int t = threadIdx.x, N = blockDim.x;
+    PROF_START(t_m);
+#pragma unroll
+    for (int j = 0; j < E; ++j) s[j * N + t] = x[j];
+    __syncthreads();
+    const bool d = !Ops::kFlip && asc;
+    smem_stages<Ops, E>(s, t, N, logc, logc - 1, [] { __syncthreads(); },
+                        [d](int) { return d; });
+#pragma unroll
+    for (int j = 0; j < E; ++j) x[j] = s[j * N + t];
+    PROF(3, t_m);
+    stages_down<Ops, E, LOGT - 1>(x, lane, ThreadDir{d});
+    if constexpr (Ops::kFlip) {
+#pragma unroll
+      for (int j = 0; j < E; ++j) x[j] = Ops::flip_if(x[j], asc);
     }
   }
 };
@@ -419,6 +480,145 @@ __device__ __forceinline__ void sort_lanes(T (&k)[E], int32_t (&r)[E], bool exac
 #pragma unroll
     for (int j = 0; j < E; ++j) k[j] = from_order_key<T>(x[j]);
   }
+}
+
+
+// ---- rows past one CTA's shared memory --------------------------------------
+// The classic large bitonic sort, the same network as the TPU kernels' (the
+// stage order, the pairs, the directions) over rows of 2^logr keys wider
+// than the tile of 2^kRowTileLog keys one CTA sorts:
+//  1. tile_rows_kernel sorts every tile with the network's phases 1 ..
+//     kRowTileLog (WideNet; odd tiles of a row end ascending);
+//  2. each phase lk above runs its stages at d >= the tile as
+//     row_stage_kernel passes over device memory, a launch a stage and a
+//     thread a compare-exchange (XLA's max / min in operand order on
+//     key-only lanes, the compound compare on KV lanes: the TPU kernels'
+//     own compare-exchange, exact on any keys), then its stages below the
+//     tile in tile_merge_kernel (TileMerge: shared memory and registers,
+//     the fast or the exact lanes by the tile's vote, as K1).
+// Every compare-exchange gives the bits the TPU kernel's gives, so the
+// result is its result, NaN payloads and zero signs included. A row of
+// 2^logr keys takes 1 + (logr - 14)(logr - 13) / 2 + (logr - 14) launches;
+// each reads and writes every key once. Simple, not fast: the device-memory
+// passes dominate.
+constexpr int kRowTileLog = 14;      // 16384 keys, 1024 threads of 16
+constexpr int kRowTileE = 16;
+constexpr int kRowThreads = 1 << (kRowTileLog - 4);
+constexpr int kStageThreads = 256;
+
+// Rows of 2^logr keys in tiles of 2^logc (logc <= logr; logc == logr sorts
+// whole rows): a tile a CTA of 2^logc / E threads.
+template <typename T, bool KV, bool DESC, int E>
+__global__ void __launch_bounds__(kRowThreads)
+    tile_rows_kernel(const T* __restrict__ kin, const int32_t* __restrict__ rin,
+                     T* __restrict__ kout, int32_t* __restrict__ rout, long long total,
+                     int logc, int logr, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  PROF_INIT();
+  PROF_START(t_total);
+  const int t = threadIdx.x;
+  const long long tile = blockIdx.x;
+  const long long g = (tile << logc) + (long long)t * E;
+  const int base = (int)((tile & ((1ll << (logr - logc)) - 1)) << logc) + t * E;
+  T k[E];
+  int32_t r[E];
+  PROF_START(t_load);
+  load_lanes<E>(kin, g, total, vec, k);
+  if (KV) load_lanes<E>(rin, g, total, vec, r);
+  const bool exact = __syncthreads_or(needs_exact<T, KV>(k));
+  PROF(0, t_load);
+  sort_lanes<T, KV, DESC, E>(k, r, exact, WideNet<E>{base, t & 31, logc, smem});
+  PROF_START(t_store);
+  store_lanes<E>(kout, g, total, vec, k);
+  if (KV) store_lanes<E>(rout, g, total, vec, r);
+  PROF(4, t_store);
+  PROF(5, t_total);
+  PROF_FLUSH();
+}
+
+// Stage d = 2^ld (ld >= the tile's log) of phase lk over rows of 2^logr
+// keys, in place: thread j of `pairs` runs the compare-exchange (top, top +
+// d), top the pair's first index, direction (top >> lk) & 1.
+template <typename T, bool KV, bool DESC>
+__global__ void __launch_bounds__(kStageThreads)
+    row_stage_kernel(T* k, int32_t* r, long long pairs, int logr, int lk, int ld) {
+  const long long d = 1ll << ld, hmask = (1ll << (logr - 1)) - 1;
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < pairs;
+       j += (long long)gridDim.x * blockDim.x) {
+    const long long p = j & hmask;
+    const long long top = ((p >> ld) << (ld + 1)) | (p & (d - 1));
+    const bool asc = (top >> lk) & 1;
+    const long long a = ((j >> (logr - 1)) << logr) + top, b = a + d;
+    const T kt = k[a], kb = k[b];
+    if constexpr (KV) {
+      const int32_t rt = r[a], rb = r[b];
+      const bool keep = wins<T, true, DESC>(Lane<T>{kt, rt}, Lane<T>{kb, rb}) ^ asc;
+      k[a] = keep ? kt : kb;
+      k[b] = keep ? kb : kt;
+      r[a] = keep ? rt : rb;
+      r[b] = keep ? rb : rt;
+    } else {
+      const T mx = xmax(kt, kb), mn = xmin(kt, kb);
+      k[a] = asc ? mn : mx;
+      k[b] = asc ? mx : mn;
+    }
+  }
+}
+
+// The stages below the tile of phase lk (> logc), in place, a tile a CTA.
+template <typename T, bool KV, bool DESC, int E>
+__global__ void __launch_bounds__(kRowThreads)
+    tile_merge_kernel(T* k, int32_t* r, long long total, int logc, int logr, int lk, int vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t = threadIdx.x;
+  const long long g = ((long long)blockIdx.x << logc) + (long long)t * E;
+  const bool asc = ((g & ((1ll << logr) - 1)) >> lk) & 1;
+  T x[E];
+  int32_t y[E];
+  load_lanes<E>(k, g, total, vec, x);
+  if (KV) load_lanes<E>(r, g, total, vec, y);
+  const bool exact = __syncthreads_or(needs_exact<T, KV>(x));
+  sort_lanes<T, KV, DESC, E>(x, y, exact, TileMerge<E>{asc, t & 31, logc, smem});
+  store_lanes<E>(k, g, total, vec, x);
+  if (KV) store_lanes<E>(r, g, total, vec, y);
+}
+
+// Shared-memory bytes of a tile CTA: the tile's keys, and ranks on KV lanes.
+template <bool KV> constexpr size_t row_tile_smem() {
+  return (size_t(1) << kRowTileLog) * (KV ? 8 : 4);
+}
+
+// Sorts every row of 2^logr > 2^kRowTileLog keys of the flat (total,) kin
+// (and rin) into kout (and rout); vec: all four pointers 16-byte aligned.
+template <typename T, bool KV, bool DESC>
+__host__ cudaError_t sort_rows_past_tile(const T* kin, const int32_t* rin, T* kout,
+                                         int32_t* rout, long long total, int logr, bool vec,
+                                         cudaStream_t st) {
+  constexpr int lt = kRowTileLog, E = kRowTileE;
+  const size_t dyn = row_tile_smem<KV>();
+  auto sort_tiles = tile_rows_kernel<T, KV, DESC, E>;
+  auto merge = tile_merge_kernel<T, KV, DESC, E>;
+  cudaError_t e = allow_smem(sort_tiles, dyn);
+  if (e == cudaSuccess) e = allow_smem(merge, dyn);
+  if (e != cudaSuccess) return e;
+  const long long tiles = total >> lt, pairs = total >> 1;
+  if (tiles > 0x7fffffffll) return cudaErrorInvalidValue;
+  sort_tiles<<<(unsigned)tiles, kRowThreads, dyn, st>>>(kin, rin, kout, rout, total, lt, logr,
+                                                         vec);
+  e = cudaGetLastError();
+  const unsigned sblocks =
+      (unsigned)std::min<long long>((pairs + kStageThreads - 1) / kStageThreads, 1 << 16);
+  for (int lk = lt + 1; lk <= logr && e == cudaSuccess; ++lk) {
+    for (int ld = lk - 1; ld >= lt && e == cudaSuccess; --ld) {
+      row_stage_kernel<T, KV, DESC><<<sblocks, kStageThreads, 0, st>>>(kout, rout, pairs, logr, lk,
+                                                                      ld);
+      e = cudaGetLastError();
+    }
+    if (e != cudaSuccess) break;
+    merge<<<(unsigned)tiles, kRowThreads, dyn, st>>>(kout, rout, total, lt, logr, lk, vec);
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 }  // namespace net

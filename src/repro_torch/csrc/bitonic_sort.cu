@@ -1,5 +1,6 @@
 // K1: bitonic sort of every row of an (m, c) tile, c a power of two from 1
-// to 16384, as a register-resident warp network.
+// to 2^30, as a register-resident warp network (rows past 16384 keys also
+// through device memory).
 //
 // Replaces `sort_chunks_pallas` / `sort_chunks_kv_pallas`
 // (src/repro/kernels/bitonic_sort.py:84, :106; network in
@@ -45,6 +46,10 @@
 //   stores, loads and the stage's pairs are all conflict-free, with a CTA
 //   barrier after each; every finer stage of the phase is back in
 //   registers. Shared memory: c x 4 bytes key-only, c x 8 KV.
+// - Rows past 16384 keys (c x 8 bytes would pass a CTA's 227 KB at 32768
+//   KV) sort in tiles of 16384 with the stages at d >= 16384 as passes over
+//   device memory (sort_rows_past_tile, bitonic_net.cuh): the same network,
+//   a few launches, each key read and written once a launch.
 // - Directions by flipping. On the fast paths the keys travel as integers
 //   whose order is the network's order, and the bitwise complement reverses
 //   it. An element is complemented while its k-block sorts ascending, so
@@ -69,8 +74,8 @@ using namespace net;
 
 constexpr int kTileWarps = 4;           // warps (tiles) a CTA of the warp kernel
 constexpr int kWarpLogC = 8;            // rows up to 2^8 = kTile: the warp kernel
-constexpr int kMaxLogC = 14;            // MAX_CHUNK = 16384
-constexpr int kWideThreads = 1024;
+constexpr int kMaxLogC = kRowTileLog;   // rows up to 16384 keys: a row a CTA
+constexpr int kMaxLogR = 30;            // wider rows: sort_rows_past_tile
 
 // ---- kernels ---------------------------------------------------------------
 
@@ -105,33 +110,6 @@ __global__ void __launch_bounds__(32 * kTileWarps)
   PROF_FLUSH();
 }
 
-// Rows of c = 2^logc > 32 E keys: one row a CTA of c / E threads.
-template <typename T, bool KV, bool DESC, int E>
-__global__ void __launch_bounds__(kWideThreads)
-    wide_rows_kernel(const T* __restrict__ kin, const int32_t* __restrict__ rin,
-                     T* __restrict__ kout, int32_t* __restrict__ rout, long long total,
-                     int logc, int vec) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  PROF_INIT();
-  PROF_START(t_total);
-  const int t = threadIdx.x;
-  const long long g = ((long long)blockIdx.x << logc) + (long long)t * E;
-  T k[E];
-  int32_t r[E];
-  PROF_START(t_load);
-  load_lanes<E>(kin, g, total, vec, k);
-  if (KV) load_lanes<E>(rin, g, total, vec, r);
-  const bool exact = __syncthreads_or(needs_exact<T, KV>(k));
-  PROF(0, t_load);
-  sort_lanes<T, KV, DESC, E>(k, r, exact, WideNet<E>{t * E, t & 31, logc, smem});
-  PROF_START(t_store);
-  store_lanes<E>(kout, g, total, vec, k);
-  if (KV) store_lanes<E>(rout, g, total, vec, r);
-  PROF(4, t_store);
-  PROF(5, t_total);
-  PROF_FLUSH();
-}
-
 // ---- launch ------------------------------------------------------------------
 
 template <typename T>
@@ -160,25 +138,33 @@ static KernFn<T> warp_kernel(int logc) {
 template <typename T, bool KV, bool DESC>
 static cudaError_t run(const Args& a) {
   const long long c = 1ll << a.logc, total = (long long)a.m * c;
-  KernFn<T> kern;
-  int threads;
-  size_t dyn = 0;
-  long long blocks;
+  const uintptr_t align = (uintptr_t)a.kin | (uintptr_t)a.rin | (uintptr_t)a.kout | (uintptr_t)a.rout;
+  const int vec = (align & 15) == 0;
+  cudaError_t e;
   if (a.logc <= kWarpLogC) {
-    kern = warp_kernel<T, KV, DESC, 0>(a.logc);
-    threads = 32 * kTileWarps;
-    blocks = (total + (long long)kTile * kTileWarps - 1) / ((long long)kTile * kTileWarps);
-  } else {
-    const int E = a.logc == kMaxLogC ? 16 : 8;
-    if (E == 16)
-      kern = &wide_rows_kernel<T, KV, DESC, 16>;
-    else
-      kern = &wide_rows_kernel<T, KV, DESC, 8>;
-    threads = (int)(c / E);
-    dyn = (size_t)c * (KV ? 8 : 4);
-    blocks = a.m;
+    const KernFn<T> kern = warp_kernel<T, KV, DESC, 0>(a.logc);
+    const int threads = 32 * kTileWarps;
+    const long long tile = (long long)kTile * kTileWarps, blocks = (total + tile - 1) / tile;
+    if (a.smem) {
+      cudaFuncAttributes at;
+      e = cudaFuncGetAttributes(&at, kern);
+      *a.smem = (long long)at.sharedSizeBytes;
+      return e;
+    }
+    if (a.per_sm) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, kern, threads, 0);
+    kern<<<(unsigned)blocks, threads, 0, a.st>>>((const T*)a.kin, (const int32_t*)a.rin,
+                                                 (T*)a.kout, (int32_t*)a.rout, total, a.logc,
+                                                 vec);
+    return cudaGetLastError();
   }
-  cudaError_t e = allow_smem(kern, dyn);
+  // a row a CTA, or past kMaxLogC keys a tile of one (sort_rows_past_tile,
+  // bitonic_net.cuh), whose kernel the queries describe
+  const int lt = a.logc < kMaxLogC ? a.logc : kMaxLogC;
+  const int E = lt == kMaxLogC ? 16 : 8;
+  const auto kern = E == 16 ? &tile_rows_kernel<T, KV, DESC, 16> : &tile_rows_kernel<T, KV, DESC, 8>;
+  const int threads = (1 << lt) / E;
+  const size_t dyn = ((size_t)1 << lt) * (KV ? 8 : 4);
+  e = allow_smem(kern, dyn);
   if (e != cudaSuccess) return e;
   if (a.smem) {
     cudaFuncAttributes at;
@@ -187,10 +173,11 @@ static cudaError_t run(const Args& a) {
     return e;
   }
   if (a.per_sm) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.per_sm, kern, threads, dyn);
-  const uintptr_t align = (uintptr_t)a.kin | (uintptr_t)a.rin | (uintptr_t)a.kout | (uintptr_t)a.rout;
-  kern<<<(unsigned)blocks, threads, dyn, a.st>>>((const T*)a.kin, (const int32_t*)a.rin, (T*)a.kout,
-                                                (int32_t*)a.rout, total, a.logc,
-                                                (align & 15) == 0);
+  if (a.logc > lt)
+    return sort_rows_past_tile<T, KV, DESC>((const T*)a.kin, (const int32_t*)a.rin, (T*)a.kout,
+                                            (int32_t*)a.rout, total, a.logc, vec, a.st);
+  kern<<<(unsigned)a.m, threads, dyn, a.st>>>((const T*)a.kin, (const int32_t*)a.rin, (T*)a.kout,
+                                             (int32_t*)a.rout, total, lt, lt, vec);
   return cudaGetLastError();
 }
 
@@ -203,7 +190,7 @@ static cudaError_t dispatch(int kv, int desc, const Args& a) {
 }
 
 static cudaError_t by_dtype(int dtype, int kv, int desc, int c, Args a) {
-  if (c < 1 || (c & (c - 1)) || c > (1 << kMaxLogC)) return cudaErrorInvalidValue;
+  if (c < 1 || (c & (c - 1)) || c > (1 << kMaxLogR)) return cudaErrorInvalidValue;
   a.logc = ilog2(c);
   if (dtype == kInt32) return dispatch<int32_t>(kv, desc, a);
   if (dtype == kFloat32) return dispatch<float>(kv, desc, a);

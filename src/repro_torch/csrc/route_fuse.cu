@@ -46,9 +46,17 @@
 // whole group on one CTA (one SM of 132) through a bitonic network of
 // log2(Np)(log2(Np)+1)/2 barrier-separated stages over shared memory; here
 // every stage runs on as many CTAs as the group has tiles, each a short
-// chain, and the launches' own latency is most of the time. The wrapper
-// keeps the first version's refusals (Np <= 16384, E*Np < 2^31), which the
-// JAX kernel's compound key and VMEM set, though nothing here needs them.
+// chain, and the launches' own latency is most of the time.
+//
+// Sizes. The wrapper refuses only E*Np >= 2^31, as the JAX kernel asserts
+// (its compound key e*Np + p is int32); a group of any T below that runs.
+// The top-k and scatter launches put their G x tiles CTAs on the grid's x
+// (a flat index, at most 2^31 - 1; y stops at 65535, which a group of more
+// than ~1.05M tokens would pass). The pair index p < T*k and the sorted
+// index i < N stay below Np, so int32 holds them; every offset into the
+// (G, N) lanes and the (G, E, tiles) counts is taken in 64 bits. The scan
+// is one CTA of 1024 threads a group over E*tiles counts, each thread a
+// contiguous share: right at any size, its time linear in E*tiles.
 #include "flims.cuh"
 
 // Clock counters for scripts/k7_profile.py, compiled in only under
@@ -107,8 +115,8 @@ template <int PER>
 __global__ void __launch_bounds__(1024)
     topk_kernel(const float* __restrict__ logits, int T, int E, int k, int logL, int tiles,
                 int32_t* __restrict__ pe, float* __restrict__ pw, int32_t* __restrict__ cnt) {
-  const long long g = blockIdx.x;
-  const int tl = blockIdx.y, L = 1 << logL;
+  const long long g = blockIdx.x / tiles;
+  const int tl = (int)(blockIdx.x % tiles), L = 1 << logL;
   const int sub = threadIdx.x & (L - 1), grp = threadIdx.x >> logL;
   K7_CLOCKS;
   K7_OPEN(0);
@@ -230,8 +238,8 @@ __global__ void __launch_bounds__(32)
                    int32_t* __restrict__ keep) {
   K7_CLOCKS;
   K7_OPEN(2);
-  const long long g = blockIdx.x;
-  const int tl = blockIdx.y, lane = threadIdx.x;
+  const long long g = blockIdx.x / tiles;
+  const int tl = (int)(blockIdx.x % tiles), lane = threadIdx.x;
   const long long N = (long long)T * k;
   // run[e * tiles]: the sorted index of the next pair of expert e in this tile
   int32_t* run = cnt + g * E * tiles + tl;
@@ -270,7 +278,7 @@ template <int PER>
 static cudaError_t topk(const float* logits, int G, int T, int E, int k, int logL, int tiles,
                         int32_t* pe, float* pw, int32_t* cnt, cudaStream_t st) {
   const int threads = ((kTile << logL) + 31) / 32 * 32;
-  topk_kernel<PER><<<dim3(G, tiles), threads, 0, st>>>(logits, T, E, k, logL, tiles, pe, pw,
+  topk_kernel<PER><<<(unsigned)((long long)G * tiles), threads, 0, st>>>(logits, T, E, k, logL, tiles, pe, pw,
                                                        cnt);
   return cudaGetLastError();
 }
@@ -290,6 +298,7 @@ extern "C" int flims_moe_route(const void* logits, int G, int T, int E, int k, i
   if (G <= 0 || T <= 0 || k < 1 || k > E || cap < 1) return cudaErrorInvalidValue;
   const int tiles = (T + kTile - 1) / kTile;
   const long long N = (long long)T * k;
+  if ((long long)G * tiles > 0x7fffffffll || N > 0x7fffffffll) return cudaErrorInvalidValue;
   int32_t* pe = (int32_t*)scratch;
   float* pw = (float*)(pe + G * N);
   int32_t* cnt = (int32_t*)(pw + G * N);
@@ -307,7 +316,7 @@ extern "C" int flims_moe_route(const void* logits, int G, int T, int E, int k, i
   scan_kernel<<<G, kScanThreads, 0, st>>>(cnt, first, E, tiles);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  scatter_kernel<<<dim3(G, tiles), 32, 0, st>>>(
+  scatter_kernel<<<(unsigned)((long long)G * tiles), 32, 0, st>>>(
       pe, pw, cnt, first, T, E, k, cap, tiles, (int32_t*)experts, (int32_t*)tokens,
       (int32_t*)perm, (float*)weights, (int32_t*)slabs, (int32_t*)keep);
   return cudaGetLastError();

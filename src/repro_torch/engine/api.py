@@ -665,8 +665,9 @@ def moe_route(logits, k: int, capacity: int, *, values=None,
     semantics). Returns a :class:`RouteResult` of (G, T*k) lanes in sorted
     pair order: scattering ``x[tokens]`` to ``slabs`` builds the (E,
     capacity, d) expert slabs, and ``weights * keep`` are the combine
-    coefficients. The ``fused`` variant is one K7 launch per call (one CTA
-    per group); ``torch`` is the unfused reference pipeline. ``values=``
+    coefficients. The ``fused`` variant is one K7 call (its launches spread
+    each group over the card); ``torch`` is the unfused reference
+    pipeline. ``values=``
     (tensors shaped like one logit column, (G, T)) gathers a payload by
     ``tokens`` and returns ``(RouteResult, routed_values)``.
     """

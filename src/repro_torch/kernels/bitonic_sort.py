@@ -12,7 +12,10 @@ device (how ``chip_smoke.py`` holds the kernel against it).
 The CUDA kernel runs the same network in registers: a warp holds 256 keys
 (8 a thread), rows up to 256 wide sort within one warp with shuffles and
 no barrier, wider rows span a CTA and take their stages at d >= 256
-through shared memory (:func:`rows_smem`, :func:`resident_ctas`).
+through shared memory (:func:`rows_smem`, :func:`resident_ctas`). Rows
+wider than ``ROW_TILE`` sort in tiles of ``ROW_TILE`` keys a CTA, with the
+network's stages at d >= ``ROW_TILE`` as passes over device memory: the
+same network, so any power-of-two width runs, as in the JAX kernel.
 """
 from __future__ import annotations
 
@@ -22,8 +25,9 @@ from repro_torch import obs
 from repro_torch.kernels import _build
 from repro_torch.kernels.flims_merge import xla_max, xla_min
 
-#: rows above this width do not fit one CTA (1024 threads of 16 keys)
-MAX_CHUNK = 16384
+#: rows up to this width sort a row a CTA (1024 threads of 16 keys); wider
+#: rows in tiles of it, their wider stages over device memory
+ROW_TILE = 16384
 
 
 def _stage_masks(c: int, k: int, d: int, device):
@@ -83,8 +87,6 @@ def _check(name: str, x: torch.Tensor) -> None:
 
 def _launch(name, k, r, descending):
     m, c = k.shape
-    if c > MAX_CHUNK:
-        raise _build.KernelError(f"{name}: rows of {c} > {MAX_CHUNK} keys")
     _build.check_cuda(name, k, r)
     code = _build.dtype_code(name, k.dtype)
     ok = torch.empty_like(k)
@@ -99,7 +101,8 @@ def _launch(name, k, r, descending):
 def rows_smem(dtype, kv: bool, descending: bool, c: int) -> int:
     """Shared-memory bytes of one CTA of the CUDA kernel for rows of ``c``
     keys, read from the compiled kernel on the card: 0 up to c = 256, the
-    row (4 bytes a key, 8 with ranks) above."""
+    row (4 bytes a key, 8 with ranks) above, the ``ROW_TILE`` tile past
+    it."""
     code = _build.dtype_code("sort_chunks", dtype)
     nbytes = _build.library().flims_bitonic_rows_smem(
         code, int(kv), int(descending), c)

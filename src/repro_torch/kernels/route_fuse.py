@@ -49,12 +49,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic_sort import _bitonic_rows_kv
 
 __all__ = ["moe_route", "moe_route_plain", "moe_route_torch", "topk_softmax",
-           "untwist", "route_backward", "RouteFn", "MAX_PAIRS"]
+           "untwist", "route_backward", "RouteFn"]
 
-#: the most (padded) pairs a token group may have on the card, the limit of
-#: the JAX kernel's VMEM-resident sort (a larger group needs the multi-CTA
-#: K7 of ROADMAP queue 2)
-MAX_PAIRS = 16384
 #: tokens per tile of the card's top-k and scatter launches (``kTile`` of
 #: ``csrc/route_fuse.cu``)
 ROUTE_TILE = 16
@@ -79,6 +75,8 @@ def _geometry(logits, k: int, capacity: int):
                          f"capacity={capacity} < 1")
     N = T * k
     Np = next_pow2(max(N, 8))
+    # the one limit of the JAX kernel (its compound key e * Np + p is
+    # int32); the card's launches take any group below it
     if E * Np >= 2 ** 31:
         raise _build.KernelError(
             f"moe_route: the compound key e*{Np}+p overflows int32 at "
@@ -87,11 +85,6 @@ def _geometry(logits, k: int, capacity: int):
 
 
 def _route_cuda(logits, k, cap, G, T, E, N, Np):
-    if Np > MAX_PAIRS:
-        raise _build.KernelError(
-            f"moe_route: T*k = {N} pairs pad to Np = {Np}, whose keys and "
-            f"weights take {Np * 8} bytes of shared memory; one CTA holds "
-            f"Np <= {MAX_PAIRS}; shrink the token group")
     logits = logits.contiguous()
     _build.check_cuda("moe_route", logits)
     dev = logits.device
@@ -193,9 +186,9 @@ class RouteFn(torch.autograd.Function):
 def moe_route(logits: torch.Tensor, k: int, capacity: int):
     """Fused routing of (G, T, E) float32 router logits (counterpart of
     ``moe_route_pallas``). Returns, each (G, T*k) in stable sorted pair
-    order: ``(experts, tokens, perm, weights, slabs, keep)``. On the card
-    T*k pads to at most ``MAX_PAIRS``. Differentiable in the weights
-    lane."""
+    order: ``(experts, tokens, perm, weights, slabs, keep)``. Any group
+    whose compound key fits int32 (``E * next_pow2(T*k) < 2^31``, as in the
+    JAX kernel) runs. Differentiable in the weights lane."""
     return RouteFn.apply(logits, k, capacity, logits.is_cuda)
 
 

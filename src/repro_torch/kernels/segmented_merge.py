@@ -14,7 +14,11 @@ Counterpart of ``repro/kernels/segmented_merge.py``.
   to the static power-of-two ``cap`` (``csrc/segment_sort.cu``: K1's
   register network, one segment a warp up to cap 256 and a CTA above; a
   NaN-free segment sorts ``next_pow2(len)`` lanes, which leave the same
-  valid prefix, and a segment holding a NaN the whole cap).
+  valid prefix, and a segment holding a NaN the whole cap). Past
+  ``MAX_CAP`` / ``MAX_CAP_KV`` the card takes the JAX wrapper's own route,
+  the plain version's: ``padded_bank``, K1's launch over the whole cap (its
+  network past shared memory), ``unpad_bank``; the launch counts as K5's
+  or K6's.
 - ``segment_sort_two_phase`` / ``segment_argsort_two_phase`` are K1 over
   every segment's ``chunk``-wide rows, then a ``tree_cuda`` schedule over
   each segment's ``cap // chunk`` runs (K4, or K3 at one level).
@@ -36,11 +40,10 @@ from repro_torch.core.flims import next_pow2
 from repro_torch.core.lanes import INVALID_RANK, sentinel_for
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic_sort import (_bitonic_rows_desc,
-                                              _bitonic_rows_kv)
+                                              _bitonic_rows_kv, _launch)
 from repro_torch.kernels.flims_merge import (_corank_runs, block_size,
                                              bound_keys, merge_blocks_cuda,
                                              merge_blocks_plain)
-from repro_torch.kernels.merge_tree import MAX_SMEM
 
 __all__ = ["padded_bank", "unpad_bank", "segmented_merge_runs",
            "segmented_merge_runs_kv", "segmented_merge_runs_plain",
@@ -50,7 +53,8 @@ __all__ = ["padded_bank", "unpad_bank", "segmented_merge_runs",
            "segment_sort_two_phase", "segment_argsort_two_phase",
            "MAX_CAP", "MAX_CAP_KV", "_corank_runs"]
 
-#: the largest ``cap`` one CTA's shared memory holds: cap * 4 B of keys (K5)
+#: the largest ``cap`` sorted a segment a CTA: cap * 4 B of keys in one
+#: CTA's shared memory (K5); a larger cap sorts an (S, cap) bank with K1
 MAX_CAP = 32768
 #: ... and cap * 8 B of keys and ranks (K6, at 1024 threads of 16 lanes)
 MAX_CAP_KV = 16384
@@ -197,12 +201,6 @@ def _segment_geometry(name, keys, offsets, cap):
 
 
 def _segment_sort_cuda(name, keys, offsets, cap, kv, descending):
-    limit = MAX_CAP_KV if kv else MAX_CAP
-    if cap > limit:
-        raise _build.KernelError(
-            f"{name}: cap = {cap} needs {cap * (8 if kv else 4)} bytes of "
-            f"shared memory per CTA; the card's {MAX_SMEM} hold cap <= "
-            f"{limit}; use the two-phase variant")
     offsets = offsets.to(torch.int32).contiguous()
     _build.check_cuda(name, keys, offsets)
     code = _build.dtype_code(name, keys.dtype)
@@ -220,12 +218,14 @@ def _segment_sort(values, offsets, cap, cuda):
     S, N, cap = _segment_geometry("segment_sort", values, offsets, cap)
     if S <= 0 or N == 0:
         return values.new_zeros((N,))
-    if cuda:
+    if cuda and cap <= MAX_CAP:
         return _segment_sort_cuda("segment_sort", values, offsets, cap,
                                   False, True)[0]
     offsets = offsets.to(torch.int32)
-    return unpad_bank(_bitonic_rows_desc(padded_bank(values, offsets, cap)),
-                      offsets, N)
+    bank = padded_bank(values, offsets, cap)
+    out = _launch("segment_sort", bank, None, True)[0] if cuda \
+        else _bitonic_rows_desc(bank)
+    return unpad_bank(out, offsets, N)
 
 
 def _segment_sort_kv(keys, offsets, cap, descending, cuda):
@@ -233,13 +233,15 @@ def _segment_sort_kv(keys, offsets, cap, descending, cuda):
     if S <= 0 or N == 0:
         return keys.new_zeros((N,)), torch.zeros(N, dtype=torch.int32,
                                                  device=keys.device)
-    if cuda:
+    if cuda and cap <= MAX_CAP_KV:
         return _segment_sort_cuda("segment_sort_kv", keys, offsets, cap,
                                   True, descending)
     offsets = offsets.to(torch.int32)
     _, last = bound_keys(keys.dtype, descending)
-    ok, orr = _bitonic_rows_kv(padded_bank(keys, offsets, cap, fill=last),
-                               _rank_bank(offsets, cap), descending)
+    bank = padded_bank(keys, offsets, cap, fill=last)
+    ranks = _rank_bank(offsets, cap)
+    ok, orr = _launch("segment_sort_kv", bank, ranks, descending) if cuda \
+        else _bitonic_rows_kv(bank, ranks, descending)
     return unpad_bank(ok, offsets, N), unpad_bank(orr, offsets, N)
 
 
@@ -249,8 +251,7 @@ def segment_sort(values, offsets, *, cap: int = 0):
     (counterpart of ``segment_sort_pallas``): each segment padded to the
     power-of-two ``cap`` (default ``next_pow2(len(values))``) and run
     through the full bitonic network with XLA's max/min. ``cap`` must cover
-    the longest segment (``engine.segment_sort`` checks it); on the card it
-    is at most ``MAX_CAP``."""
+    the longest segment (``engine.segment_sort`` checks it)."""
     return _segment_sort(values, offsets, cap, values.is_cuda)
 
 
@@ -264,8 +265,7 @@ def segment_sort_plain(values, offsets, *, cap: int = 0):
 def segment_sort_kv(keys, offsets, *, cap: int = 0, descending: bool = True):
     """Fused stable KV segment sort in one K6 launch (counterpart of
     ``segment_sort_kv_pallas``). Returns ``(sorted_keys, perm)`` flat over
-    the ragged batch; ``perm`` holds segment-local source positions. On the
-    card ``cap`` is at most ``MAX_CAP_KV``."""
+    the ragged batch; ``perm`` holds segment-local source positions."""
     return _segment_sort_kv(keys, offsets, cap, descending, keys.is_cuda)
 
 

@@ -283,8 +283,6 @@ class MeshLayout:
     ``opt_shardings`` are the checkpoint manager's ``shardings``."""
 
     def __init__(self, cfg, tcfg, mesh, sc: ShardingConfig, model=None):
-        if cfg.arch_kind == "encdec":
-            raise NotImplementedError("the mesh step trains decoders")
         self.cfg, self.tcfg, self.mesh, self.sc = cfg, tcfg, mesh, sc
         self.model = model or build_model(cfg)
         full = self.model.init(torch.Generator(), device="meta")

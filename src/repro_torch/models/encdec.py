@@ -22,7 +22,8 @@ from repro_torch.models.config import torch_dtype
 from repro_torch.models.layers import (embed_init, mlp_geglu, mlp_init,
                                        rmsnorm, rmsnorm_init)
 from repro_torch.models.transformer import (_at, _attn_cache_init, _bcast,
-                                            _stack, _stacked, remat)
+                                            _stack, _stacked, _with_paths,
+                                            remat)
 
 
 def _enc_block_init(gen, cfg, device):
@@ -43,20 +44,29 @@ def _dec_block_init(gen, cfg, device):
             "mlp_norm": rmsnorm_init(cfg.d_model, dtype, device)}
 
 
-def encdec_init(gen: torch.Generator, cfg, device="cuda") -> Dict[str, Any]:
+def encdec_init(gen: torch.Generator, cfg, device="cuda",
+                cut=None) -> Dict[str, Any]:
     """Random weights from ``gen`` (a generator on ``device``): the token
     embedding (tied head), ``enc_blocks`` and ``dec_blocks`` stacked over
-    their layers, and the two final norms."""
+    their layers, and the two final norms. ``cut`` is
+    ``transformer.decoder_init``'s: each leaf cut to a rank's block as it
+    is drawn."""
     dtype = torch_dtype(cfg.param_dtype)
     n_enc = cfg.n_encoder_layers or cfg.n_layers
+    c = (lambda path, t: t) if cut is None else \
+        (lambda path, t: _with_paths(lambda p, x: cut(path + p, x, None),
+                                     t))
     return {
-        "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
+        "embed": c(("embed",), embed_init(gen, cfg.vocab_size, cfg.d_model,
+                                          dtype, device)),
         "enc_blocks": _stacked(lambda: _enc_block_init(gen, cfg, device),
-                               n_enc),
+                               n_enc, cut, ("enc_blocks",)),
         "dec_blocks": _stacked(lambda: _dec_block_init(gen, cfg, device),
-                               cfg.n_layers),
-        "enc_norm": rmsnorm_init(cfg.d_model, dtype, device),
-        "final_norm": rmsnorm_init(cfg.d_model, dtype, device),
+                               cfg.n_layers, cut, ("dec_blocks",)),
+        "enc_norm": c(("enc_norm",), rmsnorm_init(cfg.d_model, dtype,
+                                                  device)),
+        "final_norm": c(("final_norm",), rmsnorm_init(cfg.d_model, dtype,
+                                                      device)),
     }
 
 

@@ -144,8 +144,8 @@ def _build_decoder(cfg: ModelConfig) -> SimpleNamespace:
 
 
 def _build_encdec(cfg: ModelConfig) -> SimpleNamespace:
-    def init(gen: torch.Generator, device=None):
-        return ed.encdec_init(gen, cfg, device=device or gen.device)
+    def init(gen: torch.Generator, device=None, cut=None):
+        return ed.encdec_init(gen, cfg, device=device or gen.device, cut=cut)
 
     def forward(params, batch):
         """Decoder hidden states (B, St, d) over the encoded frames."""

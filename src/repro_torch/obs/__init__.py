@@ -33,13 +33,13 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 from repro_torch.obs.metrics import Registry, percentile, plain
 
 __all__ = [
     "enable", "disable", "enabled", "blocking", "configure", "inc", "gauge",
-    "event", "span", "kernel_scope", "scoped", "snapshot", "report",
+    "observe", "event", "on", "span", "kernel_scope", "scoped", "snapshot", "report",
     "reset", "registry", "percentile", "plain",
 ]
 
@@ -88,9 +88,22 @@ def gauge(name: str, value) -> None:
         registry.set_gauge(name, value)
 
 
+def observe(name: str, seconds: float) -> None:
+    """One sample of ``seconds`` into the ``name`` timer."""
+    if _enabled:
+        registry.observe(name, seconds)
+
+
 def event(kind: str, **data) -> None:
     if _enabled:
         registry.event(kind, **data)
+
+
+def on(kind: str, fn: Callable) -> Callable:
+    """Subscribe ``fn(event_dict)`` to events of ``kind`` ('*' for all).
+    Subscriptions are independent of the enabled flag (events only fire
+    while enabled)."""
+    return registry.on(kind, fn)
 
 
 def kernel_scope(name: str):

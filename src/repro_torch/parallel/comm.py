@@ -42,6 +42,16 @@ to whatever gloo accepts, and counted in :func:`host_staged_bytes`, by
 the kind of collective that staged it in
 :func:`host_staged_bytes_by_kind`, and in the ``dist.host_staged_bytes``
 counter of ``obs`` (both directions). ``bool`` tensors travel as ``uint8``.
+:func:`wire_bytes_by_kind` counts the same bytes, what each collective
+hands to the transport and gets back, on any device and backend: on CUDA
+tensors under ``gloo`` the two are equal.
+
+A mesh whose ``backend`` is :data:`COUNTING` (``launch/op_cost.py``'s
+``counting_mesh``: rank 0 of a mesh with no process behind it) sends
+nothing: each collective counts its wire bytes as above and returns a
+tensor of the shape and dtype the real one returns (every peer's part a
+copy of this rank's), so a dry run can walk a step of the production
+mesh from one process.
 """
 from __future__ import annotations
 
@@ -53,10 +63,15 @@ from repro_torch import obs
 __all__ = ["all_to_all", "all_gather", "psum", "pmax", "broadcast",
            "reduce_scatter", "ppermute", "all_gather_dim", "psum_exit",
            "psum_entry", "agree_flag", "axis_index",
-           "axis_size", "host_staged_bytes", "host_staged_bytes_by_kind"]
+           "axis_size", "host_staged_bytes", "host_staged_bytes_by_kind",
+           "wire_bytes_by_kind", "COUNTING"]
+
+#: the backend name of a counting mesh: collectives count and send nothing
+COUNTING = "count"
 
 _staged_bytes = 0
 _staged_by_kind: dict = {}
+_wire_by_kind: dict = {}
 
 
 def host_staged_bytes() -> int:
@@ -69,6 +84,17 @@ def host_staged_bytes_by_kind() -> dict:
     """:func:`host_staged_bytes` by the collective that staged them
     (``all_gather``, ``psum``, ``reduce_scatter``, ...)."""
     return dict(_staged_by_kind)
+
+
+def wire_bytes_by_kind() -> dict:
+    """Bytes each kind of collective handed to the transport and got back
+    in this process so far (both directions), on any device."""
+    return dict(_wire_by_kind)
+
+
+def _wire(kind: str, x: torch.Tensor) -> None:
+    _wire_by_kind[kind] = _wire_by_kind.get(kind, 0) + \
+        x.numel() * x.element_size()
 
 
 def _count(kind: str, n: int) -> None:
@@ -93,6 +119,7 @@ def _to_wire(mesh, x: torch.Tensor, kind: str) -> torch.Tensor:
     for nccl; bool as uint8; contiguous."""
     if x.dtype == torch.bool:
         x = x.to(torch.uint8)
+    _wire(kind, x)
     if mesh.backend == "gloo" and x.is_cuda:
         _count(kind, x.numel() * x.element_size())
         x = x.to("cpu")
@@ -103,6 +130,7 @@ def _to_wire(mesh, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 def _from_wire(y: torch.Tensor, like: torch.Tensor,
                kind: str) -> torch.Tensor:
+    _wire(kind, y)
     if y.device != like.device:
         if like.is_cuda and not y.is_cuda:
             _count(kind, y.numel() * y.element_size())
@@ -132,6 +160,8 @@ def _all_to_all(x, axis, mesh, kind):
     if P == 1:
         return x.clone()
     w = _to_wire(mesh, x, kind)
+    if mesh.backend == COUNTING:
+        return _from_wire(w.clone(), x, kind)
     out = torch.empty_like(w)
     dist.all_to_all_single(out, w, group=mesh.group(axis))
     return _from_wire(out, x, kind)
@@ -147,6 +177,8 @@ def _all_gather(x, axis, mesh, kind):
     if P == 1:
         return x[None].clone()
     w = _to_wire(mesh, x, kind)
+    if mesh.backend == COUNTING:
+        return _from_wire(torch.stack([w] * P), x, kind)
     parts = [torch.empty_like(w) for _ in range(P)]
     dist.all_gather(parts, w, group=mesh.group(axis))
     return _from_wire(torch.stack(parts), x, kind)
@@ -171,7 +203,8 @@ def pmax(x: torch.Tensor, axis: str, mesh=None) -> torch.Tensor:
         return all_gather(x, axis, mesh).any(0)
     w = _to_wire(mesh, x, "pmax")
     w = w.clone() if w.data_ptr() == x.data_ptr() else w
-    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=mesh.group(axis))
+    if mesh.backend != COUNTING:
+        dist.all_reduce(w, op=dist.ReduceOp.MAX, group=mesh.group(axis))
     return _from_wire(w, x, "pmax")
 
 
@@ -182,10 +215,11 @@ def broadcast(x: torch.Tensor, axis: str, src: int = 0,
     mesh = _mesh(mesh)
     if mesh.axis_size(axis) == 1:
         return x.clone()
-    g = mesh.group(axis)
     w = _to_wire(mesh, x, "broadcast")
     w = w.clone() if w.data_ptr() == x.data_ptr() else w
-    dist.broadcast(w, src=dist.get_global_rank(g, src), group=g)
+    if mesh.backend != COUNTING:
+        g = mesh.group(axis)
+        dist.broadcast(w, src=dist.get_global_rank(g, src), group=g)
     return _from_wire(w, x, "broadcast")
 
 
@@ -222,6 +256,14 @@ def _permute(x: torch.Tensor, axis: str, perm, mesh) -> torch.Tensor:
         raise ValueError(f"ppermute: {perm} is not a permutation")
     if dst and src and dst[0] == me:
         return x.clone()
+    if mesh.backend == COUNTING:
+        if dst:
+            _to_wire(mesh, x, "ppermute")
+        if not src:
+            return torch.zeros_like(x)
+        w = _to_wire(mesh, x[:0], "ppermute")
+        return _from_wire(torch.empty(x.shape, dtype=w.dtype,
+                                      device=w.device), x, "ppermute")
     g = mesh.group(axis)
     ops, w, buf = [], None, None
     if dst:

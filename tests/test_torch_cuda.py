@@ -220,18 +220,22 @@ def test_k1_matches_plain(card, dtype, c):
 
 
 @pytest.mark.cuda
-def test_k1_refuses_past_max_chunk(card):
-    """Rows wider than MAX_CHUNK raise ``KernelError`` before any launch."""
-    from repro_torch.kernels import KernelError, launch_counts
-    c = 2 * TB.MAX_CHUNK
-    k = torch.zeros(2, c, device=card)
-    r = torch.zeros(2, c, dtype=torch.int32, device=card)
-    before = dict(launch_counts())
-    with pytest.raises(KernelError, match=f"rows of {c}"):
-        TB.sort_chunks(k)
-    with pytest.raises(KernelError, match=f"rows of {c}"):
-        TB.sort_chunks_kv(k, r)
-    assert dict(launch_counts()) == before
+@pytest.mark.parametrize("c", [2 * TB.ROW_TILE, 4 * TB.ROW_TILE])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_k1_rows_past_tile_match_plain(card, dtype, c):
+    """K1 / K1kv at rows wider than one CTA's tile (32768 and 65536 keys:
+    tiles of 16384 in shared memory, the wider stages over device memory)
+    against their plain versions bit for bit, on duplicate-heavy rows and
+    rows holding NaNs of two payloads, +0.0 and -0.0; one row and three."""
+    kinds = ("dup", "nan") if dtype == torch.float32 else ("dup", "random")
+    for m in (1, 3):
+        r = torch.arange(m * c, dtype=torch.int32, device=card).reshape(m, c)
+        r = torch.where(r % 7 == 3, torch.iinfo(torch.int32).max, r)
+        for kind in kinds:
+            k = k1_keys(m * c, dtype, kind, card).reshape(m, c)
+            _same_on_card(TB.sort_chunks, k)
+            for d in (True, False):
+                _same_on_card(TB.sort_chunks_kv, k, r, descending=d)
 
 
 # (run lengths, group, w, block_out) of K4 under forced CTA counts: runs at
@@ -573,22 +577,67 @@ def test_k7_int_min_logits_match_plain(card, G, n_tok, E, k, cap, per_row):
 
 
 @pytest.mark.cuda
-def test_shared_memory_limits_raise(card):
-    """Above one CTA's shared memory the wrappers refuse, with the limit in
-    the message, before any launch: K5 cap > 32768, K6 cap > 16384, K7
-    T*k padding past 16384 pairs."""
+def test_past_shared_memory_shapes_match_plain(card):
+    """Where one CTA's shared memory ends, the wrappers return their plain
+    versions' results (they refused these shapes before): K7 at 4097 x 8
+    tokens k 4 (32768 padded pairs), K5 at cap 2^17, K6 at cap 2^15 and
+    2^16 (an (S, cap) bank through K1's network past its tile), on
+    segments of edge lengths holding NaNs, +0.0 / -0.0 and ties."""
+    lg = torch.round(torch.randn(1, 4097, 8, device=card) * 2) / 2
+    x = torch.where(lg == 0, -0.0, lg)
+    _route_same(TR.moe_route(x, 4, 10), TR.moe_route_plain(x, 4, 10),
+                "moe_route (1, 4097, 8) k=4")
+    for kind in ("mixed", "nan", "zeros"):
+        for cap in (1 << 15, 1 << 16, 1 << 17):
+            lens = [3, 0, 1, 257, cap // 2 + 1, cap - 1, cap, 4099]
+            k, offs = seg_keys(lens, kind, torch.float32, card)
+            if cap > TS.MAX_CAP:
+                _same_on_card(TS.segment_sort, k, offs, cap=cap)
+            if cap <= 1 << 16:
+                for d in (True, False):
+                    _same_on_card(TS.segment_sort_kv, k, offs, cap=cap,
+                                  descending=d)
+    k, offs = seg_keys([5, 1 << 17, 70000], "mixed", torch.int32, card)
+    _same_on_card(TS.segment_sort, k, offs, cap=1 << 17)
+    _same_on_card(TS.segment_sort_kv, k, offs, cap=1 << 17)
+
+
+@pytest.mark.cuda
+def test_open_refusals_raise(card):
+    """Parameters the JAX kernels take and the port's refuse (ROADMAP queue
+    3, open): K2 / K3 at w 2048 (the CUDA kernels take w up to 1024) and
+    K8 at fan-in 32 (at most 16, its plain version too). K4's and K9's
+    refusals are ``test_k4_refuses_before_launch`` and
+    ``test_lane_merge_refuses_before_launch``."""
     from repro_torch.kernels import KernelError
-    v = torch.zeros(70000, device=card)
-    offs = torch.tensor([0, 70000], dtype=torch.int32, device=card)
-    with pytest.raises(KernelError, match="cap <= 32768"):
-        TS.segment_sort(v, offs, cap=1 << 17)
-    with pytest.raises(KernelError, match="cap <= 16384"):
-        TS.segment_sort_kv(v, offs, cap=1 << 15)
-    with pytest.raises(KernelError, match="Np <= 16384"):
-        TR.moe_route(torch.zeros(1, 4097, 8, device=card), 4, 10)
-    TS.segment_sort(v[:32768], torch.tensor([0, 32768], dtype=torch.int32,
-                                            device=card), cap=32768)
-    TR.moe_route(torch.zeros(1, 4096, 8, device=card), 4, 10)
+    a = torch.arange(4096, 0, -1, device=card).float()
+    with pytest.raises(KernelError):
+        TF.flims_merge(a, a, w=2048, block_out=8192)
+    z = torch.zeros(1, dtype=torch.int32, device=card)
+    n = torch.full((1,), 4096, dtype=torch.int32, device=card)
+    with pytest.raises(KernelError):
+        TS.segmented_merge_runs(a, a, z, n, z, n, n_out=8192, w=2048,
+                                block_out=8192)
+    with pytest.raises(ValueError, match="fan_in"):
+        TK8.stream_merge_runs(torch.zeros(32 * 128, device=card), runs=32,
+                              run_len=128, fan_in=32, w=32, block_out=4096)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,n_tok,E,k,cap", [
+    (1, 1 << 21, 8, 1, 1 << 18), (1, 65536, 64, 6, 6144),
+    (2, 1 << 17, 4, 2, 1 << 16)])
+def test_route_kernel_past_grid_y_matches_plain(card, G, n_tok, E, k, cap):
+    """K7 on groups of up to 2^21 tokens (131072 tiles of 16, past the
+    65535 a grid's y holds) against ``moe_route_plain`` and
+    ``moe_route_torch``: integer lanes bit for bit, weights within
+    ROUTE_WEIGHT_ULPS."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(G * n_tok + E)
+    x = torch.randn(G, n_tok, E, generator=gen, device=card)
+    got = TR.moe_route(x, k, cap)
+    _route_same(got, TR.moe_route_plain(x, k, cap), "plain")
+    _route_same(got, TR.moe_route_torch(x, k, cap), "torch")
 
 
 @pytest.mark.cuda

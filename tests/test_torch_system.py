@@ -4,9 +4,8 @@ against the JAX package's.
 
 - ``test_training_reduces_loss``, ``test_resume_is_exact`` (rtol 1e-4, as
   the JAX test), ``test_data_pipeline_deterministic`` and
-  ``test_serve_generates`` on ``device="cpu"`` (the dry-run test waits
-  for ``launch/dryrun.py``, ROADMAP queue 1 item 4.5); the train and serve
-  CLIs;
+  ``test_serve_generates`` on ``device="cpu"`` (the dry-run test's mirror
+  is ``tests/test_torch_dryrun.py``); the train and serve CLIs;
 - ``pack_by_length`` bit for bit against JAX (FLiMS argsort, ties in input
   order); ``make_batch_specs`` and ``abstract_state`` / ``abstract_cache``:
   the JAX shapes and dtypes on the ``meta`` device, leaf paths as both
