@@ -279,6 +279,8 @@ def _import_port():
 # --------------------------------------------------------------------------
 
 def bits(t: torch.Tensor) -> torch.Tensor:
+    if t.dtype in (torch.float16, torch.bfloat16):
+        return t.view(torch.int16)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -298,6 +300,10 @@ def check_same(what: str, got, exp) -> float:
     exp = exp if isinstance(exp, tuple) else (exp,)
     err = 0.0
     for g, e in zip(got, exp):
+        if g is None or e is None:       # a form without its rank lane
+            if g is not None or e is not None:
+                raise AssertionError(f"{what}: a lane on one side only")
+            continue
         if g.shape != e.shape or g.dtype != e.dtype:
             raise AssertionError(f"{what}: {g.shape}/{g.dtype} vs "
                                  f"{e.shape}/{e.dtype}")
@@ -395,9 +401,11 @@ def phase_build(_build):
     log = (lib.parent / "build.log").read_text()
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     spills = sum(int(m) for m in re.findall(r"(\d+) bytes spill", log))
+    per_src = dict(re.findall(r"^== (\S+) \(([\d.]+) s\)", log, re.M))
     print(f"build: {lib} in {time.perf_counter() - t0:.1f} s; ptxas: "
           f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers, "
-          f"{spills} bytes of spills", flush=True)
+          f"{spills} bytes of spills; seconds a source: "
+          + json.dumps(per_src), flush=True)
 
 
 def phase_main_path(engine, kernels, gen):
@@ -4250,6 +4258,347 @@ def phase_wide(engine, kernels, k1, slice2, gen):
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# the parameters past the fast kernels: every key dtype, w, level count and
+# fan-in the JAX kernels take
+# --------------------------------------------------------------------------
+
+N_PARAM = 1 << 22              # keys of the repaired parameters' paths
+N_PARAM_ROW = 1 << 18          # and of their timed rows (the plain versions
+                               # of the deepest trees take seconds there)
+PARAM_RUNS = 64                # ragged runs of the merge_runs paths
+PARAM_DTYPES = (torch.bfloat16, torch.float16, torch.int16, torch.int8)
+PARAM_TOPK = (8, 163840, 64)   # rows, width, k of engine.topk on each dtype
+
+
+def as_dtype(x: torch.Tensor, dt) -> torch.Tensor:
+    """float32 keys as ``dt``: floats by value (NaNs and +-0 kept),
+    integers scaled onto the dtype's range with its min and max."""
+    if dt.is_floating_point:
+        return x.to(dt)
+    info = torch.iinfo(dt)
+    y = torch.nan_to_num(x * 16, nan=info.max, posinf=info.max,
+                         neginf=info.min)
+    return y.clamp(info.min, info.max).round().to(dt)
+
+
+def _desc(x: torch.Tensor) -> torch.Tensor:
+    return torch.sort(x, descending=True).values
+
+
+def _param_paths(engine, xt, runs, offs):
+    """(name, the engine call, its reference call, the wrapper it must
+    launch) of every repaired parameter: explicit plans past the fast
+    kernels' w, levels and fan-in."""
+    from repro_torch.engine.planner import Plan
+    half = xt.shape[0] // 2
+    a, b = _desc(xt[:half]), _desc(xt[half:])
+    mr = lambda plan: (lambda: engine.merge_runs(runs, offs, plan=plan))
+    ref_runs = lambda: _desc(runs)
+    return [
+        ("merge w=2048", lambda: engine.merge(a, b, plan=Plan(
+            "cuda", w=2048, block_out=4096)), lambda: _desc(xt),
+         "flims_merge"),
+        ("merge_runs w=2048", mr(Plan("tree_cuda", w=2048, block_out=4096)),
+         ref_runs, "segmented_merge_runs"),
+        ("merge_runs L=4", mr(Plan("tree_cuda", w=32, block_out=1024,
+                                   levels=4)), ref_runs, "merge_tree_runs"),
+        ("merge_runs L=5", mr(Plan("tree_cuda", w=32, block_out=1024,
+                                   levels=5)), ref_runs, "merge_tree_runs"),
+        ("merge_runs w=4", mr(Plan("tree_cuda", w=4, block_out=1024,
+                                   levels=2)), ref_runs, "merge_tree_runs"),
+        ("merge_runs w=256", mr(Plan("tree_cuda", w=256, block_out=1024,
+                                     levels=2)), ref_runs, "merge_tree_runs"),
+        ("external_sort fan_in=32", lambda: engine.external_sort(
+            xt, tile_elems=1 << 16, fan_in=32), lambda: _desc(xt),
+         "stream_merge_runs"),
+        ("external_sort fan_in=32 w=256", lambda: engine.external_sort(
+            xt, tile_elems=1 << 16, fan_in=32, plan=Plan("stream_cuda",
+                                                         w=256)),
+         lambda: _desc(xt), "stream_merge_runs"),
+        ("merge_runs tree_vmapped w=256", mr(Plan("tree_vmapped", w=256)),
+         ref_runs, "lane_merge"),
+    ]
+
+
+def _dtype_paths(engine, x, offs):
+    """``engine.sort`` / ``argsort`` / ``segment_sort`` / ``merge`` /
+    ``topk`` on keys ``x`` of a narrow dtype under the heuristic plans (the
+    kernels' variants since KERNEL_DTYPES lists the dtype, ``flims`` for
+    ``topk``), each with its reference: ``{op: (call, reference call)}``,
+    the ``torch`` variant, or for ``merge`` one ``torch.sort`` (the keys
+    hold no NaN and no -0, so every merge gives its bits; the ``banked``
+    reference merge is a Python loop of cycles)."""
+    half = x.shape[0] // 2
+    a, b = _desc(x[:half]), _desc(x[half:])
+    rows, width, k = PARAM_TOPK
+    lg = x[:rows * width].view(rows, width)
+    return {
+        "sort": (lambda: engine.sort(x),
+                 lambda: engine.sort(x, variant="torch")),
+        "argsort": (lambda: engine.argsort(x),
+                    lambda: engine.argsort(x, variant="torch")),
+        "segment_sort": (lambda: engine.segment_sort(x, offs),
+                         lambda: engine.segment_sort(x, offs,
+                                                     variant="torch")),
+        "merge": (lambda: engine.merge(a, b),
+                  lambda: _desc(torch.cat([a, b]))),
+        "topk": (lambda: engine.topk(lg, k),
+                 lambda: engine.topk(lg, k, variant="torch")),
+    }
+
+
+def _params_vs_plain(k1, k2, k3, k4, k56, k8, k9, gen):
+    """Every repaired parameter's kernel against its plain version on the
+    card, on NaN / +-0 keys at small shapes; returns the max abs error by
+    row name."""
+    dev = "cuda"
+    errs = {}
+    lens = [64, 0, 33, 300, 1, 128, 7, 190, 5, 64, 0, 0, 257, 3, 64, 40] * 2
+    buf, st, ln = sorted_runs(lens, gen, keys=nan_keys)
+    rk = torch.arange(buf.numel(), dtype=torch.int32, device=dev)
+    n = buf.numel()
+
+    def both(name, fn, *args, **kw):
+        err = check_same(f"{name} {kw}", fn(*args, **kw),
+                         plain_of(fn)(*args, **kw))
+        errs[name] = max(errs.get(name, 0.0), err)
+
+    a, b = _desc(nan_keys(8192, gen)), _desc(nan_keys(5001, gen))
+    ra = torch.arange(8192, dtype=torch.int32, device=dev)
+    rb = torch.arange(5001, dtype=torch.int32, device=dev)
+    both("flims_merge w=2048", k2.flims_merge, a, b, w=2048, block_out=4096)
+    both("flims_merge w=2048", k2.flims_merge_kv, a, ra, b, rb, w=2048,
+         block_out=8192, descending=False)
+    both("segmented_merge_runs w=2048", k3.segmented_merge_runs, buf, buf,
+         st[::2], ln[::2], st[1::2], ln[1::2], n_out=n - 5, w=2048,
+         block_out=2048)
+    both("segmented_merge_runs w=2048", k3.segmented_merge_runs_kv, buf, rk,
+         buf, rk, st[::2], ln[::2], st[1::2], ln[1::2], n_out=n, w=2048,
+         block_out=4096)
+    for name, group, w in (("merge_tree_runs L=4", 16, 32),
+                           ("merge_tree_runs L=5", 32, 8),
+                           ("merge_tree_runs w=4", 4, 4),
+                           ("merge_tree_runs w=256", 4, 256)):
+        both(name, k4.merge_tree_runs, buf, st, ln, group=group,
+             n_out=n - 9, w=w, block_out=512)
+        both(name, k4.merge_tree_runs_kv, buf, rk, st, ln, group=group,
+             n_out=n, w=w, block_out=256, descending=False)
+    u = torch.cat([_desc(nan_keys(128, gen)) for _ in range(64)])
+    ru = torch.arange(u.numel(), dtype=torch.int32, device=dev)
+    for name, kw in (("stream_merge_runs fan_in=32", dict(w=32)),
+                     ("stream_merge_runs fan_in=32 w=256", dict(w=128 * 2))):
+        w = kw["w"]
+        if w > 128:       # runs as long as w: 16 runs of 512, fan 16 and 32
+            v = torch.cat([_desc(nan_keys(512, gen)) for _ in range(32)])
+            rv = torch.arange(v.numel(), dtype=torch.int32, device=dev)
+            geo = dict(runs=32, run_len=512, fan_in=32, w=w, block_out=1024)
+        else:
+            v, rv = u, ru
+            geo = dict(runs=64, run_len=128, fan_in=32, w=w, block_out=1024)
+        both(name, k8.stream_merge_runs, v, out_slack=5, **geo)
+        both(name, k8.stream_merge_runs_kv, v, rv, descending=False, **geo)
+    lvl = torch.cat([_desc(nan_keys(300, gen)) for _ in range(8)])
+    for tie in ("b", "skew"):
+        both("lane_merge w=256", k9.lane_merge_level, lvl, None, 300, w=256,
+             tie=tie)
+    both("lane_merge w=256", k9.lane_merge_level, lvl,
+         torch.arange(lvl.numel(), dtype=torch.int32, device=dev), 300,
+         w=256)
+    seg_lens = [5, 0, 33, 7, 0, 90, 4, 17, 1, 256]
+    soff = torch.tensor([0] + seg_lens, device=dev).cumsum(0).to(torch.int32)
+    x0 = nan_keys(64 * 256, gen)
+    for dt in PARAM_DTYPES:
+        name = str(dt).replace("torch.", "")
+        x = as_dtype(x0, dt)
+        r = torch.arange(x.numel(), dtype=torch.int32, device=dev)
+        both(f"sort_chunks {name}", k1.sort_chunks, x.view(64, 256))
+        both(f"sort_chunks {name}", k1.sort_chunks_kv, x.view(64, 256),
+             r.view(64, 256))
+        xa, xb = _desc(x[:9000]), _desc(x[9000:])
+        both(f"flims_merge {name}", k2.flims_merge, xa, xb, w=64,
+             block_out=1024)
+        both(f"flims_merge {name}", k2.flims_merge_kv, xa, r[:9000], xb,
+             r[9000:], w=32, block_out=512)
+        # runs sorted in the dtype (a float NaN sorts where torch puts it,
+        # an integer one as the dtype's max), the kernels' precondition
+        xr, _, _ = sorted_runs(lens, gen, keys=lambda m, g: as_dtype(
+            nan_keys(m, g), dt))
+        both(f"segmented_merge_runs {name}", k3.segmented_merge_runs, xr, xr,
+             st[::2], ln[::2], st[1::2], ln[1::2], n_out=n, w=16,
+             block_out=128)
+        both(f"merge_tree_runs {name}", k4.merge_tree_runs, xr, st, ln,
+             group=4, n_out=n, w=32, block_out=256)
+        xs = x[:int(soff[-1])]
+        both(f"segment_sort {name}", k56.segment_sort, xs, soff, cap=256)
+        both(f"segment_sort_kv {name}", k56.segment_sort_kv, xs, soff,
+             cap=256, descending=False)
+        ud = torch.cat([_desc(as_dtype(nan_keys(128, gen), dt))
+                        for _ in range(64)])
+        both(f"stream_merge_runs {name}", k8.stream_merge_runs, ud,
+             runs=64, run_len=128, fan_in=4, w=32, block_out=512)
+        both(f"lane_merge {name}", k9.lane_merge_level, as_dtype(lvl, dt),
+             None, 300, w=32, tie="skew")
+    return errs
+
+
+def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
+    """The parameters the kernels refused before, every one the JAX
+    kernels take: (a) each driven through the engine op that reaches it
+    with an explicit plan (``_param_paths``: K2 / K3 at w 2048, K4 at 4 and
+    5 fused levels and at w 4 and 256, K8 at fan-in 32 and at w 256, K9 at
+    w 256) over ``N_PARAM`` keys, and ``engine.sort`` / ``argsort`` /
+    ``segment_sort`` / ``merge`` / ``topk`` on bf16, f16, int16 and int8
+    keys under their heuristic plans, each counted on its own and held to
+    its reference (``torch.sort`` values, the ``torch`` variant); (b)
+    each kernel against its plain version at those parameters on NaN /
+    +-0 keys; (c) each timed at ``N_PARAM_ROW`` keys beside its plain
+    version, one ``torch.sort`` and its bound. Returns the rows of (c)."""
+    from repro_torch.launch.roofline import stream_bytes
+    k1, k2, k3, k4 = mods
+    k56, k8, k9 = slice2[4], slice3[3], slice4[0]
+    dev = "cuda"
+    xt = tie_keys(N_PARAM, gen)
+    lens = ragged_lens(PARAM_RUNS, N_PARAM, gen)
+    runs, _, _ = sorted_runs(lens, gen, keys=tie_keys)
+    offs = torch.tensor([0] + lens, device=dev).cumsum(0).to(torch.int32)
+    path_launches = {}
+    for name, call, ref, need in _param_paths(engine, xt, runs, offs):
+        t0 = time.perf_counter()
+        out, launches = counted(kernels, call)
+        dt = time.perf_counter() - t0
+        check_same(f"{name} vs torch.sort", out, ref())
+        if not launches.get(need):
+            raise AssertionError(f"{name} never launched {need}: {launches}")
+        path_launches[name] = launches
+        print(f"params: {name} over {N_PARAM} keys in {dt:.3f} s, bit for "
+              "bit torch.sort; launches " + json.dumps(launches), flush=True)
+    seg_lens, seg_offs = seg_offsets(N_PARAM, gen)
+    for dt in PARAM_DTYPES:
+        x = as_dtype(tie_keys(N_PARAM, gen), dt)
+        calls = _dtype_paths(engine, x, seg_offs)
+        out, launches = counted(kernels, lambda: {
+            op: fn() for op, (fn, _) in calls.items()})
+        for op, (_, ref) in calls.items():
+            check_same(f"engine.{op} {dt} vs its reference", out[op], ref())
+        need = ("sort_chunks", "sort_chunks_kv", "merge_tree_runs",
+                "flims_merge")
+        missing = [k for k in need if not launches.get(k)]
+        if missing:
+            raise AssertionError(f"{dt} keys never launched {missing}: "
+                                 f"{launches}")
+        path_launches[str(dt).replace("torch.", "")] = launches
+        print(f"params: engine sort / argsort / segment_sort / merge / topk "
+              f"on {dt} keys (heuristic plans) bit for bit the torch "
+              "variants (merge: torch.sort); launches "
+              + json.dumps(launches), flush=True)
+    t0 = time.perf_counter()
+    errs = _params_vs_plain(k1, k2, k3, k4, k56, k8, k9, gen)
+    print(f"params: every kernel at the repaired parameters bit for bit its "
+          f"plain version on NaN / +-0 keys ({time.perf_counter() - t0:.1f} "
+          "s): " + json.dumps(errs), flush=True)
+
+    # (c) the rows
+    n = N_PARAM_ROW
+    xr = tie_keys(n, gen)
+    half = n // 2
+    a, b = _desc(xr[:half]), _desc(xr[half:])
+    cat = torch.cat([a, b])
+    pair = [torch.tensor([v], dtype=torch.int32, device=dev)
+            for v in (0, half, half, half)]
+    rl = lambda L: torch.sort(xr.view(-1, L), dim=-1,
+                              descending=True).values.reshape(-1)
+    runs16, runs_l = rl(n >> 4), rl(n >> 5)
+    st = lambda L: torch.arange(0, n, L, dtype=torch.int32, device=dev)
+    ln = lambda L: torch.full((n // L,), L, dtype=torch.int32, device=dev)
+    runs4 = rl(n >> 2)
+    mops = lambda w, lv=1: n * lv * (1 + math.log2(w) / 2)
+    W = "wide_merge.cu"
+    cases = [
+        ("flims_merge w=2048", k2.flims_merge, W, "flims_merge.py:202",
+         (a, b), dict(w=2048, block_out=4096), cat, mops(2048),
+         "merge w=2048", "flims_merge"),
+        ("segmented_merge_runs w=2048", k3.segmented_merge_runs, W,
+         "segmented_merge.py:208", (cat, cat, *pair),
+         dict(n_out=n, w=2048, block_out=4096), cat, mops(2048),
+         "merge_runs w=2048", "segmented_merge_runs"),
+        ("merge_tree_runs L=4", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs16, st(n >> 4), ln(n >> 4)),
+         dict(group=16, n_out=n, w=32, block_out=1024), runs16, mops(32, 4),
+         "merge_runs L=4", "merge_tree_runs"),
+        ("merge_tree_runs L=5", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs_l, st(n >> 5), ln(n >> 5)),
+         dict(group=32, n_out=n, w=32, block_out=1024), runs_l,
+         mops(32, 5), "merge_runs L=5", "merge_tree_runs"),
+        ("merge_tree_runs w=4", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs4, st(n >> 2), ln(n >> 2)),
+         dict(group=4, n_out=n, w=4, block_out=1024), runs4, mops(4, 2),
+         "merge_runs w=4", "merge_tree_runs"),
+        ("merge_tree_runs w=256", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs4, st(n >> 2), ln(n >> 2)),
+         dict(group=4, n_out=n, w=256, block_out=1024), runs4,
+         mops(256, 2), "merge_runs w=256", "merge_tree_runs"),
+        ("stream_merge_runs fan_in=32", k8.stream_merge_runs, W,
+         "stream_merge.py:225", (runs_l,),
+         dict(runs=32, run_len=n >> 5, fan_in=32, w=32, block_out=4096),
+         runs_l, mops(32, 5), "external_sort fan_in=32",
+         "stream_merge_runs"),
+        ("stream_merge_runs fan_in=32 w=256", k8.stream_merge_runs, W,
+         "stream_merge.py:225", (runs_l,),
+         dict(runs=32, run_len=n >> 5, fan_in=32, w=256, block_out=4096),
+         runs_l, mops(256, 5), "external_sort fan_in=32 w=256",
+         "stream_merge_runs"),
+        ("lane_merge w=256", k9.lane_merge_level, W,
+         "core/lanes.py:165 (merge_lanes under jax.vmap; no pallas_call)",
+         (runs_l, None, n >> 5), dict(w=256), runs_l, mops(256),
+         "merge_runs tree_vmapped w=256", "lane_merge"),
+    ]
+    for dt in PARAM_DTYPES:
+        nm = str(dt).replace("torch.", "")
+        xd = as_dtype(xr, dt)
+        da, db = _desc(xd[:half]), _desc(xd[half:])
+        lgc = math.log2(256)
+        cases += [
+            (f"sort_chunks {nm}", k1.sort_chunks, "bitonic_sort.cu",
+             "bitonic_sort.py:93", (xd.view(-1, 256),), {}, xd,
+             n / 2 * lgc * (lgc + 1) / 2, nm, "sort_chunks"),
+            (f"flims_merge {nm}", k2.flims_merge, "flims_merge.cu",
+             "flims_merge.py:202", (da, db), dict(w=128, block_out=4096),
+             xd, mops(128), nm, "flims_merge")]
+    table = []
+    t0 = time.perf_counter()
+    for (name, fn, source, replaces, args, kw, lib_x, ops, path,
+         wrapper) in cases:
+        plain = plain_of(fn)
+        got = fn(*args, **kw)
+        # the plain version's one call, timed and checked
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        exp = plain(*args, **kw)
+        e.record()
+        e.synchronize()
+        err = check_same(f"{name} at {n} keys", got, exp)
+        nbytes = stream_bytes(n, lib_x.element_size())
+        bound_ms, bound_by = _bound(nbytes, ops)
+        row = {"name": name, "route": "cuda",
+               "source": "src/repro_torch/csrc/" + source,
+               "replaces": ("src/repro/" if replaces.startswith("core")
+                            else "src/repro/kernels/") + replaces,
+               "launches": int(path_launches[path].get(wrapper, 0)),
+               "max_abs_err": max(errs.get(name, 0.0), err),
+               "ms": time_ms(lambda: fn(*args, **kw)),
+               "plain_ms": s.elapsed_time(e),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": time_ms(lambda: torch.sort(
+                   lib_x, descending=True)),
+               "library_call": "torch.sort", "keys": n,
+               "launches_counted_in": path}
+        table.append(row)
+        print(f"time {name}: " + json.dumps(row), flush=True)
+    print(f"params: rows in {time.perf_counter() - t0:.1f} s", flush=True)
+    return table
+
+
 DRYRUN_CELL = ("qwen3_1p7b", "train_4k")
 DRYRUN_LIMIT_S = 60
 
@@ -4387,6 +4736,8 @@ def main() -> int:
     wide_launches, wide_rows = timed("wide", phase_wide, engine, kernels, k1,
                                      slice2, gen)
     slice4 = _import_slice4()
+    param_rows = timed("params", phase_params, engine, kernels, mods, slice2,
+                       slice3, slice4, gen)
     k9_launches, path_errs, ref = timed("sampling", phase_sampling, engine,
                                         kernels, slice4, gen)
     slice5 = _import_slice5()
@@ -4409,6 +4760,7 @@ def main() -> int:
     errs4 = {k: max(v, path_errs[k]) for k, v in errs4.items()}
     table += timed("slice 4 times", phase_slice4_times, slice4, k9_launches,
                    errs4, ref)
+    table += param_rows
     for row in table:
         # the mesh phase's launches, summed over its 4 ranks; the wide
         # shapes' path, and the kernels' times there

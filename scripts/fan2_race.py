@@ -49,7 +49,8 @@ def build():
         d = ROOT / "build" / "fan2_race" / name
         d.mkdir(parents=True, exist_ok=True)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *flags, "-I", str(csrc),
-               "-shared", "-o", str(d / "lib.so"), str(csrc / src)]
+               "-shared", "-o", str(d / "lib.so"), str(csrc / src),
+               str(csrc / "wide_merge.cu")]
         procs.append((name, d, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

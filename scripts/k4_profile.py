@@ -53,7 +53,7 @@ def build() -> ctypes.CDLL:
     d.mkdir(parents=True, exist_ok=True)
     cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-DK4_PROFILE", "-I",
            str(csrc), "-shared", "-o", str(d / "lib.so"),
-           str(csrc / "merge_tree.cu")]
+           str(csrc / "merge_tree.cu"), str(csrc / "wide_merge.cu")]
     p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                        text=True)
     if p.returncode:

@@ -3,6 +3,7 @@ compiled in under ``-DK56_PROFILE``.
 
     python3 scripts/k56_profile.py [--source PATH] [--label NAME]
                                    [--shapes seg,short]
+    python3 scripts/k56_profile.py --split [--shapes wide65536,rows32768]
 
 Run from the repository root on a machine with an NVIDIA Hopper card and
 the CUDA toolkit. It builds one K5 / K6 source (``--source``, by default
@@ -30,6 +31,14 @@ work, and, by the segment's width ``next_pow2(len)``, the segments, their
 CTAs' mean time on the card and their warps' mean clocks. Before them,
 ptxas's registers, spills and shared memory per kernel; last, the card's
 name, power limit and SM clock.
+
+``--split`` builds nothing of its own: it runs the port's library (its
+normal build) and, for each shape, prints the call's time (CUDA events)
+and the device time of every kernel it launched, by name, from
+``torch.profiler`` (the torch gathers of the bank included). Its shapes:
+``wide<cap>``, 2^22 keys in ragged segments of [0, cap] keys at that cap
+(``chip_smoke.phase_wide``'s K5 / K6 shapes; K5 and K6 descending), and
+``rows<c>``, 2^24 keys in rows of c (K1 and K1kv, ``phase_wide``'s rows).
 """
 from __future__ import annotations
 
@@ -51,6 +60,58 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import segmented_merge as k56  # noqa: E402
 
 SHAPES = {"seg": (1 << 22, 16384, 16384), "short": (1 << 20, 512, 512)}
+SPLIT_SEG_KEYS, SPLIT_ROW_KEYS = 1 << 22, 1 << 24
+
+
+def kernel_split(fn) -> dict:
+    """(ms by CUDA events, {kernel name: device ms}) of one call, the
+    device times from ``torch.profiler`` over one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    ms = time_ms(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev[ev.key[:90]] = round(t / 1e3, 4)
+    return {"ms": ms, "device_ms_by_kernel": dev,
+            "device_ms": round(sum(dev.values()), 4)}
+
+
+def split_main(shapes) -> int:
+    """``--split``: per shape, each call's time and its kernels'."""
+    from repro_torch.kernels import bitonic_sort as k1
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in shapes:
+        if shape.startswith("wide"):
+            cap = int(shape[4:])
+            lens = ragged(SPLIT_SEG_KEYS, cap, gen)
+            offs = torch.tensor([0] + lens, dtype=torch.int64).cumsum(0).to(
+                device="cuda", dtype=torch.int32)
+            x = torch.randint(0, 1000, (SPLIT_SEG_KEYS,), generator=gen,
+                              device="cuda").float()
+            calls = {"K5": lambda: k56.segment_sort(x, offs, cap=cap),
+                     "K6": lambda: k56.segment_sort_kv(x, offs, cap=cap)}
+            info = {"keys": SPLIT_SEG_KEYS, "segments": len(lens),
+                    "cap": cap}
+        else:
+            c = int(shape[4:])
+            x = torch.randn(SPLIT_ROW_KEYS, generator=gen,
+                            device="cuda").view(-1, c)
+            r = torch.arange(SPLIT_ROW_KEYS, dtype=torch.int32,
+                             device="cuda").view(-1, c)
+            calls = {"K1": lambda: k1.sort_chunks(x),
+                     "K1kv": lambda: k1.sort_chunks_kv(x, r)}
+            info = {"keys": SPLIT_ROW_KEYS, "rows": x.shape[0], "c": c}
+        for name, fn in calls.items():
+            print(json.dumps({"shape": shape, "kernel": name, **info,
+                              **kernel_split(fn)}), flush=True)
+    return 0
 
 
 def ragged(total: int, longest: int, gen) -> list:
@@ -98,11 +159,21 @@ def main() -> int:
     ap.add_argument("--source", default=str(
         ROOT / "src" / "repro_torch" / "csrc" / "segment_sort.cu"))
     ap.add_argument("--label", default="current")
-    ap.add_argument("--shapes", default="seg,short")
+    ap.add_argument("--shapes", default=None)
+    ap.add_argument("--split", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("k56_profile: no CUDA device", file=sys.stderr)
         return 1
+    if args.split:
+        rc = split_main((args.shapes or "wide65536,wide131072,wide32768,"
+                         "rows32768,rows65536").split(","))
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip())
+        return rc
+    args.shapes = args.shapes or "seg,short"
     plain_lib, prof, ptxas = build(Path(args.source), args.label, "k56")
     print(json.dumps({"label": args.label, "ptxas": ptxas}), flush=True)
     names = prof.k56_prof_names().decode().split(",")

@@ -62,7 +62,8 @@ def build(variants):
         d.mkdir(parents=True, exist_ok=True)
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, *VARIANTS[v],
                f"-DK8_PROF_CTAS={MAX_CTAS}", "-I", str(csrc), "-shared",
-               "-o", str(d / "lib.so"), str(csrc / "stream_merge.cu")]
+               "-o", str(d / "lib.so"), str(csrc / "stream_merge.cu"),
+               str(csrc / "wide_merge.cu")]
         procs.append((v, d, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                              stderr=subprocess.STDOUT,
                                              text=True)))
@@ -72,7 +73,8 @@ def build(variants):
         if p.returncode:
             raise SystemExit(f"k8_profile: nvcc failed on {v}:\n{out}")
         lib = ctypes.CDLL(str(d / "lib.so"))
-        for name in ("flims_stream_merge", "flims_stream_merge_occupancy"):
+        for name in ("flims_stream_merge", "flims_stream_merge_occupancy",
+                     "flims_wide_tree_scratch"):
             fn = getattr(lib, name)
             fn.restype, fn.argtypes = _build._SIGNATURES[name]
         lib.k8_prof_read.argtypes = [ctypes.c_void_p]
@@ -123,10 +125,25 @@ def main() -> int:
                 ctas = lib.flims_stream_merge_occupancy(1, int(kv), 1, L, w) * sms
                 spg = k8.stream_spans(groups, bpg, ctas)
                 grid = min(ctas, groups * spg, MAX_CTAS)
+                # the check's flags, the wide form's scratch (idle here:
+                # sorted NaN-free runs flag no group)
+                check = torch.empty(groups + 1 + 2 * n // run_len,
+                                    dtype=torch.int32, device="cuda")
+                wctas = 2 * sms
+                wmeta = torch.empty(n // run_len + 1 + 2 * (groups + 1),
+                                    dtype=torch.int32, device="cuda")
+                tables = torch.empty((L - 1) * n * (2 if kv else 1),
+                                     dtype=torch.int32, device="cuda")
+                wscratch = torch.empty(
+                    wctas * lib.flims_wide_tree_scratch(int(kv), L, w, C),
+                    dtype=torch.uint8, device="cuda")
                 call_args = (1, int(kv), 1, L, kb.data_ptr(),
                              rb.data_ptr() if kv else None, out.data_ptr(),
                              out_r.data_ptr() if kv else None, n, n, run_len,
-                             C, w, groups, spg, grid,
+                             C, w, groups, spg, grid, check.data_ptr(),
+                             (fan // 2 * run_len).bit_length(),
+                             wmeta.data_ptr(), tables.data_ptr(),
+                             wscratch.data_ptr(), wctas,
                              torch.cuda.current_stream().cuda_stream)
                 ms = time_ms(lambda: lib.flims_stream_merge(*call_args))
                 lib.k8_prof_zero()

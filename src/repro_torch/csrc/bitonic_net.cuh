@@ -329,7 +329,7 @@ template <int E, bool SUBSET = false> struct WideNet {
 };
 
 // One phase of a row wider than the tile, after its stages at d >= 2^logc
-// (row_stage_kernel): the stages d = 2^(logc - 1) .. 1 within the tile's
+// (col_stage_kernel): the stages d = 2^(logc - 1) .. 1 within the tile's
 // 2^logc keys over the CTA's 2^logc / E threads, all in the direction `asc`
 // of the tile's k-block (the phase's k-blocks hold whole tiles). Shared
 // memory for the stages d >= 32 E, registers below.
@@ -490,21 +490,28 @@ __device__ __forceinline__ void sort_lanes(T (&k)[E], int32_t (&r)[E], bool exac
 //  1. tile_rows_kernel sorts every tile with the network's phases 1 ..
 //     kRowTileLog (WideNet; odd tiles of a row end ascending);
 //  2. each phase lk above runs its stages at d >= the tile as
-//     row_stage_kernel passes over device memory, a launch a stage and a
-//     thread a compare-exchange (XLA's max / min in operand order on
+//     col_stage_kernel passes over device memory, up to kColStages stages a
+//     pass: a thread takes one column, the 2^NS keys whose indices differ
+//     only in the pass's NS stage bits (coalesced across the warp, whose
+//     columns are consecutive keys), runs the NS stages on them in
+//     registers and writes them back (XLA's max / min in operand order on
 //     key-only lanes, the compound compare on KV lanes: the TPU kernels'
-//     own compare-exchange, exact on any keys), then its stages below the
-//     tile in tile_merge_kernel (TileMerge: shared memory and registers,
-//     the fast or the exact lanes by the tile's vote, as K1).
+//     own compare-exchange, exact on any keys); then its stages below the
+//     tile in tile_merge_kernel (TileMerge: shared memory and registers, the
+//     fast or the exact lanes by the tile's vote, as K1).
 // Every compare-exchange gives the bits the TPU kernel's gives, so the
 // result is its result, NaN payloads and zero signs included. A row of
-// 2^logr keys takes 1 + (logr - 14)(logr - 13) / 2 + (logr - 14) launches;
-// each reads and writes every key once. Simple, not fast: the device-memory
-// passes dominate.
+// 2^logr keys takes 1 + 2 (logr - 14) launches up to logr = 19 (a phase's
+// stages above the tile in one column pass); each reads and writes every
+// key once. The first form ran a launch a stage, one compare-exchange a
+// thread: 1 + (logr - 14)(logr - 13) / 2 + (logr - 14) launches.
+// K5 / K6 (segment_sort.cu) run the same passes over the segments wider
+// than one CTA, each at its own width (`row_log`).
 constexpr int kRowTileLog = 14;      // 16384 keys, 1024 threads of 16
 constexpr int kRowTileE = 16;
 constexpr int kRowThreads = 1 << (kRowTileLog - 4);
-constexpr int kStageThreads = 256;
+constexpr int kColThreads = 256;
+constexpr int kColStages = 5;        // stages a column pass: 32 keys a thread
 
 // Rows of 2^logr keys in tiles of 2^logc (logc <= logr; logc == logr sorts
 // whole rows): a tile a CTA of 2^logc / E threads.
@@ -536,33 +543,87 @@ __global__ void __launch_bounds__(kRowThreads)
   PROF_FLUSH();
 }
 
-// Stage d = 2^ld (ld >= the tile's log) of phase lk over rows of 2^logr
-// keys, in place: thread j of `pairs` runs the compare-exchange (top, top +
-// d), top the pair's first index, direction (top >> lk) & 1.
-template <typename T, bool KV, bool DESC>
-__global__ void __launch_bounds__(kStageThreads)
-    row_stage_kernel(T* k, int32_t* r, long long pairs, int logr, int lk, int ld) {
-  const long long d = 1ll << ld, hmask = (1ll << (logr - 1)) - 1;
-  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < pairs;
+// The stages ld = ld_lo + NS - 1 .. ld_lo of phase lk, in place, over rows
+// of 2^logr keys (row_log: each row's own width, 2^row_log[s] keys at the
+// row's start, rows narrower than 2^lk or at most 2^skip_le untouched;
+// null: every row whole).
+// Thread j takes column j: the keys base + m 2^ld_lo, m < 2^NS, of one row,
+// whose pairs at those stages lie within the column; the direction,
+// (index >> lk) & 1, is the column's.
+template <typename T, bool KV, bool DESC, int NS>
+__global__ void __launch_bounds__(kColThreads)
+    col_stage_kernel(T* k, int32_t* r, long long rows, int logr, const int32_t* row_log,
+                     int skip_le, int lk, int ld_lo) {
+  constexpr int M = 1 << NS;
+  const int lcols = logr - NS;  // log2 columns a row
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x; j < (rows << lcols);
        j += (long long)gridDim.x * blockDim.x) {
-    const long long p = j & hmask;
-    const long long top = ((p >> ld) << (ld + 1)) | (p & (d - 1));
-    const bool asc = (top >> lk) & 1;
-    const long long a = ((j >> (logr - 1)) << logr) + top, b = a + d;
-    const T kt = k[a], kb = k[b];
-    if constexpr (KV) {
-      const int32_t rt = r[a], rb = r[b];
-      const bool keep = wins<T, true, DESC>(Lane<T>{kt, rt}, Lane<T>{kb, rb}) ^ asc;
-      k[a] = keep ? kt : kb;
-      k[b] = keep ? kb : kt;
-      r[a] = keep ? rt : rb;
-      r[b] = keep ? rb : rt;
-    } else {
-      const T mx = xmax(kt, kb), mn = xmin(kt, kb);
-      k[a] = asc ? mn : mx;
-      k[b] = asc ? mx : mn;
+    const long long row = j >> lcols;
+    const long long col = j & ((1ll << lcols) - 1);
+    if (row_log && (row_log[row] < lk || row_log[row] <= skip_le ||
+                    col >= (1ll << (row_log[row] - NS))))
+      continue;
+    const long long lo = col & ((1ll << ld_lo) - 1);
+    const long long idx0 = ((col >> ld_lo) << (ld_lo + NS)) | lo;
+    const bool asc = (idx0 >> lk) & 1;
+    const long long base = (row << logr) + idx0;
+    T x[M];
+    int32_t y[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      x[m] = k[base + ((long long)m << ld_lo)];
+      if (KV) y[m] = r[base + ((long long)m << ld_lo)];
+    }
+#pragma unroll
+    for (int st = M / 2; st >= 1; st >>= 1) {
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        if (m & st) continue;
+        const T kt = x[m], kb = x[m + st];
+        if constexpr (KV) {
+          const int32_t rt = y[m], rb = y[m + st];
+          const bool keep = wins<T, true, DESC>(Lane<T>{kt, rt}, Lane<T>{kb, rb}) ^ asc;
+          x[m] = keep ? kt : kb;
+          x[m + st] = keep ? kb : kt;
+          y[m] = keep ? rt : rb;
+          y[m + st] = keep ? rb : rt;
+        } else {
+          const T mx = xmax(kt, kb), mn = xmin(kt, kb);
+          x[m] = asc ? mn : mx;
+          x[m + st] = asc ? mx : mn;
+        }
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      k[base + ((long long)m << ld_lo)] = x[m];
+      if (KV) r[base + ((long long)m << ld_lo)] = y[m];
     }
   }
+}
+
+// Phase lk's stages at d >= 2^lt (lt the tile's log) over rows of 2^logr
+// keys: column passes of up to kColStages stages each, the highest first.
+template <typename T, bool KV, bool DESC>
+__host__ cudaError_t col_stages(T* k, int32_t* r, long long rows, int logr,
+                                const int32_t* row_log, int skip_le, int lk, int lt,
+                                cudaStream_t st) {
+  cudaError_t e = cudaSuccess;
+  for (int hi = lk - 1; hi >= lt && e == cudaSuccess; hi -= kColStages) {
+    const int ns = hi - lt + 1 < kColStages ? hi - lt + 1 : kColStages, lo = hi - ns + 1;
+    const long long cols = rows << (logr - ns);
+    const unsigned blocks =
+        (unsigned)std::min<long long>((cols + kColThreads - 1) / kColThreads, 1 << 16);
+    switch (ns) {
+      case 1: col_stage_kernel<T, KV, DESC, 1><<<blocks, kColThreads, 0, st>>>(k, r, rows, logr, row_log, skip_le, lk, lo); break;
+      case 2: col_stage_kernel<T, KV, DESC, 2><<<blocks, kColThreads, 0, st>>>(k, r, rows, logr, row_log, skip_le, lk, lo); break;
+      case 3: col_stage_kernel<T, KV, DESC, 3><<<blocks, kColThreads, 0, st>>>(k, r, rows, logr, row_log, skip_le, lk, lo); break;
+      case 4: col_stage_kernel<T, KV, DESC, 4><<<blocks, kColThreads, 0, st>>>(k, r, rows, logr, row_log, skip_le, lk, lo); break;
+      default: col_stage_kernel<T, KV, DESC, 5><<<blocks, kColThreads, 0, st>>>(k, r, rows, logr, row_log, skip_le, lk, lo); break;
+    }
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 // The stages below the tile of phase lk (> logc), in place, a tile a CTA.
@@ -601,19 +662,13 @@ __host__ cudaError_t sort_rows_past_tile(const T* kin, const int32_t* rin, T* ko
   cudaError_t e = allow_smem(sort_tiles, dyn);
   if (e == cudaSuccess) e = allow_smem(merge, dyn);
   if (e != cudaSuccess) return e;
-  const long long tiles = total >> lt, pairs = total >> 1;
+  const long long tiles = total >> lt;
   if (tiles > 0x7fffffffll) return cudaErrorInvalidValue;
   sort_tiles<<<(unsigned)tiles, kRowThreads, dyn, st>>>(kin, rin, kout, rout, total, lt, logr,
                                                          vec);
   e = cudaGetLastError();
-  const unsigned sblocks =
-      (unsigned)std::min<long long>((pairs + kStageThreads - 1) / kStageThreads, 1 << 16);
   for (int lk = lt + 1; lk <= logr && e == cudaSuccess; ++lk) {
-    for (int ld = lk - 1; ld >= lt && e == cudaSuccess; --ld) {
-      row_stage_kernel<T, KV, DESC><<<sblocks, kStageThreads, 0, st>>>(kout, rout, pairs, logr, lk,
-                                                                      ld);
-      e = cudaGetLastError();
-    }
+    e = col_stages<T, KV, DESC>(kout, rout, total >> logr, logr, nullptr, -1, lk, lt, st);
     if (e != cudaSuccess) break;
     merge<<<(unsigned)tiles, kRowThreads, dyn, st>>>(kout, rout, total, lt, logr, lk, vec);
     e = cudaGetLastError();

@@ -47,9 +47,10 @@
 //   barrier after each; every finer stage of the phase is back in
 //   registers. Shared memory: c x 4 bytes key-only, c x 8 KV.
 // - Rows past 16384 keys (c x 8 bytes would pass a CTA's 227 KB at 32768
-//   KV) sort in tiles of 16384 with the stages at d >= 16384 as passes over
-//   device memory (sort_rows_past_tile, bitonic_net.cuh): the same network,
-//   a few launches, each key read and written once a launch.
+//   KV) sort in tiles of 16384 with the stages at d >= 16384 as column
+//   passes over device memory, up to five stages a pass (sort_rows_past_tile,
+//   bitonic_net.cuh): the same network, two launches a phase above the
+//   tile, each key read and written once a launch.
 // - Directions by flipping. On the fast paths the keys travel as integers
 //   whose order is the network's order, and the bitwise complement reverses
 //   it. An element is complemented while its k-block sorts ascending, so

@@ -358,6 +358,31 @@ __device__ __forceinline__ int find_segment(const int32_t* blk0, int n, int g) {
   return lo;
 }
 
+// Exclusive prefix of val(0 .. n - 1) into out[0 .. n] over the CTA; s_part
+// holds blockDim.x ints.
+template <class F>
+__device__ void block_scan(int n, const F& val, int32_t* out, int32_t* s_part) {
+  const int t = threadIdx.x, T = blockDim.x;
+  const int i0 = (int)((long long)t * n / T), i1 = (int)((long long)(t + 1) * n / T);
+  int sum = 0;
+  for (int i = i0; i < i1; ++i) sum += val(i);
+  s_part[t] = sum;
+  __syncthreads();
+  for (int d = 1; d < T; d <<= 1) {
+    const int x = t >= d ? s_part[t - d] : 0;
+    __syncthreads();
+    s_part[t] += x;
+    __syncthreads();
+  }
+  int run = s_part[t] - sum;
+  for (int i = i0; i < i1; ++i) {
+    out[i] = run;
+    run += val(i);
+  }
+  if (t == T - 1) out[n] = s_part[t];
+  __syncthreads();
+}
+
 enum DType : int { kInt32 = 0, kFloat32 = 1 };
 
 }  // namespace flims

@@ -584,6 +584,50 @@ __global__ void __launch_bounds__(kOffsetThreads)
   }
 }
 
+// flags[g] = 1, and flags[n_groups] = 1, where a run of group g (keys
+// [starts[r] :+ lens[r]], goff the groups' exclusive length prefix) holds
+// a NaN or a lane that its successor goes strictly before: the streamed
+// partition and its restarts need NaN-free runs in the call's order, and
+// such groups go to the wide form (the JAX kernel's per-block partition).
+// flags zeroed before. A CTA a tile of the groups' concatenation, a thread
+// a lane, read coalesced: its group by a search of goff bounded by the
+// tile's, its run by a walk of the group's lens.
+constexpr int kCheckThreads = 256, kCheckTile = 4096;
+template <typename T, bool KV, bool DESC>
+__global__ void __launch_bounds__(kCheckThreads)
+    group_check_kernel(const T* __restrict__ keys, const int32_t* __restrict__ ranks,
+                       const int32_t* __restrict__ starts, const int32_t* __restrict__ lens,
+                       const int32_t* __restrict__ goff, int n_groups, int group,
+                       int32_t* __restrict__ flags) {
+  const int total = goff[n_groups];
+  for (long long e0 = (long long)blockIdx.x * kCheckTile; e0 < total;
+       e0 += (long long)gridDim.x * kCheckTile) {
+    const int e1 = (int)min((long long)total, e0 + kCheckTile);
+    const int g0 = find_segment(goff, n_groups, (int)e0), g1 = find_segment(goff, n_groups, e1 - 1);
+#pragma unroll 4
+    for (int e = (int)e0 + threadIdx.x; e < e1; e += kCheckThreads) {
+      int lo = g0, hi = g1;  // the last group with goff <= e: the one holding e
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (goff[mid] <= e) lo = mid; else hi = mid - 1;
+      }
+      int r = lo * group, p = e - goff[lo];
+      while (p >= lens[r]) p -= lens[r++];  // the run holding e
+      const T* k = keys + starts[r];
+      const Lane<T> x{k[p], KV ? ranks[starts[r] + p] : 0};
+      bool bad = x.k != x.k;
+      if (p + 1 < lens[r]) {
+        const Lane<T> y{k[p + 1], KV ? ranks[starts[r] + p + 1] : 0};
+        bad |= wins<T, KV, DESC>(y, x);
+      }
+      if (bad) {
+        if (!flags[lo]) flags[lo] = 1;
+        if (!flags[n_groups]) flags[n_groups] = 1;
+      }
+    }
+  }
+}
+
 // Grid: persistent CTAs of 2^L warps. Warps 0 .. 2^L - 2 run heap nodes
 // 1 .. 2^L - 1 (node h at depth floor(log2 h)); the last warp is the leaf
 // producer. CTA c takes flat blocks [c G / grid, (c + 1) G / grid), as one
@@ -594,7 +638,7 @@ __global__ void __launch_bounds__(32 << L)
                       const int32_t* __restrict__ starts, const int32_t* __restrict__ lens,
                       const int32_t* __restrict__ goff, const int32_t* __restrict__ blk0,
                       T* __restrict__ out, int32_t* __restrict__ out_r, int n_groups, int n_out,
-                      int C, int w) {
+                      int C, int w, const int32_t* __restrict__ skip) {
   constexpr int GROUP = 1 << L;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ long long s_off[2 * kMaxGroup];
@@ -648,6 +692,7 @@ __global__ void __launch_bounds__(32 << L)
                                 (long long)n_out - gbase);
     b = g1;
     if (o_end <= o) continue;  // past n_out
+    if (skip && skip[grp]) continue;  // a flagged group: the wide form's
     const int rows = (int)((o_end - o + w - 1) / w);  // root rows of the span
     __syncthreads();  // every warp is done with the previous span
     if (tid < 2 * GROUP) {
@@ -857,7 +902,7 @@ static cudaError_t footprint(int w, long long* bytes) {
 struct Args {
   const void *buf, *rbuf;
   const int32_t *starts, *lens;
-  int32_t* meta;  // goff, then blk0, n_groups + 1 entries each
+  int32_t* meta;  // goff, blk0, the check's flags, n_groups + 1 entries each
   void *out, *out_r;
   int n_groups, n_out, C, w, grid;
   cudaStream_t st;
@@ -872,14 +917,20 @@ static cudaError_t run(const Args& a) {
   const size_t smem = tree_smem_bytes(L, KV, sizeof(T), a.w);
   cudaError_t e = prepare<T, KV, DESC, L, M>(smem);
   if (e != cudaSuccess) return e;
-  int32_t *goff = a.meta, *blk0 = a.meta + a.n_groups + 1;
+  int32_t *goff = a.meta, *blk0 = goff + a.n_groups + 1, *flags = blk0 + a.n_groups + 1;
   tree_offsets_kernel<<<1, kOffsetThreads, 0, a.st>>>(a.lens, 1 << L, a.n_groups, a.C, goff,
                                                       blk0);
+  e = cudaMemsetAsync(flags, 0, sizeof(int32_t) * (a.n_groups + 1), a.st);
+  if (e != cudaSuccess) return e;
+  const int tiles = (a.n_out + kCheckTile - 1) / kCheckTile;
+  group_check_kernel<T, KV, DESC><<<tiles < 4096 ? tiles : 4096, kCheckThreads, 0, a.st>>>(
+      (const T*)a.buf, (const int32_t*)a.rbuf, a.starts, a.lens, goff, a.n_groups, 1 << L,
+      flags);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   merge_tree_kernel<T, KV, DESC, L, M><<<(unsigned)a.grid, 32 << L, smem, a.st>>>(
       (const T*)a.buf, (const int32_t*)a.rbuf, a.starts, a.lens, goff, blk0, (T*)a.out,
-      (int32_t*)a.out_r, a.n_groups, a.n_out, a.C, a.w);
+      (int32_t*)a.out_r, a.n_groups, a.n_out, a.C, a.w, flags);
   return cudaGetLastError();
 }
 
@@ -938,16 +989,33 @@ extern "C" int flims_merge_tree_occupancy(int dtype, int kv, int desc, int L, in
 }
 
 // One pass: n_groups groups of 2^L runs, `grid` persistent CTAs over the
-// groups' C-blocks; `meta` is 2 (n_groups + 1) int32 of scratch for the
-// group table.
+// groups' C-blocks; `meta` is 3 (n_groups + 1) int32 of scratch for the
+// group table and the check's flags.
+// Groups holding a NaN, or a run out of the call's order, are left by the
+// streamed kernel and merged by the wide form (csrc/wide_merge.cu, `steps`
+// search steps, its meta / tables / scratch / ctas as flims_wide_tree takes
+// them at ntot = wtot), on the card: its kernels return at once where no
+// group is flagged.
+extern "C" int flims_wide_tree(int dtype, int kv, int desc, int sel_max, int L, const void* ka,
+                               const void* ra, const void* kb, const void* rb, int pairs,
+                               const void* starts, const void* lens, int runs, int n_out, int C,
+                               int w, int steps, const void* only, void* meta, void* tables,
+                               long long ntot, void* scratch, int ctas, void* out, void* out_r,
+                               void* stream);
 extern "C" int flims_merge_tree(int dtype, int kv, int desc, int L, const void* buf,
                                 const void* rbuf, const void* starts, const void* lens,
                                 void* meta, void* out, void* out_r, int n_groups, int n_out,
-                                int C, int w, int grid, void* stream) {
+                                int C, int w, int grid, int steps, void* wmeta, void* tables,
+                                long long wtot, void* wscratch, int wctas, void* stream) {
   if (C < w || C % w || n_groups < 1 || n_out < 1 || grid < 1) return cudaErrorInvalidValue;
   flims::Args a{buf, rbuf, (const int32_t*)starts, (const int32_t*)lens, (int32_t*)meta, out,
                 out_r, n_groups, n_out, C, w, grid, (cudaStream_t)stream, nullptr, nullptr};
-  return flims::dispatch(dtype, kv, desc, L, a);
+  const int e = flims::dispatch(dtype, kv, desc, L, a);
+  if (e != cudaSuccess) return e;
+  const int32_t* flags = (const int32_t*)meta + 2 * (n_groups + 1);
+  return flims_wide_tree(dtype, kv, desc, 0, L, buf, rbuf, buf, rbuf, 0, starts, lens,
+                         n_groups << L, n_out, C, w, steps, flags, wmeta, tables,
+                         L > 1 ? wtot : 0, wscratch, wctas, out, out_r, stream);
 }
 
 #ifdef K4_PROFILE

@@ -43,6 +43,20 @@
 //   or a NaN segment, at cap 32768) sorts in shared memory with today's
 //   `bitonic_smem` over all 1024 threads: E = 32 would not fit a 1024-thread
 //   CTA's 64 registers a thread.
+// - cap past one CTA (> 32768, 16384 on KV lanes; launch_wide): each
+//   segment sorts over its width c (next_pow2(len), the whole cap where it
+//   holds a NaN; seg_width_kernel), with no bank built in torch. Those
+//   with c <= 32768 (16384) sort whole in a CTA as above
+//   (segment_sort_kernel at E = 16, told the widths); the wider ones
+//   through K1's network past the tile: 16384-key tiles read straight from
+//   the flat keys, padded and ranked in registers (seg_first_kernel), the
+//   phases above as column passes and tile merges (seg_merge_kernel) over
+//   a scratch bank only the kernels touch, the last phase's valid lanes
+//   stored to the flat output. The first form
+//   gathered a padded (S, cap) bank and a rank bank in torch, ran K1 over
+//   every whole cap, a launch a stage above the tile, and gathered the
+//   prefixes back: those torch gathers were a third to half of its time
+//   (scripts/k56_profile.py --split; PERF.md section 6).
 // An empty segment returns before any barrier. Loads and stores are 16-byte
 // vectors where the segment's start is 16-byte aligned in both buffers and
 // a thread's E lanes are all valid, else scalar (offsets[s] is rarely a
@@ -71,7 +85,9 @@ using namespace net;
 
 constexpr int kSegWarps = 4;    // segments (warps) a CTA when cap <= kTile
 constexpr int kSmemLogC = 15;   // c = 32768 (K5 only): the shared-memory route
+constexpr int kMaxLogKV = 14;   // c = 16384: K6's widest in one CTA
 constexpr int kMaxThreads = 1024;
+constexpr int kWidthThreads = 256;
 
 // The segment's lanes t E .. t E + E - 1: keys (the last key past `len`)
 // and, on KV lanes, ranks (INVALID_RANK past `len`).
@@ -175,13 +191,13 @@ template <typename T, bool KV, bool DESC, int E>
 __device__ __forceinline__ void cta_segment(const T* __restrict__ kin,
                                             const int32_t* __restrict__ offsets,
                                             T* __restrict__ kout, int32_t* __restrict__ pout,
-                                            int logcap, unsigned char* smem) {
+                                            int s, int logcap, unsigned char* smem) {
   constexpr int LOGE = ilog2(E), LOGT = LOGE + 5;
   const int t = threadIdx.x, lane = t & 31;
-  const long long o0 = offsets[blockIdx.x];
+  const long long o0 = offsets[s];
   // A cap below the segment's length (engine.segment_sort refuses one)
   // sorts its first cap keys and leaves the rest unwritten.
-  const int len = min((int)(offsets[blockIdx.x + 1] - o0), 1 << logcap);
+  const int len = min((int)(offsets[s + 1] - o0), 1 << logcap);
   if (len == 0) return;  // uniform over the CTA, before any barrier
   PROF_START(t_load);
   const bool vload = ((uintptr_t)(kin + o0) & 15) == 0;
@@ -222,26 +238,153 @@ __device__ __forceinline__ void cta_segment(const T* __restrict__ kin,
   PROF(4, t_store);
 }
 
+// seg_log (caps past one CTA, else null): each segment's width; a segment
+// wider than in_log is the wide path's and returns at once.
 template <typename T, bool KV, bool DESC, int E, bool WARP>
 __global__ void __launch_bounds__(kMaxThreads)
     segment_sort_kernel(const T* __restrict__ kin, const int32_t* __restrict__ offsets,
-                        T* __restrict__ kout, int32_t* __restrict__ pout, int S, int logcap) {
+                        T* __restrict__ kout, int32_t* __restrict__ pout, int S, int logcap,
+                        const int32_t* __restrict__ seg_log, int in_log) {
   extern __shared__ __align__(16) unsigned char smem[];
   PROF_INIT();
   PROF_START(t_total);
   if constexpr (WARP)
     warp_segment<T, KV, DESC, E>(kin, offsets, kout, pout, S, logcap);
-  else
-    cta_segment<T, KV, DESC, E>(kin, offsets, kout, pout, logcap, smem);
+  else if (!seg_log || seg_log[blockIdx.x] <= in_log)  // uniform over the CTA
+    cta_segment<T, KV, DESC, E>(kin, offsets, kout, pout, blockIdx.x, logcap, smem);
   PROF(5, t_total);
   PROF_FLUSH();
+}
+
+// ---- caps past one CTA ----------------------------------------------------
+// Segment s's width: log2 of the lanes it sorts over (next_pow2(len), or
+// the whole cap where it holds a NaN), -1 when empty. A CTA a segment.
+template <typename T>
+__global__ void __launch_bounds__(kWidthThreads)
+    seg_width_kernel(const T* __restrict__ kin, const int32_t* __restrict__ offsets, int logcap,
+                     int32_t* __restrict__ seg_log) {
+  const int s = blockIdx.x;
+  const long long o0 = offsets[s];
+  const int len = min((int)(offsets[s + 1] - o0), 1 << logcap);
+  bool nan = false;
+  if constexpr (std::is_same<T, float>::value)
+    for (int i = threadIdx.x; i < len; i += blockDim.x) nan |= kin[o0 + i] != kin[o0 + i];
+  nan = __syncthreads_or(nan);
+  if (threadIdx.x == 0) seg_log[s] = len == 0 ? -1 : (nan ? logcap : ilog2(2 * len - 1));
+}
+
+// Blocks (segment s, tile j) of tpc = cap / 2^kRowTileLog each, over the
+// segments wider than one CTA (in_log): tiles j < 2^(width - 14) read
+// straight from the flat keys at the segment's offset, padded (the last
+// key, INVALID_RANK) and ranked in registers, sorted through the network's
+// phases 1 .. 14 (WideNet, odd tiles ascending) and written to the
+// segment's row of the bank.
+template <typename T, bool KV, bool DESC>
+__global__ void __launch_bounds__(kRowThreads)
+    seg_first_kernel(const T* __restrict__ kin, const int32_t* __restrict__ offsets,
+                     const int32_t* __restrict__ seg_log, T* __restrict__ bk,
+                     int32_t* __restrict__ br, int logcap, int in_log) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int E = kRowTileE, LT = kRowTileLog;
+  const int tpc = 1 << (logcap - LT);
+  const int s = blockIdx.x / tpc, j = blockIdx.x % tpc, t = threadIdx.x;
+  const int logc = seg_log[s];
+  // uniform over the CTA, before any barrier
+  if (logc <= in_log || j >= (1 << (logc - LT))) return;
+  const long long o0 = offsets[s];
+  const int len = offsets[s + 1] - o0;
+  const int base = (j << LT) + t * E;
+  T k[E];
+  int32_t r[E];
+  load_seg<T, KV, DESC, E>(kin + o0, base, len, ((uintptr_t)(kin + o0) & 15) == 0, k, r);
+  const bool exact = __syncthreads_or(needs_exact<T, KV>(k));
+  sort_lanes<T, KV, DESC, E>(k, r, exact, WideNet<E>{base, t & 31, LT, smem});
+  const long long row = (long long)s << logcap;
+  store_lanes<E>(bk + row, base, 1ll << logcap, true, k);
+  if (KV) store_lanes<E>(br + row, base, 1ll << logcap, true, r);
+}
+
+// Phase lk's stages below the tile over the wide segments' bank rows; at a
+// segment's last phase the valid lanes go straight to its flat offset.
+template <typename T, bool KV, bool DESC>
+__global__ void __launch_bounds__(kRowThreads)
+    seg_merge_kernel(const int32_t* __restrict__ offsets, const int32_t* __restrict__ seg_log,
+                     T* __restrict__ kout, int32_t* __restrict__ pout, T* bk, int32_t* br,
+                     int logcap, int in_log, int lk) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int E = kRowTileE, LT = kRowTileLog;
+  const int tpc = 1 << (logcap - LT);
+  const int s = blockIdx.x / tpc, j = blockIdx.x % tpc, t = threadIdx.x;
+  const int logc = seg_log[s];
+  if (logc <= in_log || logc < lk || j >= (1 << (logc - LT))) return;
+  const int base = (j << LT) + t * E;
+  const long long row = (long long)s << logcap, n = 1ll << logcap;
+  T x[E];
+  int32_t y[E];
+  load_lanes<E>(bk + row, base, n, true, x);
+  if (KV) load_lanes<E>(br + row, base, n, true, y);
+  const bool exact = __syncthreads_or(needs_exact<T, KV>(x));
+  sort_lanes<T, KV, DESC, E>(x, y, exact, TileMerge<E>{((base >> lk) & 1) != 0, t & 31, LT, smem});
+  if (lk == logc) {
+    const long long o0 = offsets[s];
+    const int len = offsets[s + 1] - o0;
+    const bool vstore = (((uintptr_t)(kout + o0) | (KV ? (uintptr_t)(pout + o0) : 0)) & 15) == 0;
+    store_seg<T, KV, E>(kout + o0, pout + (KV ? o0 : 0), base, len, vstore, x, y);
+  } else {
+    store_lanes<E>(bk + row, base, n, true, x);
+    if (KV) store_lanes<E>(br + row, base, n, true, y);
+  }
+}
+
+// cap past one CTA: the widths; the segments that fit one CTA, whole
+// (segment_sort_kernel at E = 16, the wide ones skipped); the wide ones'
+// tiles, then each phase above the tile as column passes and a tile merge
+// over the bank (S x cap keys, and ranks on KV lanes), its scratch.
+template <typename T, bool KV, bool DESC>
+static cudaError_t launch_wide(const void* kin, const void* offsets, void* kout, void* pout,
+                               int S, int cap, void* bank, void* bank_r, void* seg_log,
+                               cudaStream_t st) {
+  const int logcap = ilog2(cap), in_log = KV ? kMaxLogKV : kSmemLogC;
+  const size_t dyn = (size_t)1 << (KV ? kRowTileLog + 3 : kSmemLogC + 2);  // 128 KB
+  auto first = seg_first_kernel<T, KV, DESC>;
+  auto merge = seg_merge_kernel<T, KV, DESC>;
+  auto narrow = segment_sort_kernel<T, KV, DESC, kRowTileE, false>;
+  cudaError_t e = allow_smem(first, dyn);
+  if (e == cudaSuccess) e = allow_smem(merge, dyn);
+  if (e == cudaSuccess) e = allow_smem(narrow, dyn);
+  if (e != cudaSuccess) return e;
+  const auto K = (const T*)kin;
+  const auto O = (const int32_t*)offsets;
+  auto L = (int32_t*)seg_log;
+  auto bk = (T*)bank;
+  auto br = (int32_t*)bank_r;
+  const long long blocks = (long long)S << (logcap - kRowTileLog);
+  if (blocks > 0x7fffffffll) return cudaErrorInvalidValue;
+  seg_width_kernel<T><<<S, kWidthThreads, 0, st>>>(K, O, logcap, L);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    narrow<<<S, kMaxThreads, dyn, st>>>(K, O, (T*)kout, (int32_t*)pout, S, logcap, L, in_log);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess) {
+    first<<<(unsigned)blocks, kRowThreads, dyn, st>>>(K, O, L, bk, br, logcap, in_log);
+    e = cudaGetLastError();
+  }
+  for (int lk = kRowTileLog + 1; lk <= logcap && e == cudaSuccess; ++lk) {
+    e = col_stages<T, KV, DESC>(bk, br, S, logcap, L, in_log, lk, kRowTileLog, st);
+    if (e != cudaSuccess) break;
+    merge<<<(unsigned)blocks, kRowThreads, dyn, st>>>(O, L, (T*)kout, (int32_t*)pout, bk, br,
+                                                      logcap, in_log, lk);
+    e = cudaGetLastError();
+  }
+  return e;
 }
 
 template <typename T, bool KV, bool DESC>
 static cudaError_t launch(const void* kin, const void* offsets, void* kout, void* pout, int S,
                           int cap, cudaStream_t st) {
   const int logcap = ilog2(cap);
-  void (*kern)(const T*, const int32_t*, T*, int32_t*, int, int);
+  void (*kern)(const T*, const int32_t*, T*, int32_t*, int, int, const int32_t*, int);
   int threads, blocks;
   size_t smem = 0;
   if (cap <= kTile) {
@@ -259,31 +402,49 @@ static cudaError_t launch(const void* kin, const void* offsets, void* kout, void
   const cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return e;
   kern<<<blocks, threads, smem, st>>>((const T*)kin, (const int32_t*)offsets, (T*)kout,
-                                      (int32_t*)pout, S, logcap);
+                                      (int32_t*)pout, S, logcap, nullptr, 0);
   return cudaGetLastError();
+}
+
+template <typename T, bool KV, bool DESC>
+static cudaError_t launch_any(const void* kin, const void* offsets, void* kout, void* pout, int S,
+                              int cap, void* bank, void* bank_r, void* seg_log, cudaStream_t st) {
+  if (cap <= (KV ? 1 << kMaxLogKV : 1 << kSmemLogC))
+    return launch<T, KV, DESC>(kin, offsets, kout, pout, S, cap, st);
+  if (!bank || (KV && !bank_r) || !seg_log) return cudaErrorInvalidValue;
+  return launch_wide<T, KV, DESC>(kin, offsets, kout, pout, S, cap, bank, bank_r, seg_log, st);
 }
 
 template <typename T>
 static cudaError_t dispatch(int kv, int desc, const void* kin, const void* offsets, void* kout,
-                            void* pout, int S, int cap, cudaStream_t st) {
-  if (!kv && desc) return launch<T, false, true>(kin, offsets, kout, pout, S, cap, st);
-  if (kv && desc) return launch<T, true, true>(kin, offsets, kout, pout, S, cap, st);
-  if (kv && !desc) return launch<T, true, false>(kin, offsets, kout, pout, S, cap, st);
+                            void* pout, int S, int cap, void* bank, void* bank_r, void* seg_log,
+                            cudaStream_t st) {
+  if (!kv && desc)
+    return launch_any<T, false, true>(kin, offsets, kout, pout, S, cap, bank, bank_r, seg_log, st);
+  if (kv && desc)
+    return launch_any<T, true, true>(kin, offsets, kout, pout, S, cap, bank, bank_r, seg_log, st);
+  if (kv && !desc)
+    return launch_any<T, true, false>(kin, offsets, kout, pout, S, cap, bank, bank_r, seg_log, st);
   return cudaErrorInvalidValue;  // key-only segments sort descending only
 }
 
 }  // namespace seg
 }  // namespace flims
 
+// Past one CTA (cap > 32768, 16384 on KV lanes) bank / bank_r (S x cap keys
+// and ranks) and seg_log (S int32) are the launch's scratch; else unused.
 extern "C" int flims_segment_sort(int dtype, int kv, int desc, const void* kin,
                                   const void* offsets, void* kout, void* pout, int S, int cap,
-                                  void* stream) {
+                                  void* bank, void* bank_r, void* seg_log, void* stream) {
   using namespace flims;
-  if (S <= 0 || cap < 1 || (cap & (cap - 1)) || cap > (kv ? 16384 : 32768))
-    return cudaErrorInvalidValue;
+  if (S <= 0 || cap < 1 || (cap & (cap - 1)) || cap > (1 << 30)) return cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
-  if (dtype == kInt32) return seg::dispatch<int32_t>(kv, desc, kin, offsets, kout, pout, S, cap, st);
-  if (dtype == kFloat32) return seg::dispatch<float>(kv, desc, kin, offsets, kout, pout, S, cap, st);
+  if (dtype == kInt32)
+    return seg::dispatch<int32_t>(kv, desc, kin, offsets, kout, pout, S, cap, bank, bank_r,
+                                  seg_log, st);
+  if (dtype == kFloat32)
+    return seg::dispatch<float>(kv, desc, kin, offsets, kout, pout, S, cap, bank, bank_r, seg_log,
+                                st);
   return cudaErrorInvalidValue;
 }
 

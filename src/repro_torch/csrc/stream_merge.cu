@@ -408,7 +408,8 @@ template <typename T, bool KV, bool DESC, int L, int M>
 __global__ void __launch_bounds__(32 << L)
     stream_merge_kernel(const T* __restrict__ buf, const int32_t* __restrict__ rbuf,
                         T* __restrict__ out, int32_t* __restrict__ out_r, long long n_val,
-                        long long n_out, int run_len, int C, int w, int groups, int spg) {
+                        long long n_out, int run_len, int C, int w, int groups, int spg,
+                        const int32_t* __restrict__ skip) {
   constexpr int GROUP = 1 << L;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ long long s_off[2 * kMaxGroup];
@@ -452,6 +453,7 @@ __global__ void __launch_bounds__(32 << L)
 
   for (int sp = blockIdx.x; sp < groups * spg; sp += gridDim.x) {
     const int grp = sp / spg, s = sp % spg;
+    if (skip && skip[grp]) continue;  // a flagged group: the wide form's
     const int blk0 = (int)((long long)s * bpg / spg), blk1 = (int)((long long)(s + 1) * bpg / spg);
     const long long o = (long long)blk0 * C;
     const int rows = (int)((long long)(blk1 - blk0) * C / w);  // root rows of the span
@@ -584,16 +586,57 @@ static cudaError_t occupancy(int w, int* per_sm) {
       per_sm, stream_merge_kernel<T, KV, DESC, L, M>, 32 << L, smem);
 }
 
+// flags[g] = 1, and flags[groups] = 1, where group g (keys [g glen, (g + 1)
+// glen), runs of run_len) holds a NaN or a lane that its successor in its
+// run goes strictly before: the streamed partition and its restarts need
+// NaN-free runs in the call's order, and such groups go to the wide form.
+// flags zeroed before. Also writes the runs' starts and lens, which the
+// wide form reads. run_len = 2^rlog, glen = 2^glog.
+template <typename T, bool KV, bool DESC>
+__global__ void __launch_bounds__(256)
+    stream_check_kernel(const T* __restrict__ keys, const int32_t* __restrict__ ranks,
+                        long long n_val, int rlog, int glog, int groups,
+                        int32_t* __restrict__ flags, int32_t* __restrict__ starts,
+                        int32_t* __restrict__ lens) {
+  const long long runs = n_val >> rlog, last = (1LL << rlog) - 1;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < n_val;
+       e += (long long)gridDim.x * blockDim.x) {
+    if (e < runs) {
+      starts[e] = (int32_t)(e << rlog);
+      lens[e] = 1 << rlog;
+    }
+    const Lane<T> x{keys[e], KV ? ranks[e] : 0};
+    bool bad = x.k != x.k;
+    if ((e & last) != last) {  // not its run's last lane
+      const Lane<T> y{keys[e + 1], KV ? ranks[e + 1] : 0};
+      bad |= wins<T, KV, DESC>(y, x);
+    }
+    if (bad) {
+      if (!flags[e >> glog]) flags[e >> glog] = 1;
+      if (!flags[groups]) flags[groups] = 1;
+    }
+  }
+}
+
 template <typename T, bool KV, bool DESC, int L, int M>
 static cudaError_t launch(const void* buf, const void* rbuf, void* out, void* out_r,
                           long long n_val, long long n_out, int run_len, int C, int w,
-                          int groups, int spg, int grid, cudaStream_t st) {
+                          int groups, int spg, int grid, int32_t* check, cudaStream_t st) {
   const size_t smem = stream_smem_bytes(L, KV, sizeof(T), w);
   cudaError_t e = prepare<T, KV, DESC, L, M>(smem);
   if (e != cudaSuccess) return e;
+  int32_t *flags = check, *starts = flags + groups + 1, *lens = starts + (groups << L);
+  e = cudaMemsetAsync(flags, 0, sizeof(int32_t) * (groups + 1), st);
+  if (e != cudaSuccess) return e;
+  const int rlog = 31 - __builtin_clz(run_len);
+  stream_check_kernel<T, KV, DESC><<<1024, 256, 0, st>>>((const T*)buf, (const int32_t*)rbuf,
+                                                         n_val, rlog, rlog + L, groups, flags,
+                                                         starts, lens);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
   stream_merge_kernel<T, KV, DESC, L, M><<<(unsigned)grid, 32 << L, smem, st>>>(
       (const T*)buf, (const int32_t*)rbuf, (T*)out, (int32_t*)out_r, n_val, n_out, run_len, C, w,
-      groups, spg);
+      groups, spg, flags);
   return cudaGetLastError();
 }
 
@@ -614,6 +657,7 @@ struct Args {
   void *out, *out_r;
   long long n_val, n_out;
   int run_len, C, w, groups, spg, grid;
+  int32_t* check;      // the check's flags (groups + 1), the runs' starts and lens
   cudaStream_t st;
   int* per_sm;         // set: report occupancy instead of launching
   long long* smem;     // set: report the footprint instead of launching
@@ -624,7 +668,7 @@ static cudaError_t run(const Args& a) {
   if (a.per_sm) return occupancy<T, KV, DESC, L, M>(a.w, a.per_sm);
   if (a.smem) return footprint<T, KV, DESC, L, M>(a.w, a.smem);
   return launch<T, KV, DESC, L, M>(a.buf, a.rbuf, a.out, a.out_r, a.n_val, a.n_out, a.run_len,
-                                   a.C, a.w, a.groups, a.spg, a.grid, a.st);
+                                   a.C, a.w, a.groups, a.spg, a.grid, a.check, a.st);
 }
 
 template <typename T, bool KV, bool DESC, int L>
@@ -682,18 +726,37 @@ extern "C" int flims_stream_merge_occupancy(int dtype, int kv, int desc, int L, 
 }
 
 // One pass: `groups` = runs / 2^L groups of C-blocks, `spg` spans per group,
-// `grid` persistent CTAs.
+// `grid` persistent CTAs. `check`: groups + 1 + 2 runs int32 of scratch.
+// Groups holding a NaN, or a run out of the call's order, are left by the
+// streamed kernel and merged by the wide form (csrc/wide_merge.cu, `steps`
+// search steps, its meta / tables / scratch / ctas as flims_wide_tree takes
+// them at ntot = n_val), on the card: its kernels return at once where no
+// group is flagged. The wide form indexes in int32: n_val < 2^31.
+extern "C" int flims_wide_tree(int dtype, int kv, int desc, int sel_max, int L, const void* ka,
+                               const void* ra, const void* kb, const void* rb, int pairs,
+                               const void* starts, const void* lens, int runs, int n_out, int C,
+                               int w, int steps, const void* only, void* meta, void* tables,
+                               long long ntot, void* scratch, int ctas, void* out, void* out_r,
+                               void* stream);
 extern "C" int flims_stream_merge(int dtype, int kv, int desc, int L, const void* buf,
                                   const void* rbuf, void* out, void* out_r, long long n_val,
                                   long long n_out, int run_len, int C, int w, int groups,
-                                  int spg, int grid, void* stream) {
+                                  int spg, int grid, void* check, int steps, void* wmeta,
+                                  void* tables, void* wscratch, int wctas, void* stream) {
   const long long glen = (long long)run_len << L;
-  if (C < w || C % w || run_len < w || run_len % w || groups <= 0 || glen % C || n_out < n_val ||
-      n_val != glen * groups || spg < 1 || spg > glen / C || grid < 1)
+  if (C < w || C % w || run_len < w || (run_len & (run_len - 1)) || run_len % w || groups <= 0 ||
+      glen % C || n_out < n_val || n_val != glen * groups || n_val > 0x7fffffffLL || spg < 1 ||
+      spg > glen / C || grid < 1)
     return cudaErrorInvalidValue;
   flims::Args a{buf, rbuf, out, out_r, n_val, n_out, run_len, C, w, groups, spg, grid,
-                (cudaStream_t)stream, nullptr, nullptr};
-  return flims::dispatch(dtype, kv, desc, L, a);
+                (int32_t*)check, (cudaStream_t)stream, nullptr, nullptr};
+  const int e = flims::dispatch(dtype, kv, desc, L, a);
+  if (e != cudaSuccess) return e;
+  const int32_t* flags = (const int32_t*)check;
+  const int32_t* starts = flags + groups + 1;
+  return flims_wide_tree(dtype, kv, desc, 0, L, buf, rbuf, buf, rbuf, 0, starts,
+                         starts + (groups << L), groups << L, (int)n_val, C, w, steps, flags,
+                         wmeta, tables, L > 1 ? n_val : 0, wscratch, wctas, out, out_r, stream);
 }
 
 #ifdef K8_PROFILE

@@ -46,8 +46,12 @@ VARIANT_MAP = {"pallas": "cuda", "tree_pallas": "tree_cuda", "xla": "torch",
                "flims": "flims"}
 #: JAX backend name -> the port's
 BACKEND_MAP = {"tpu": "cuda", "gpu": "cuda", "cuda": "cuda", "cpu": "cpu"}
-#: key dtypes the CUDA kernels take
-KERNEL_DTYPES = ("int32", "float32")
+#: key dtypes the CUDA kernels take: every dtype of at most 32 bits, the
+#: narrow ones widened to int32 / float32 around each launch
+#: (``kernels/_build.widen``), as the JAX heuristic runs its kernels on the
+#: TPU whatever the key dtype
+KERNEL_DTYPES = ("int8", "uint8", "int16", "uint16", "int32", "uint32",
+                 "float16", "bfloat16", "float32")
 
 
 @dataclasses.dataclass(frozen=True)

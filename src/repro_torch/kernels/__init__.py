@@ -11,12 +11,16 @@
                         pairs, the tree_vmapped executor (csrc/lane_merge.cu)
     stream_merge.py     K8: streaming k-way merge of uniform runs, the
                         out-of-core sort's phase 2 (csrc/stream_merge.cu)
+                        (K2 / K3, K4, K8 and K9 past their fast kernels'
+                        w, levels and fan-in: csrc/wide_merge.cu)
     ops.py              kernel_sort / kernel_argsort / merge / sort_rows
     ref.py              torch oracles
 
 Each wrapper launches its kernel for a CUDA tensor and runs its plain
 version for a CPU tensor; its ``*_plain`` twin runs the plain version on any
-device. ``launch_counts()`` reads the launches per wrapper.
+device. Keys of any dtype of at most 32 bits go through both widened to
+int32 / float32 and narrowed back (``_build.widen`` / ``narrow``).
+``launch_counts()`` reads the launches per wrapper.
 """
 from repro_torch.kernels._build import (KernelError, launch_counts,
                                         reset_launches)

@@ -130,9 +130,10 @@ def _sort_chunks(x, cuda: bool):
     _check("sort_chunks", x)
     if x.shape[0] == 0:
         return x.clone()
-    if cuda:
-        return _launch("sort_chunks", x, None, True)[0]
-    return _bitonic_rows_desc(x)
+    dt, x = x.dtype, _build.widen(x)
+    out = _launch("sort_chunks", x, None, True)[0] if cuda \
+        else _bitonic_rows_desc(x)
+    return _build.narrow(out, dt)
 
 
 def _sort_chunks_kv(k, r, descending: bool, cuda: bool):
@@ -141,9 +142,10 @@ def _sort_chunks_kv(k, r, descending: bool, cuda: bool):
         raise ValueError("sort_chunks_kv: int32 ranks shaped like the keys")
     if k.shape[0] == 0:
         return k.clone(), r.clone()
-    if cuda:
-        return _launch("sort_chunks_kv", k, r, descending)
-    return _bitonic_rows_kv(k, r, descending)
+    dt, k = k.dtype, _build.widen(k)
+    out = _launch("sort_chunks_kv", k, r, descending) if cuda \
+        else _bitonic_rows_kv(k, r, descending)
+    return _build.narrow_keys(out, dt)
 
 
 @obs.scoped("kernels.sort_chunks")

@@ -14,7 +14,10 @@ and run the plain version below for a CPU tensor; ``flims_merge_plain`` /
 the TPU kernel's arithmetic vectorised over blocks; the CPU tests hold it
 against the JAX kernel and ``chip_smoke.py`` holds the CUDA kernel against
 it. Key-only lanes merge descending with XLA's max/min rule; KV lanes by
-(key in the call's direction, rank ascending).
+(key in the call's direction, rank ascending). Past ``MAX_W`` the card
+runs :func:`wide_tree`, the wide form of ``csrc/wide_merge.cu`` that K4
+and K8 also take past their fast kernels' levels and widths. Keys of any
+dtype of at most 32 bits run widened (``_build.widen``).
 """
 from __future__ import annotations
 
@@ -346,6 +349,65 @@ def resident_ctas(code: int, kv: bool, descending: bool, w: int,
     return _per_sm[key]
 
 
+#: the widest w of the fast K2 / K3 kernel (a warp's registers hold w / 32
+#: lanes a thread); wider merges run the wide form (csrc/wide_merge.cu)
+MAX_W = 1024
+
+
+def wide_buffers(name, dev, *, kv: bool, runs: int, L: int, w: int, C: int,
+                 G: int, ntot: int):
+    """Device scratch of one launch of the wide tree form
+    (``csrc/wide_merge.cu``) and its CTA count: ``(meta, tables, scratch,
+    ctas)``, as ``flims_wide_tree`` takes them. ``ntot`` is the runs' total
+    length (0 at ``L == 1``, which has no inner tables)."""
+    per_cta = _build.library().flims_wide_tree_scratch(int(kv), L, w, C)
+    if per_cta < 0:
+        raise _build.KernelError(f"{name}: no wide form at L={L}, w={w}, "
+                                 f"C={C}")
+    ctas = max(1, min(G, 2 * torch.cuda.get_device_properties(
+        dev).multi_processor_count))
+    meta = torch.empty(runs + 1 + 2 * (runs // (1 << L) + 1),
+                       dtype=torch.int32, device=dev)
+    tables = torch.empty((L - 1) * ntot * (2 if kv else 1),
+                         dtype=torch.int32, device=dev)
+    scratch = torch.empty(ctas * per_cta, dtype=torch.uint8, device=dev)
+    return meta, tables, scratch, ctas
+
+
+def wide_tree(name, ka, ra, kb, rb, starts, lens, *, L: int, n_out: int,
+              C: int, w: int, steps: int, descending: bool, sel_max: bool,
+              pairs: bool, G: int, ntot=None):
+    """One launch of the wide tree form (``csrc/wide_merge.cu``): every
+    group of ``2^L`` runs (run r is ``k[starts[r] :+ lens[r]]``, ``k`` the
+    buffer ``kb`` for odd runs where ``pairs``, else ``ka``) merged through
+    ``L`` levels in C-wide output blocks, the JAX kernels' nested co-ranks
+    and FLiMS dataflow at any ``w`` and ``L``. ``G`` bounds the blocks;
+    ``ntot`` is the runs' total length (read from ``lens`` when not given;
+    only ``L > 1`` needs it, for the inner levels' tables). Returns
+    ``(keys,)`` or ``(keys, ranks)`` of ``n_out``."""
+    kv = ra is not None
+    dev = ka.device
+    starts = starts.to(device=dev, dtype=torch.int32).contiguous()
+    lens = lens.to(device=dev, dtype=torch.int32).contiguous()
+    _build.check_cuda(name, ka, ra, kb, rb, starts, lens)
+    code = _build.dtype_code(name, ka.dtype)
+    runs = starts.shape[0]
+    if L > 1 and ntot is None:
+        ntot = int(lens.sum())
+    ntot = ntot if L > 1 else 0
+    meta, tables, scratch, ctas = wide_buffers(
+        name, dev, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=ntot)
+    out = (torch.empty(n_out, dtype=ka.dtype, device=dev),) + ((
+        torch.empty(n_out, dtype=torch.int32, device=dev),) if kv else ())
+    P = _build.ptr
+    _build.launch(name, "flims_wide_tree", code, int(kv), int(descending),
+                  int(sel_max), L, P(ka), P(ra), P(kb), P(rb), int(pairs),
+                  P(starts), P(lens), runs, n_out, C, w, steps, None,
+                  P(meta), P(tables), ntot, P(scratch), ctas, P(out[0]),
+                  P(out[1] if kv else None), _build.stream(dev))
+    return out
+
+
 def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
                       *, n_out: int, C: int, w: int, G: int,
                       descending: bool, ctas: int = 0):
@@ -368,6 +430,16 @@ def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
             a_lens.shape[0] == b_starts.shape[0] == b_lens.shape[0] == R):
         raise _build.KernelError(f"{name}: run vectors of one length")
     dev = a.device
+    if w > MAX_W:
+        if a_starts is None:
+            zero = torch.zeros(1, dtype=torch.int32, device=dev)
+            a_starts, b_starts = zero, zero
+            a_lens, b_lens = zero + a.shape[0], zero + b.shape[0]
+        return wide_tree(
+            name, a, ra, b, rb, torch.stack([a_starts, b_starts], 1).view(-1),
+            torch.stack([a_lens, b_lens], 1).view(-1), L=1, n_out=n_out, C=C,
+            w=w, steps=search_steps(n_out), descending=descending,
+            sel_max=not kv, pairs=True, G=G)
     # out_off and blk0 of the pairs, written on the card
     meta = torch.empty(2 * (R + 1), dtype=torch.int32, device=dev) \
         if R > 1 else None
@@ -393,14 +465,18 @@ def _merge_one(name, a, ra, b, rb, *, w, block_out, descending, cuda,
     C = block_size(n_out, w, block_out)
     G = -(-n_out // C)
     dev = a.device
+    dt = a.dtype
+    a, b = _build.widen(a), _build.widen(b)
     if cuda:
-        return merge_blocks_cuda(name, a, ra, b, rb, None, None, None, None,
-                                 n_out=n_out, C=C, w=w, G=G,
-                                 descending=descending, ctas=ctas)
-    zero = torch.zeros(1, dtype=torch.int64, device=dev)
-    return merge_blocks_plain(a, ra, b, rb, zero, zero + a.shape[0], zero,
-                              zero + b.shape[0], n_out=n_out, C=C, w=w, G=G,
-                              descending=descending)
+        out = merge_blocks_cuda(name, a, ra, b, rb, None, None, None, None,
+                                n_out=n_out, C=C, w=w, G=G,
+                                descending=descending, ctas=ctas)
+    else:
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = merge_blocks_plain(a, ra, b, rb, zero, zero + a.shape[0], zero,
+                                 zero + b.shape[0], n_out=n_out, C=C, w=w,
+                                 G=G, descending=descending)
+    return _build.narrow_keys(out, dt)
 
 
 def _flims_merge(a, b, w, block_out, cuda, ctas=0):

@@ -14,8 +14,9 @@ pair).
 (key, int32 rank) pairs under the compound order (algorithm 3). Pair ``p``
 merges ``a[a_starts[p]:+a_lens[p]]`` with ``b[b_starts[p]:+b_lens[p]]``;
 the merged pairs are concatenated in pair order and cut at ``n_out``. Both
-launch the kernel for CUDA tensors (int32 or float32 keys, w a power of two
-up to 128; anything else raises ``KernelError``) and run the plain version,
+launch the kernel for CUDA tensors (keys of at most 32 bits, widened to
+int32 / float32 by ``_build.widen``; w a power of two, past 128 the wide
+lane form of ``csrc/wide_merge.cu``, a CTA a pair) and run the plain version,
 the batched ``core.lanes.merge_lanes`` over the pairs gathered into rows,
 for CPU tensors. ``lane_merge_plain`` / ``lane_merge_kv_plain`` run the plain
 version on any device. Results are ``merge_lanes``' bit for bit: +0.0 /
@@ -123,8 +124,8 @@ def _launch(name, a, ra, b, rb, starts, run_len, pairs, n_out, w, tie,
     chains run whole (``cycles`` 0) or in blocks of ``cycles``."""
     code = _build.dtype_code(name, a.dtype)
     if w > MAX_W:
-        raise _build.KernelError(f"{name}: w={w} above the kernel's "
-                                 f"{MAX_W}")
+        return _launch_wide(name, code, a, ra, b, rb, starts, run_len, pairs,
+                            n_out, w, tie)
     _build.check_cuda(name, a, ra, b, rb, *(starts or ()))
     out = torch.empty(n_out, dtype=a.dtype, device=a.device)
     rout = None if ra is None else torch.empty(n_out, dtype=torch.int32,
@@ -140,6 +141,36 @@ def _launch(name, a, ra, b, rb, starts, run_len, pairs, n_out, w, tie,
                       pairs, cycles, _build.ptr(flags), n_out,
                       _build.ptr(out), _build.ptr(rout),
                       _build.stream(a.device))
+    return out, rout
+
+
+def _launch_wide(name, code, a, ra, b, rb, starts, run_len, pairs, n_out, w,
+                 tie):
+    """K9 past ``MAX_W``: the lane form of ``csrc/wide_merge.cu``, a CTA a
+    pair running its whole chain with the lanes in shared memory. A uniform
+    level's five pair vectors are made here."""
+    dev = a.device
+    if starts is None:
+        a_st = torch.arange(pairs, dtype=torch.int32, device=dev) * (
+            2 * run_len)
+        ln = torch.full((pairs,), run_len, dtype=torch.int32, device=dev)
+        starts = (a_st, ln, a_st + run_len, ln, a_st)
+    _build.check_cuda(name, a, ra, b, rb, *starts)
+    out = torch.empty(n_out, dtype=a.dtype, device=dev)
+    rout = None if ra is None else torch.empty(n_out, dtype=torch.int32,
+                                               device=dev)
+    if pairs and n_out:
+        lib = _build.library()
+        ctas = max(1, min(pairs, 2 * torch.cuda.get_device_properties(
+            dev).multi_processor_count))
+        per_cta = lib.flims_lane_wide_scratch(int(ra is not None), w)
+        scratch = torch.empty(max(ctas * per_cta, 1), dtype=torch.uint8,
+                              device=dev)
+        P = _build.ptr
+        _build.launch(name, "flims_lane_wide", code, int(ra is not None),
+                      int(tie == "skew"), w, P(a), P(ra), P(b), P(rb),
+                      *map(P, starts), pairs, n_out, P(scratch), ctas,
+                      P(out), P(rout), _build.stream(dev))
     return out, rout
 
 
@@ -198,9 +229,10 @@ def _run(name, a, ra, b, rb, starts, n_out, w, tie, cuda):
     _check(name, a, b, ra, rb, starts, w, tie, n_out)
     if ra is not None:
         ra, rb = ra.to(torch.int32), rb.to(torch.int32)
-    if cuda:
-        return _cuda(name, a, ra, b, rb, *starts, n_out, w, tie)
-    return _plain(a, ra, b, rb, *starts, n_out, w, tie)
+    dt, a, b = a.dtype, _build.widen(a), _build.widen(b)
+    out = _cuda(name, a, ra, b, rb, *starts, n_out, w, tie) if cuda \
+        else _plain(a, ra, b, rb, *starts, n_out, w, tie)
+    return _build.narrow_keys(out, dt)
 
 
 @obs.scoped("kernels.lane_merge")
@@ -249,13 +281,15 @@ def _level(buf, ranks, run_len, w, tie, cuda, chain=False, cycles=None):
     _check(name, buf, buf, ranks, ranks, (buf,), w, tie, n)
     if ranks is not None:
         ranks = ranks.to(torch.int32)
+    dt, buf = buf.dtype, _build.widen(buf)
     if cuda:
         blocks = 1
         if P and w <= MAX_W and not chain:
             cycles, blocks = level_blocks(buf, ranks, run_len, w=w, tie=tie,
                                           cycles=cycles)
-        return _launch(name, buf, ranks, buf, ranks, None, run_len, P, n, w,
-                       tie, cycles=cycles if blocks > 1 else 0)
+        return _build.narrow_keys(_launch(
+            name, buf, ranks, buf, ranks, None, run_len, P, n, w, tie,
+            cycles=cycles if blocks > 1 else 0), dt)
     rows = lambda x: x.reshape(P, 2, run_len)
     A, B = {KEY: rows(buf)[:, 0]}, {KEY: rows(buf)[:, 1]}
     if ranks is not None:
@@ -263,8 +297,8 @@ def _level(buf, ranks, run_len, w, tie, cuda, chain=False, cycles=None):
     out = merge_lanes(A, B, w=w, tie=tie,
                       compare=key_compare if ranks is None else
                       stable_compare)
-    return out[KEY].reshape(-1), (None if ranks is None else
-                                  out[RANK].reshape(-1))
+    return _build.narrow(out[KEY].reshape(-1), dt), (
+        None if ranks is None else out[RANK].reshape(-1))
 
 
 @obs.scoped("kernels.lane_merge_level")

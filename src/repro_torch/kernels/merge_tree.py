@@ -17,7 +17,12 @@ the flat blocks cut into spans at group boundaries (:func:`tree_spans`),
 one partition per span (:func:`leaf_count_partition`) and the tree
 streamed to the span's end through shared-memory FIFOs (:func:`tree_smem`).
 Its output does not depend on the split, which is why the plain version,
-one block at a time, is its reference.
+one block at a time, is its reference. Past three fused levels or outside
+w in [8, 128] the card runs the wide tree form
+(``flims_merge.wide_tree``, ``csrc/wide_merge.cu``: the same partition
+and dataflow, a CTA a node). The streamed kernel needs NaN-free runs in
+the call's order: a check in the same C call flags the other groups, and
+the wide form merges them there, on the card.
 """
 from __future__ import annotations
 
@@ -31,12 +36,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flims_merge import (_exclusive_cumsum, block_size,
                                              bound_keys, dataflow, guard,
                                              nonempty, run_elem, run_rows,
-                                             search_steps, wins_fn)
+                                             search_steps, wide_buffers,
+                                             wide_tree, wins_fn)
 
 #: shared memory one CTA may use on Hopper (232,448 bytes)
 MAX_SMEM = 232448
+#: the fast CUDA kernel's fused levels and FLiMS widths (the planner's
+#: range, one warp per node); any other group or width runs the wide form
+#: (``flims_merge.wide_tree``)
 MAX_LEVELS = 3
-#: the CUDA kernel's FLiMS widths: the planner's range, one warp per node
 W_MIN, W_MAX = 8, 128
 
 _per_sm: dict = {}
@@ -357,32 +365,44 @@ def _merge_tree_cuda(name, buf, rbuf, starts, lens, *, group, n_out, C, w, G,
                      descending, ctas):
     kv = rbuf is not None
     L = group.bit_length() - 1
-    if L > MAX_LEVELS:
-        raise _build.KernelError(f"{name}: at most {MAX_LEVELS} fused levels")
     if not kv and not descending:
         raise _build.KernelError(f"{name}: key-only lanes merge descending")
-    if not W_MIN <= w <= W_MAX:
-        raise _build.KernelError(
-            f"{name}: the CUDA kernel runs one warp per tree node at w in "
-            f"[{W_MIN}, {W_MAX}], got w={w}")
+    steps = search_steps(n_out)
+    if L > MAX_LEVELS or not W_MIN <= w <= W_MAX:
+        # past one warp a node: the wide form, a CTA a node
+        return wide_tree(name, buf, rbuf, buf, rbuf, starts, lens, L=L,
+                         n_out=n_out, C=C, w=w, steps=steps,
+                         descending=descending, sel_max=False, pairs=False,
+                         G=G)
     starts = starts.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     _build.check_cuda(name, buf, rbuf, starts, lens)
     code = _build.dtype_code(name, buf.dtype)
     if rbuf is not None and rbuf.dtype != torch.int32:
         raise _build.KernelError(f"{name}: int32 rank lanes")
-    n_groups = starts.shape[0] // group
-    # the kernel's group table (offsets and first blocks), written on the card
-    meta = torch.empty(2 * (n_groups + 1), dtype=torch.int32,
+    runs = starts.shape[0]
+    n_groups = runs // group
+    # the group table (offsets and first blocks) and the check's flags,
+    # written on the card
+    meta = torch.empty(3 * (n_groups + 1), dtype=torch.int32,
                        device=buf.device)
     out = torch.empty(n_out, dtype=buf.dtype, device=buf.device)
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
+    # groups holding a NaN or a run out of order: the same call merges them
+    # by the wide form (the streamed partition and its restarts need
+    # NaN-free runs in order), which returns at once where there are none.
+    # Its tables hold max(n_out, len(buf)) lanes a level, the runs' total
+    # (read on the card) wherever they do not overlap
+    wtot = max(n_out, buf.shape[0]) if L > 1 else 0
+    wmeta, tables, wscratch, wctas = wide_buffers(
+        name, buf.device, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=wtot)
     ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
     P = _build.ptr
     _build.launch(name, "flims_merge_tree", code, int(kv), int(descending),
                   L, P(buf), P(rbuf), P(starts), P(lens), P(meta), P(out),
-                  P(out_r), n_groups, n_out, C, w, min(ctas, G),
+                  P(out_r), n_groups, n_out, C, w, min(ctas, G), steps,
+                  P(wmeta), P(tables), wtot, P(wscratch), wctas,
                   _build.stream(buf.device))
     return (out,) if not kv else (out, out_r)
 
@@ -407,13 +427,16 @@ def _merge_tree_call(name, buf, ranks, starts, lens, *, group, n_out, w,
                                    device=buf.device)) if kv else (empty,)
     C = block_size(n_out, w, block_out)
     G = n_out // C + R // group
+    dt, buf = buf.dtype, _build.widen(buf)
     if cuda:
-        return _merge_tree_cuda(name, buf, ranks, starts, lens, group=group,
+        out = _merge_tree_cuda(name, buf, ranks, starts, lens, group=group,
+                               n_out=n_out, C=C, w=w, G=G,
+                               descending=descending, ctas=ctas)
+    else:
+        out = _merge_tree_plain(buf, ranks, starts, lens, group=group,
                                 n_out=n_out, C=C, w=w, G=G,
-                                descending=descending, ctas=ctas)
-    return _merge_tree_plain(buf, ranks, starts, lens, group=group,
-                             n_out=n_out, C=C, w=w, G=G,
-                             descending=descending)
+                                descending=descending)
+    return _build.narrow_keys(out, dt)
 
 
 @obs.scoped("kernels.merge_tree")

@@ -15,10 +15,14 @@ Counterpart of ``repro/kernels/segmented_merge.py``.
   register network, one segment a warp up to cap 256 and a CTA above; a
   NaN-free segment sorts ``next_pow2(len)`` lanes, which leave the same
   valid prefix, and a segment holding a NaN the whole cap). Past
-  ``MAX_CAP`` / ``MAX_CAP_KV`` the card takes the JAX wrapper's own route,
-  the plain version's: ``padded_bank``, K1's launch over the whole cap (its
-  network past shared memory), ``unpad_bank``; the launch counts as K5's
-  or K6's.
+  ``MAX_CAP`` / ``MAX_CAP_KV`` the same launch runs K1's network past
+  shared memory over each wide segment's ``next_pow2(len)`` lanes (its
+  whole cap where it holds a NaN): its tiles read straight from the flat
+  keys, padded and ranked in registers, the phases above the tile as column
+  passes and tile merges over a scratch bank the kernels alone write, the
+  last phase's valid lanes stored to the flat output; a segment that fits
+  one CTA sorts whole within the same launch. ``padded_bank`` /
+  ``unpad_bank`` are the plain version's.
 - ``segment_sort_two_phase`` / ``segment_argsort_two_phase`` are K1 over
   every segment's ``chunk``-wide rows, then a ``tree_cuda`` schedule over
   each segment's ``cap // chunk`` runs (K4, or K3 at one level).
@@ -40,7 +44,7 @@ from repro_torch.core.flims import next_pow2
 from repro_torch.core.lanes import INVALID_RANK, sentinel_for
 from repro_torch.kernels import _build
 from repro_torch.kernels.bitonic_sort import (_bitonic_rows_desc,
-                                              _bitonic_rows_kv, _launch)
+                                              _bitonic_rows_kv)
 from repro_torch.kernels.flims_merge import (_corank_runs, block_size,
                                              bound_keys, merge_blocks_cuda,
                                              merge_blocks_plain)
@@ -49,7 +53,7 @@ __all__ = ["padded_bank", "unpad_bank", "segmented_merge_runs",
            "segmented_merge_runs_kv", "segmented_merge_runs_plain",
            "segmented_merge_runs_kv_plain", "segmented_merge",
            "segment_sort", "segment_sort_plain", "segment_sort_kv",
-           "segment_sort_kv_plain", "segment_argsort",
+           "segment_sort_kv_plain", "segment_argsort", "segment_widths_plain",
            "segment_sort_two_phase", "segment_argsort_two_phase",
            "MAX_CAP", "MAX_CAP_KV", "_corank_runs"]
 
@@ -99,15 +103,19 @@ def _segmented(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens, *,
     R = a_starts.shape[0]
     C = block_size(n_out, w, block_out)
     G = n_out // C + R
+    dt = a.dtype
+    a, b = _build.widen(a), _build.widen(b)
     if cuda:
         i32 = lambda t: t.to(torch.int32).contiguous()
-        return merge_blocks_cuda(
+        out = merge_blocks_cuda(
             name, a, ra, b, rb, i32(a_starts), i32(a_lens), i32(b_starts),
             i32(b_lens), n_out=n_out, C=C, w=w, G=G, descending=descending,
             ctas=ctas)
-    return merge_blocks_plain(a, ra, b, rb, a_starts, a_lens, b_starts,
-                              b_lens, n_out=n_out, C=C, w=w, G=G,
-                              descending=descending)
+    else:
+        out = merge_blocks_plain(a, ra, b, rb, a_starts, a_lens, b_starts,
+                                 b_lens, n_out=n_out, C=C, w=w, G=G,
+                                 descending=descending)
+    return _build.narrow_keys(out, dt)
 
 
 @obs.scoped("kernels.segmented_merge_runs")
@@ -204,13 +212,23 @@ def _segment_sort_cuda(name, keys, offsets, cap, kv, descending):
     offsets = offsets.to(torch.int32).contiguous()
     _build.check_cuda(name, keys, offsets)
     code = _build.dtype_code(name, keys.dtype)
+    dev = keys.device
+    S = offsets.shape[0] - 1
     out = torch.empty_like(keys)
-    perm = torch.empty(keys.shape, dtype=torch.int32, device=keys.device) \
+    perm = torch.empty(keys.shape, dtype=torch.int32, device=dev) \
         if kv else None
+    bank = bank_r = seg_log = None
+    if cap > (MAX_CAP_KV if kv else MAX_CAP):
+        # the wide path's scratch: the wide segments' rows, written and
+        # read by the kernels only
+        bank = torch.empty(S * cap, dtype=keys.dtype, device=dev)
+        bank_r = torch.empty(S * cap, dtype=torch.int32, device=dev) \
+            if kv else None
+        seg_log = torch.empty(S, dtype=torch.int32, device=dev)
     P = _build.ptr
     _build.launch(name, "flims_segment_sort", code, int(kv), int(descending),
-                  P(keys), P(offsets), P(out), P(perm), offsets.shape[0] - 1,
-                  cap, _build.stream(keys.device))
+                  P(keys), P(offsets), P(out), P(perm), S, cap, P(bank),
+                  P(bank_r), P(seg_log), _build.stream(dev))
     return (out,) if not kv else (out, perm)
 
 
@@ -218,14 +236,18 @@ def _segment_sort(values, offsets, cap, cuda):
     S, N, cap = _segment_geometry("segment_sort", values, offsets, cap)
     if S <= 0 or N == 0:
         return values.new_zeros((N,))
-    if cuda and cap <= MAX_CAP:
+    dt = values.dtype
+    return _build.narrow(_segment_sort_wide(_build.widen(values), offsets,
+                                            cap, cuda), dt)
+
+
+def _segment_sort_wide(values, offsets, cap, cuda):
+    if cuda:
         return _segment_sort_cuda("segment_sort", values, offsets, cap,
                                   False, True)[0]
     offsets = offsets.to(torch.int32)
     bank = padded_bank(values, offsets, cap)
-    out = _launch("segment_sort", bank, None, True)[0] if cuda \
-        else _bitonic_rows_desc(bank)
-    return unpad_bank(out, offsets, N)
+    return unpad_bank(_bitonic_rows_desc(bank), offsets, values.shape[0])
 
 
 def _segment_sort_kv(keys, offsets, cap, descending, cuda):
@@ -233,15 +255,21 @@ def _segment_sort_kv(keys, offsets, cap, descending, cuda):
     if S <= 0 or N == 0:
         return keys.new_zeros((N,)), torch.zeros(N, dtype=torch.int32,
                                                  device=keys.device)
-    if cuda and cap <= MAX_CAP_KV:
+    dt = keys.dtype
+    return _build.narrow_keys(_segment_sort_kv_wide(
+        _build.widen(keys), offsets, cap, descending, cuda), dt)
+
+
+def _segment_sort_kv_wide(keys, offsets, cap, descending, cuda):
+    if cuda:
         return _segment_sort_cuda("segment_sort_kv", keys, offsets, cap,
                                   True, descending)
+    N = keys.shape[0]
     offsets = offsets.to(torch.int32)
     _, last = bound_keys(keys.dtype, descending)
     bank = padded_bank(keys, offsets, cap, fill=last)
     ranks = _rank_bank(offsets, cap)
-    ok, orr = _launch("segment_sort_kv", bank, ranks, descending) if cuda \
-        else _bitonic_rows_kv(bank, ranks, descending)
+    ok, orr = _bitonic_rows_kv(bank, ranks, descending)
     return unpad_bank(ok, offsets, N), unpad_bank(orr, offsets, N)
 
 
@@ -273,6 +301,38 @@ def segment_sort_kv_plain(keys, offsets, *, cap: int = 0,
                           descending: bool = True):
     """``segment_sort_kv``' plain version, on any device."""
     return _segment_sort_kv(keys, offsets, cap, descending, False)
+
+
+def segment_widths_plain(keys, offsets, cap: int, *, kv: bool = False,
+                         descending: bool = True):
+    """The plain twin of K5 / K6's route on the card past one CTA: each
+    segment through the same network over its own width, ``next_pow2(len)``
+    lanes (the whole ``cap`` where it holds a NaN), padded with the last key
+    (and INVALID_RANK); its valid prefix is ``segment_sort(_kv)``'s. A
+    segment at a time, for tests."""
+    dt, keys = keys.dtype, _build.widen(keys)
+    offsets = offsets.long()
+    out = keys.clone()
+    perm = torch.zeros(keys.shape, dtype=torch.int32, device=keys.device)
+    _, last = bound_keys(keys.dtype, descending)
+    for s in range(offsets.shape[0] - 1):
+        o0, o1 = int(offsets[s]), int(offsets[s + 1])
+        n = o1 - o0
+        if n == 0:
+            continue
+        seg = keys[o0:o1]
+        nan = seg.is_floating_point() and bool(torch.isnan(seg).any())
+        c = cap if nan else next_pow2(n)
+        row = torch.cat([seg, seg.new_full((c - n,), last)])[None]
+        if kv:
+            rk = torch.arange(c, dtype=torch.int32, device=keys.device)
+            rk = torch.where(rk < n, rk, INVALID_RANK)[None]
+            k, r = _bitonic_rows_kv(row, rk, descending)
+            out[o0:o1], perm[o0:o1] = k[0, :n], r[0, :n]
+        else:
+            out[o0:o1] = _bitonic_rows_desc(row)[0, :n]
+    out = _build.narrow(out, dt)
+    return (out, perm) if kv else out
 
 
 def segment_argsort(keys, offsets, *, cap: int = 0, descending: bool = True):

@@ -4,7 +4,7 @@ Counterpart of ``repro/kernels/stream_merge.py``, phase 2 of the
 out-of-core sort (``engine.external_sort``) and the executor of the
 ``stream_cuda`` merge schedule. The input is one flat buffer of ``runs``
 uniform sorted runs of ``run_len`` elements (a power of two ``>= w``);
-consecutive ``fan_in = 2^L`` runs (L from 1 to 4) form a group, and every
+consecutive ``fan_in = 2^L`` runs (any L >= 1) form a group, and every
 ``C``-wide output block of a group is produced by the same nested co-rank
 partition and post-order FLiMS dataflow as K4 (``merge_tree``), with each
 leaf read from a window of ``Ha = C/w + L + 2`` rows at a run-relative
@@ -27,7 +27,13 @@ card holds, each group split into spans of consecutive blocks
 (:func:`stream_spans`), one partition per span and the tree streamed to
 the span's end through shared-memory FIFOs (:func:`stream_smem`). Its
 output does not depend on the split, which is why the plain version, one
-block at a time, is its reference.
+block at a time, is its reference. Past its fan-in (16) or widths ([8,
+128]) the card runs the wide tree form instead
+(``flims_merge.wide_tree``, ``csrc/wide_merge.cu``); a buffer off 16
+bytes goes to the fast kernel through an aligned copy. The streamed
+kernel needs NaN-free runs in the call's order: a check in the same C call
+flags the other groups, and the wide form merges them there, on the card
+(it indexes in int32, so the card takes ``runs * run_len < 2^31``).
 """
 from __future__ import annotations
 
@@ -36,13 +42,15 @@ import torch
 from repro_torch import obs
 from repro_torch.core.lanes import INVALID_RANK
 from repro_torch.kernels import _build
-from repro_torch.kernels.flims_merge import bound_keys, dataflow
+from repro_torch.kernels.flims_merge import (bound_keys, dataflow,
+                                             wide_buffers, wide_tree)
 from repro_torch.kernels.merge_tree import (_node_index, _stream_rows,
                                             _tree_meta)
 
-#: fan-in 2^L up to 16 (the JAX planner's autotune grid reaches 16)
+#: the fast CUDA kernel's fan-in 2^L (up to 16, the JAX planner's autotune
+#: grid) and FLiMS widths (the planner's range, one warp per node); any
+#: other fan-in or width runs the wide form (``flims_merge.wide_tree``)
 MAX_LEVELS = 4
-#: the CUDA kernel's FLiMS widths: the planner's range, one warp per node
 W_MIN, W_MAX = 8, 128
 
 _per_sm: dict = {}
@@ -179,29 +187,64 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
     L = fan_in.bit_length() - 1
     _build.check_cuda(name, buf, rbuf)
     code = _build.dtype_code(name, buf.dtype)
-    if not W_MIN <= w <= W_MAX:
-        raise _build.KernelError(
-            f"{name}: the CUDA kernel runs one warp per tree node at w in "
-            f"[{W_MIN}, {W_MAX}], got w={w}")
-    # leaf rows go by 16-byte bulk copies from the buffers' bases
-    for x in (buf, rbuf):
-        if x is not None and x.data_ptr() % 16:
-            raise _build.KernelError(
-                f"{name}: the CUDA kernel reads its buffers by 16-byte bulk "
-                "copies; pass a buffer whose storage offset is a multiple "
-                "of 16 bytes")
+    if L > MAX_LEVELS or not W_MIN <= w <= W_MAX:
+        return _stream_wide(name, buf, rbuf, runs=runs, run_len=run_len,
+                            L=L, w=w, C=C, n_out=n_out,
+                            descending=descending)
+    # leaf rows go by 16-byte bulk copies from the buffers' bases: a buffer
+    # off 16 bytes goes through an aligned copy
+    buf = buf if buf.data_ptr() % 16 == 0 else buf.clone()
+    if kv and rbuf.data_ptr() % 16:
+        rbuf = rbuf.clone()
     out = torch.empty(n_out, dtype=buf.dtype, device=buf.device)
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
     groups, bpg = runs // fan_in, fan_in * run_len // C
     ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
     spg = stream_spans(groups, bpg, ctas)
+    n_val = runs * run_len
+    # the check's flags and the runs' starts and lens, written on the card:
+    # groups holding a NaN or a run out of order are merged in the same
+    # call by the wide form (the streamed partition and its restarts need
+    # NaN-free runs in order), which returns at once where there are none
+    check = torch.empty(groups + 1 + 2 * runs, dtype=torch.int32,
+                        device=buf.device)
+    wmeta, tables, wscratch, wctas = wide_buffers(
+        name, buf.device, kv=kv, runs=runs, L=L, w=w, C=C, G=n_val // C,
+        ntot=n_val if L > 1 else 0)
     P = _build.ptr
     _build.launch(name, "flims_stream_merge", code, int(kv), int(descending),
-                  L, P(buf), P(rbuf), P(out), P(out_r), runs * run_len, n_out,
+                  L, P(buf), P(rbuf), P(out), P(out_r), n_val, n_out,
                   run_len, C, w, groups, spg, min(ctas, groups * spg),
-                  _build.stream(buf.device))
+                  P(check), _wide_steps(L, run_len), P(wmeta), P(tables),
+                  P(wscratch), wctas, _build.stream(buf.device))
     return (out,) if not kv else (out, out_r)
+
+
+def _wide_steps(L, run_len):
+    """The wide form's search steps over a group of 2^L runs of run_len."""
+    return ((1 << L) // 2 * run_len).bit_length()
+
+
+def _stream_wide(name, buf, rbuf, *, runs, run_len, L, w, C, n_out,
+                 descending):
+    """K8 past the fast kernel's fan-in or widths: the wide tree form over
+    the uniform runs (``_stream_plain``'s partition and dataflow: every
+    block's leaf windows lie inside their runs), then ``out_slack``
+    sentinels."""
+    dev = buf.device
+    n_val = runs * run_len
+    starts = torch.arange(runs, dtype=torch.int32, device=dev) * run_len
+    lens = torch.full((runs,), run_len, dtype=torch.int32, device=dev)
+    res = wide_tree(name, buf, rbuf, buf, rbuf, starts, lens, L=L,
+                    n_out=n_val, C=C, w=w, steps=_wide_steps(L, run_len),
+                    descending=descending, sel_max=False, pairs=False,
+                    G=n_val // C, ntot=n_val)
+    if n_out == n_val:
+        return res
+    _, last_k = bound_keys(buf.dtype, descending)
+    return tuple(torch.cat([x, x.new_full((n_out - n_val,), f)])
+                 for x, f in zip(res, (last_k, INVALID_RANK)))
 
 
 def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
@@ -210,9 +253,8 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
     holds at once); the result does not depend on it."""
     kv = ranks is not None
     L = fan_in.bit_length() - 1
-    if fan_in < 2 or fan_in & (fan_in - 1) or L > MAX_LEVELS:
-        raise ValueError(f"{name}: fan_in must be 2^L, 1 <= L <= "
-                         f"{MAX_LEVELS}, got {fan_in}")
+    if fan_in < 2 or fan_in & (fan_in - 1):
+        raise ValueError(f"{name}: fan_in must be 2^L, L >= 1, got {fan_in}")
     if runs % fan_in:
         raise ValueError(f"{name}: run count {runs} is not a multiple of "
                          f"fan_in {fan_in}")
@@ -223,6 +265,7 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
         raise ValueError(f"{name}: key-only lanes merge descending")
     n_val = runs * run_len
     need = n_val + stream_slack(fan_in, w, block_out)
+    dt, buf = buf.dtype, _build.widen(buf)
     _, last_k = bound_keys(buf.dtype, descending)
 
     def with_slack(x, fill):
@@ -235,16 +278,17 @@ def _stream_call(name, buf, ranks, *, runs, run_len, fan_in, w, block_out,
         ranks = with_slack(ranks.to(torch.int32), INVALID_RANK)
     C = _block(block_out, run_len, fan_in, w)
     if cuda:
-        return _stream_cuda(name, buf, ranks, runs=runs, run_len=run_len,
-                            fan_in=fan_in, w=w, C=C, n_out=n_val + out_slack,
-                            descending=descending, ctas=ctas)
+        return _build.narrow_keys(_stream_cuda(
+            name, buf, ranks, runs=runs, run_len=run_len, fan_in=fan_in, w=w,
+            C=C, n_out=n_val + out_slack, descending=descending, ctas=ctas),
+            dt)
     out = _stream_plain(buf, ranks, runs=runs, run_len=run_len,
                         fan_in=fan_in, w=w, C=C, descending=descending)
-    if not out_slack:
-        return out
-    fills = (last_k, INVALID_RANK)
-    return tuple(torch.cat([x, x.new_full((out_slack,), f)])
-                 for x, f in zip(out, fills))
+    if out_slack:
+        fills = (last_k, INVALID_RANK)
+        out = tuple(torch.cat([x, x.new_full((out_slack,), f)])
+                    for x, f in zip(out, fills))
+    return _build.narrow_keys(out, dt)
 
 
 @obs.scoped("kernels.stream_merge")

@@ -65,6 +65,8 @@ def card():
 
 
 def _bits(t):
+    if t.dtype in (torch.float16, torch.bfloat16):
+        return t.view(torch.int16)
     return t.view(torch.int32) if t.dtype == torch.float32 else t
 
 
@@ -76,6 +78,9 @@ def _same_on_card(fn, *args, **kw):
     got = got if isinstance(got, tuple) else (got,)
     exp = exp if isinstance(exp, tuple) else (exp,)
     for g, e in zip(got, exp):
+        if g is None or e is None:       # a form without its rank lane
+            assert g is None and e is None
+            continue
         assert g.shape == e.shape and g.dtype == e.dtype
         bad = (_bits(g) != _bits(e)).flatten().nonzero()
         assert not bad.numel(), (
@@ -310,6 +315,98 @@ def test_k4_nan_rows_match_plain(card, w, lens):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kv", [False, True])
+def test_k4_k8_nan_groups_match_plain(card, kv):
+    """Groups holding a NaN, cut into many output blocks: the streamed
+    trees' partition and their restarts assume an order, which NaNs break
+    (on such runs the fast K4 wrote other bits, or read out of bounds), so
+    K4 and K8 leave those groups to the wide form (the JAX kernel's
+    per-block partition and dataflow) and stream the rest; every group
+    against the plain version, under forced CTA counts (KV lanes
+    ascending, on runs sorted so)."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    lens = [64, 0, 33, 300, 1, 128, 7, 190, 5, 64, 0, 0, 257, 3, 64, 40] * 2
+    desc = not kv
+    # NaNs in every other run of 4: groups of 2 and 4 with and without them
+    buf = T(np.concatenate([nan_run(n, desc) if i % 8 < 4 else run(n, desc)
+                            for i, n in enumerate(lens)])).to(card)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    st, ln = T(off[:-1]).to(card), T(np.diff(off).astype(np.int32)).to(card)
+    rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+    for group, w, bo in ((2, 32, 256), (4, 32, 256), (8, 8, 128),
+                         (4, 128, 512)):
+        for ctas in (1, 0):
+            reset_launches()
+            if kv:
+                _same_on_card(TT.merge_tree_runs_kv, buf, rk, st, ln,
+                              group=group, n_out=buf.numel() - 3, w=w,
+                              block_out=bo, descending=False, _ctas=ctas)
+            else:
+                _same_on_card(TT.merge_tree_runs, buf, st, ln, group=group,
+                              n_out=buf.numel(), w=w, block_out=bo,
+                              _ctas=ctas)
+            assert sum(launch_counts().values()) == 1
+    k = np.concatenate([nan_run(512, desc) if i % 8 < 4 else run(512, desc)
+                        for i in range(16)])
+    kw = dict(runs=16, run_len=512, fan_in=4, w=32, block_out=256)
+    for ctas in (3, 0):
+        if kv:
+            _same_on_card(TK8.stream_merge_runs_kv, T(k).to(card),
+                          torch.arange(k.size, dtype=torch.int32,
+                                       device=card), descending=False,
+                          _ctas=ctas, **kw)
+        else:
+            _same_on_card(TK8.stream_merge_runs, T(k).to(card), out_slack=3,
+                          _ctas=ctas, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [False, True])
+def test_k4_k8_unsorted_runs_match_plain(card, kv):
+    """Runs not sorted in the call's order (int16 keys, the dtype's min and
+    max among them, one sorted run in each group of four but the last):
+    the streamed trees would read past a run on such input, so the check
+    in the same call hands their groups to the wide form; every group
+    against the plain version, which gives the JAX kernel's bits (CPU test
+    ``test_k4_k8_unsorted_int16_runs_match_jax``), one launch a call."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    runs, run_len = 16, 512
+    info = np.iinfo(np.int16)
+    rng = np.random.default_rng(5)
+    x = rng.integers(info.min, info.max, runs * run_len, endpoint=True,
+                     dtype=np.int16)
+    x[:4] = (info.min, info.max, info.min, info.max)
+    for r in range(runs):
+        if r % 4 == 0 or r >= 12:       # the last group sorted throughout
+            seg = x[r * run_len:(r + 1) * run_len]
+            seg[:] = np.sort(seg)[::-1] if not kv else np.sort(seg)
+    k = T(x).to(card)
+    rk = torch.arange(k.numel(), dtype=torch.int32, device=card)
+    st = torch.arange(runs, dtype=torch.int32, device=card) * run_len
+    ln = torch.full((runs,), run_len, dtype=torch.int32, device=card)
+    for group, w, bo in ((4, 32, 256), (2, 128, 512), (8, 8, 128)):
+        for ctas in (1, 0):
+            reset_launches()
+            if kv:
+                _same_on_card(TT.merge_tree_runs_kv, k, rk, st, ln,
+                              group=group, n_out=k.numel(), w=w,
+                              block_out=bo, descending=False, _ctas=ctas)
+            else:
+                _same_on_card(TT.merge_tree_runs, k, st, ln, group=group,
+                              n_out=k.numel(), w=w, block_out=bo,
+                              _ctas=ctas)
+            assert sum(launch_counts().values()) == 1
+    kw = dict(runs=runs, run_len=run_len, fan_in=4, w=32, block_out=256)
+    for ctas in (3, 0):
+        if kv:
+            _same_on_card(TK8.stream_merge_runs_kv, k, rk, descending=False,
+                          _ctas=ctas, **kw)
+        else:
+            _same_on_card(TK8.stream_merge_runs, k, out_slack=3,
+                          _ctas=ctas, **kw)
+
+
+@pytest.mark.cuda
 def test_k4_footprint_does_not_depend_on_block(card):
     """The streaming tree's shared memory (rings, mbarriers, partition
     windows), read from the compiled kernel, depends on (L, w, lanes) and
@@ -342,23 +439,28 @@ def test_k4_footprint_does_not_depend_on_block(card):
 
 @pytest.mark.cuda
 def test_k4_refuses_before_launch(card):
-    """What the streaming tree cannot run raises ``KernelError`` before any
-    launch: w past 128 (one warp per node holds at most four lanes a
-    thread) or under 8, more than three fused levels."""
-    from repro_torch.kernels import KernelError, launch_counts
-    buf, st, ln = (T(v).to(card) for v in ragged([64] * 16))
+    """What the streaming tree cannot run (w past 128 or under 8, more than
+    three fused levels: it refused these before) runs the wide form and
+    matches the plain version, key-only and KV in both directions, on
+    ragged runs holding NaNs of two payloads and +0.0 / -0.0, one launch a
+    call."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    lens = [64, 0, 33, 100, 1, 64, 7, 90, 5, 64, 0, 0, 128, 3, 64, 40] * 2
+    buf = T(np.concatenate([nan_run(n) for n in lens])).to(card)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    st, ln = T(off[:-1]).to(card), T(np.diff(off).astype(np.int32)).to(card)
     rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
-    before = dict(launch_counts())
-    for w in (4, 256):
-        with pytest.raises(KernelError, match="w in"):
-            TT.merge_tree_runs(buf, st, ln, group=4, n_out=buf.numel(), w=w,
-                               block_out=256)
-        with pytest.raises(KernelError, match="w in"):
-            TT.merge_tree_runs_kv(buf, rk, st, ln, group=4,
-                                  n_out=buf.numel(), w=w, block_out=256)
-    with pytest.raises(KernelError, match="levels"):
-        TT.merge_tree_runs(buf, st, ln, group=16, n_out=buf.numel(), w=32)
-    assert dict(launch_counts()) == before
+    for group, w in ((4, 4), (4, 256), (16, 32), (32, 8), (2, 1)):
+        for bo in (64, 512):
+            reset_launches()
+            n_out = buf.numel() - 17
+            _same_on_card(TT.merge_tree_runs, buf, st, ln, group=group,
+                          n_out=n_out, w=w, block_out=bo)
+            assert launch_counts() == {"merge_tree_runs": 1}
+            for d in (True, False):
+                _same_on_card(TT.merge_tree_runs_kv, buf, rk, st, ln,
+                              group=group, n_out=n_out, w=w, block_out=bo,
+                              descending=d)
 
 
 @pytest.mark.cuda
@@ -604,23 +706,31 @@ def test_past_shared_memory_shapes_match_plain(card):
 
 @pytest.mark.cuda
 def test_open_refusals_raise(card):
-    """Parameters the JAX kernels take and the port's refuse (ROADMAP queue
-    3, open): K2 / K3 at w 2048 (the CUDA kernels take w up to 1024) and
-    K8 at fan-in 32 (at most 16, its plain version too). K4's and K9's
-    refusals are ``test_k4_refuses_before_launch`` and
-    ``test_lane_merge_refuses_before_launch``."""
-    from repro_torch.kernels import KernelError
-    a = torch.arange(4096, 0, -1, device=card).float()
-    with pytest.raises(KernelError):
-        TF.flims_merge(a, a, w=2048, block_out=8192)
-    z = torch.zeros(1, dtype=torch.int32, device=card)
-    n = torch.full((1,), 4096, dtype=torch.int32, device=card)
-    with pytest.raises(KernelError):
-        TS.segmented_merge_runs(a, a, z, n, z, n, n_out=8192, w=2048,
-                                block_out=8192)
-    with pytest.raises(ValueError, match="fan_in"):
-        TK8.stream_merge_runs(torch.zeros(32 * 128, device=card), runs=32,
-                              run_len=128, fan_in=32, w=32, block_out=4096)
+    """Parameters the JAX kernels take and the port's refused before
+    (ROADMAP queue 3): K2 / K3 at w 2048 and 4096 (the fast kernel takes w
+    up to 1024) and K8 at fan-in 32, now run and match their plain versions
+    on NaN / +-0 runs, key-only and KV."""
+    a = T(nan_run(4096)).to(card)
+    b = T(nan_run(3001)).to(card)
+    ra = torch.arange(4096, dtype=torch.int32, device=card)
+    rb = 4096 + torch.arange(3001, dtype=torch.int32, device=card)
+    for w in (2048, 4096):
+        _same_on_card(TF.flims_merge, a, b, w=w, block_out=8192)
+        _same_on_card(TF.flims_merge_kv, a, ra, b, rb, w=w, block_out=4096)
+    buf, st, ln = (T(v).to(card) for v in ragged([4000, 0, 2500, 3000]))
+    n = int(ln.sum())
+    rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+    _same_on_card(TS.segmented_merge_runs, buf, buf, st[::2], ln[::2],
+                  st[1::2], ln[1::2], n_out=n - 3, w=2048, block_out=4096)
+    _same_on_card(TS.segmented_merge_runs_kv, buf, rk, buf, rk, st[::2],
+                  ln[::2], st[1::2], ln[1::2], n_out=n, w=2048,
+                  block_out=2048)
+    k = np.concatenate([nan_run(128) for _ in range(64)])
+    kw = dict(runs=64, run_len=128, fan_in=32, w=32, block_out=1024)
+    _same_on_card(TK8.stream_merge_runs, T(k).to(card), out_slack=7, **kw)
+    _same_on_card(TK8.stream_merge_runs_kv, T(k).to(card),
+                  torch.arange(k.size, dtype=torch.int32, device=card),
+                  descending=False, **kw)
 
 
 @pytest.mark.cuda
@@ -727,20 +837,23 @@ def test_stream_kernel_nan_runs_match_plain(card, runs, run_len, w):
 
 @pytest.mark.cuda
 def test_stream_kernel_footprint_guard_raises(card):
-    """K8's wrapper refuses, before any launch, what the streaming tree
-    cannot run: w past 128 (one warp per node holds at most 4 lanes a
-    thread) or under 8; the planner's largest plan, fan 16 on KV lanes at
-    w 128, fits the card's shared memory and launches."""
-    from repro_torch.kernels import KernelError, launch_counts
+    """What the streaming tree cannot run, w past 128 or under 8 (it refused
+    these before), runs the wide form and matches the plain version; the
+    planner's largest plan, fan 16 on KV lanes at w 128, fits the card's
+    shared memory and launches the fast kernel."""
+    from repro_torch.kernels import launch_counts
+    k, r = uniform_runs(16, 512)
+    k[::37] = np.float32("nan")
+    kt, rt = T(k).to(card), T(r).to(card)
+    for w in (256, 4, 512):
+        _same_on_card(TK8.stream_merge_runs, kt, runs=16, run_len=512,
+                      fan_in=16, w=w, block_out=1024, out_slack=3)
+        _same_on_card(TK8.stream_merge_runs_kv, kt, rt, runs=16,
+                      run_len=512, fan_in=16, w=w, block_out=1024)
     n = 16 * 8192
     k = torch.zeros(n, device=card)
     r = torch.zeros(n, dtype=torch.int32, device=card)
     before = launch_counts().get("stream_merge_runs_kv", 0)
-    for w in (256, 4):
-        with pytest.raises(KernelError, match="w in"):
-            TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16,
-                                     w=w, block_out=8192)
-    assert launch_counts().get("stream_merge_runs_kv", 0) == before
     assert TK8.stream_smem(torch.float32, True, True, 4, 128) <= \
         TT.MAX_SMEM
     TK8.stream_merge_runs_kv(k, r, runs=16, run_len=8192, fan_in=16, w=128,
@@ -768,20 +881,22 @@ def test_stream_kernel_footprint_fits_every_plan(card):
 @pytest.mark.cuda
 def test_stream_kernel_misaligned_buffer_raises(card):
     """K8 reads its buffers by 16-byte bulk copies: a key or rank buffer
-    whose storage does not start on 16 bytes raises ``KernelError`` before
-    any launch (no hidden copy)."""
-    from repro_torch.kernels import KernelError, launch_counts
+    whose storage does not start on 16 bytes (which it refused before)
+    goes through an aligned copy the wrapper makes, and the result is the
+    plain version's."""
+    from repro_torch.kernels import launch_counts, reset_launches
     kw = dict(runs=4, run_len=64, fan_in=4, w=32, block_out=64)
     n = 4 * 64 + TK8.stream_slack(4, 32, 64)
-    k = torch.zeros(n + 1, device=card)
-    r = torch.zeros(n + 1, dtype=torch.int32, device=card)
-    before = dict(launch_counts())
-    with pytest.raises(KernelError, match="16 bytes"):
-        TK8.stream_merge_runs(k[1:], **kw)
-    with pytest.raises(KernelError, match="16 bytes"):
-        TK8.stream_merge_runs_kv(k[:n], r[1:], **kw)
-    assert dict(launch_counts()) == before
-    TK8.stream_merge_runs_kv(k[:n], r[:n], **kw)
+    k0, r0 = uniform_runs(4, 64)
+    k = torch.full((n + 1,), float("-inf"), device=card)
+    r = torch.full((n + 1,), 2 ** 31 - 1, dtype=torch.int32, device=card)
+    k[1:257], r[1:257] = T(k0).to(card), T(r0).to(card)
+    reset_launches()
+    _same_on_card(TK8.stream_merge_runs, k[1:], **kw)
+    kk = k[1:].clone()
+    _same_on_card(TK8.stream_merge_runs_kv, kk, r[1:], **kw)
+    assert launch_counts() == {"stream_merge_runs": 1,
+                               "stream_merge_runs_kv": 1}
 
 
 # (runs, run_len, fan_in, w): two groups each, the output block at w, so a
@@ -1059,27 +1174,96 @@ def test_lane_merge_guarded_pairs_run_the_chain_on_card(card, tie, L,
 
 @pytest.mark.cuda
 def test_lane_merge_refuses_before_launch(card):
-    """A bfloat16 key (ragged and level forms) or a w above 128 raises
-    ``KernelError`` on the card, and ``tree_vmapped`` raises for a bfloat16
-    key, without a launch."""
+    """What K9 refused before, a bfloat16 key (ragged and level forms) or a
+    w above 128, now launches (bf16 widened to float32 around the launch,
+    w past 128 the wide lane form) and matches the plain version on NaN /
+    +-0 runs; ``tree_vmapped`` on bfloat16 keys launches K9 once a level
+    and equals its torch variant."""
     from repro_torch.engine.schedule import MergeSchedule, merge_runs
-    from repro_torch.kernels import KernelError, launch_counts
-    x = torch.arange(64, 0, -1, device=card).float()
-    one = torch.zeros(1, dtype=torch.int32, device=card)
-    n32 = torch.full((1,), 32, dtype=torch.int32, device=card)
-    before = dict(launch_counts())
-    with pytest.raises(KernelError):
-        TL.lane_merge(x.bfloat16(), x.bfloat16(), one, n32, one + 32, n32,
-                      n_out=64, w=32)
-    with pytest.raises(KernelError):
-        TL.lane_merge(x, x, one, n32, one + 32, n32, n_out=64, w=256)
-    with pytest.raises(KernelError):
-        TL.lane_merge_level(x.bfloat16(), None, 32, w=32)
+    from repro_torch.kernels import launch_counts, reset_launches
+    a = T(nan_run(700)).to(card)
+    b = T(nan_run(513)).to(card)
+    st = torch.tensor([0, 300], dtype=torch.int32, device=card)
+    ln = torch.tensor([300, 400], dtype=torch.int32, device=card)
+    bst = torch.tensor([0, 13], dtype=torch.int32, device=card)
+    bln = torch.tensor([13, 500], dtype=torch.int32, device=card)
+    ra = torch.arange(700, dtype=torch.int32, device=card)
+    rb = torch.arange(513, dtype=torch.int32, device=card)
+    for w, dt in ((32, torch.bfloat16), (256, torch.float32),
+                  (1024, torch.float16), (4096, torch.float32)):
+        for tie in ("b", "skew"):
+            _same_on_card(TL.lane_merge, a.to(dt), b.to(dt), st, ln, bst,
+                          bln, n_out=1200, w=w, tie=tie)
+        _same_on_card(TL.lane_merge_kv, a.to(dt), ra, b.to(dt), rb, st, ln,
+                      bst, bln, n_out=1213, w=w)
+        buf = T(np.concatenate([nan_run(256) for _ in range(6)])).to(card)
+        for tie in ("b", "skew"):
+            _same_on_card(TL.lane_merge_level, buf.to(dt), None, 256, w=w,
+                          tie=tie)
+        _same_on_card(TL.lane_merge_level, buf.to(dt),
+                      torch.arange(buf.numel(), dtype=torch.int32,
+                                   device=card), 256, w=w)
+    x = torch.arange(64, 0, -1, device=card).bfloat16()
     offs = torch.tensor([0, 32, 64], dtype=torch.int32, device=card)
-    with pytest.raises(KernelError):
-        merge_runs(x.bfloat16(), offs, schedule=MergeSchedule(
-            "tree_vmapped", w=8))
-    assert launch_counts() == before
+    reset_launches()
+    got = merge_runs(x, offs, schedule=MergeSchedule("tree_vmapped", w=8))
+    assert launch_counts() == {"lane_merge": 1}
+    ref = merge_runs(x, offs, schedule=MergeSchedule("torch"))
+    assert torch.equal(_bits(got), _bits(ref))
+
+
+NARROW_DTYPES = [torch.bfloat16, torch.float16, torch.int8, torch.int16,
+                 torch.uint8]
+
+
+def _narrow(x, dtype):
+    """float32 keys on the card as ``dtype``: floats by value (NaNs and
+    +-0 kept), integers scaled onto the dtype's range with its min and
+    max."""
+    if dtype.is_floating_point:
+        return x.to(dtype)
+    info = torch.iinfo(dtype)
+    y = torch.nan_to_num(x, nan=info.max, posinf=info.max, neginf=info.min)
+    return y.clamp(info.min, info.max).round().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", NARROW_DTYPES)
+def test_narrow_keys_match_plain(card, dtype):
+    """Every key kernel (K1 to K6, K8, K9) on keys of ``dtype`` (widened to
+    int32 / float32 around each launch) against its plain version, on
+    keys holding NaNs, +-0, ties and the dtype's min and max."""
+    x = _narrow(T(keys(64 * 128)).to(card), dtype)
+    x[::97] = _narrow(torch.tensor([float("nan")], device=card), dtype)
+    r = torch.arange(x.numel(), dtype=torch.int32, device=card)
+    _same_on_card(TB.sort_chunks, x.reshape(64, 128))
+    _same_on_card(TB.sort_chunks_kv, x.reshape(32, 256), r.reshape(32, 256))
+    a = _narrow(T(nan_run(3000)).to(card), dtype)
+    b = _narrow(T(nan_run(1000)).to(card), dtype)
+    _same_on_card(TF.flims_merge, a, b, w=64, block_out=512)
+    _same_on_card(TF.flims_merge_kv, a, r[:3000], b, r[:1000], w=32,
+                  block_out=256)
+    buf, st, ln = ragged(PAIR_LENS)
+    buf = _narrow(T(buf).to(card), dtype)
+    st, ln = T(st).to(card), T(ln).to(card)
+    _same_on_card(TS.segmented_merge_runs, buf, buf, st[::2], ln[::2],
+                  st[1::2], ln[1::2], n_out=int(ln.sum()), w=16,
+                  block_out=64)
+    _same_on_card(TT.merge_tree_runs, buf, st[:8], ln[:8], group=4,
+                  n_out=int(ln[:8].sum()), w=16, block_out=64)
+    k, offs = seg_keys(SEG_LENS, "nan" if dtype.is_floating_point else
+                       "mixed", torch.float32, card)
+    k = _narrow(k, dtype)
+    _same_on_card(TS.segment_sort, k, offs, cap=256)
+    _same_on_card(TS.segment_sort_kv, k, offs, cap=512, descending=False)
+    k8, r8 = uniform_runs(8, 128)
+    _same_on_card(TK8.stream_merge_runs, _narrow(T(k8).to(card), dtype),
+                  runs=8, run_len=128, fan_in=4, w=32, block_out=128,
+                  out_slack=5)
+    lvl = _narrow(T(np.concatenate([nan_run(128) for _ in range(4)])).to(
+        card), dtype)
+    _same_on_card(TL.lane_merge_level, lvl, None, 128, w=32)
+    _same_on_card(TL.lane_merge_level, lvl, r[:512], 128, w=64)
 
 
 @pytest.mark.cuda

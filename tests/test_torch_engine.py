@@ -281,7 +281,8 @@ def test_planner_keeps_and_routes_the_reference_sorters(tmp_path):
                                                backend="tpu"))
         for dt, be, want in ((torch.float32, "cuda", "flims"),
                              (torch.int32, "cuda", "flims"),
-                             (torch.bfloat16, "cuda", "torch"),
+                             (torch.bfloat16, "cuda", "flims"),
+                             (torch.int64, "cuda", "torch"),
                              (torch.float32, "cpu", "torch")):
             plan = h(op, tplanner.plan_key(op, n=1 << 16, dtype=dt,
                                            backend=be))

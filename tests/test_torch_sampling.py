@@ -169,12 +169,14 @@ def test_plan_keys_and_heuristics():
     assert infer_key("sample_topp", lg) == plan_key(
         "sample_topp", n=1000, dtype=torch.float32, backend="cpu")
     for op in ("topk", "sample_topp", "sample_minp"):
-        for dtype in (torch.float32, torch.int32):
+        for dtype in (torch.float32, torch.int32, torch.bfloat16,
+                      torch.float16, torch.int16, torch.int8):
             cpu = plan_key(op, n=1024, dtype=dtype, backend="cpu")
             assert heuristic_plan(op, cpu).variant == "torch"
             card = plan_key(op, n=1024, dtype=dtype, backend="cuda")
             assert heuristic_plan(op, card).variant == "flims"
-        other = plan_key(op, n=1024, dtype=torch.bfloat16, backend="cuda")
+        # 64-bit keys: no kernel takes them
+        other = plan_key(op, n=1024, dtype=torch.int64, backend="cuda")
         assert heuristic_plan(op, other).variant == "torch"
 
 
