@@ -11,7 +11,10 @@ the CUDA toolkit. It
    was not launched:
    - the sorter at 2^24 keys through the engine (``sort`` / ``argsort`` /
      ``merge`` / ``merge_runs``), every result bit-for-bit ``torch.sort`` /
-     ``torch.argsort(stable=True)`` (K1-K4);
+     ``torch.argsort(stable=True)`` (K1-K4); and ``sort`` / ``argsort``
+     of 2^24 ``randn`` keys with a quiet NaN at 2^-12 of them, where K4's
+     run check hands nearly every group to the wide tree form, each bit
+     for bit the same call over the plain versions;
    - one MoE layer of Mixtral-8x22B at full width (d 6144, expert d_ff
      16384, 8 experts, top-2, bf16, random weights from the seed) through
      ``models.moe.moe_apply``, grouped at (4, 2048) and sorted at
@@ -219,7 +222,9 @@ the CUDA toolkit. It
    2^22 keys (pairs, cycle chain, blocks a pair, the block form's and the
    whole chain's time, byte bound, ``torch.sort`` of the same pair groups);
    the table's row is the level of a ``CHECK_CHAIN``-cycle chain, where K9
-   and its plain version are timed at one shape.
+   and its plain version are timed at one shape; the wide forms' rows at
+   2^18 and 2^22 keys, and the NaN ``sort`` / ``argsort`` beside one
+   ``torch.sort`` / stable ``torch.argsort``.
 
 Each phase prints its seconds. Any mismatch or error, or any demotion by
 the fallback ladder but the chaos phase's injected one, exits non-zero. The
@@ -922,6 +927,79 @@ def phase_e2e_times(engine, data):
         rows.append({"call": name, "n": N_MAIN, "ms": time_ms(fn),
                      "library_ms": time_ms(lib)})
     print(json.dumps({"e2e": rows}), flush=True)
+
+
+NAN_SHARE = 12                 # 2^-12 of the NaN rows' keys are a quiet NaN
+
+
+def nan_randn(n: int, gen) -> torch.Tensor:
+    """``torch.randn`` float32 keys of which ``n >> NAN_SHARE``, at seeded
+    places, are a quiet NaN."""
+    x = torch.randn(n, generator=gen, device="cuda")
+    x[torch.randperm(n, generator=gen, device="cuda")[:n >> NAN_SHARE]] = \
+        float("nan")
+    return x
+
+
+class plain_sorter:
+    """Within it the sorter's kernels (K1 / K1kv, K3 / K3kv, K4 / K4kv)
+    are their plain versions, on the card: the reference of an engine sort
+    whose bits no torch call gives (NaN keys merge by XLA's rules)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import (bitonic_sort, merge_tree, ops,
+                                         segmented_merge)
+        self.saved = []
+        for mod, src, names in (
+                (ops, bitonic_sort, ("sort_chunks", "sort_chunks_kv")),
+                (merge_tree, merge_tree, ("merge_tree_runs",
+                                          "merge_tree_runs_kv")),
+                (segmented_merge, segmented_merge,
+                 ("segmented_merge_runs", "segmented_merge_runs_kv"))):
+            for name in names:
+                self.saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, getattr(src, name + "_plain"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
+        return False
+
+
+def phase_nan_e2e(engine, kernels):
+    """``engine.sort`` / ``engine.argsort`` of ``N_MAIN`` float32 keys with
+    a quiet NaN at 2^-NAN_SHARE of them: K4's run check flags nearly every
+    group from the third pass on and the same call merges them by the wide
+    tree form. Each call counted on its own (K4 / K4kv must launch), held
+    bit for bit to the same call over the plain versions, and timed beside
+    one ``torch.sort`` / stable ``torch.argsort`` (whose NaN order is not
+    the merges'). Its keys come from a generator of its own, so the phases
+    after it draw what they drew before it. Returns the launches by
+    wrapper."""
+    x = nan_randn(N_MAIN, torch.Generator(device="cuda").manual_seed(
+        SEED + NAN_SHARE))
+    rows, total = [], {}
+    for name, fn, lib, need in (
+            ("engine.sort f32 nan desc", lambda: engine.sort(x),
+             lambda: torch.sort(x, descending=True), "merge_tree_runs"),
+            ("engine.argsort f32 nan desc", lambda: engine.argsort(x),
+             lambda: torch.argsort(x, descending=True, stable=True),
+             "merge_tree_runs_kv")):
+        got, launches = counted(kernels, fn)
+        if not launches.get(need):
+            raise AssertionError(f"{name} never launched {need}: {launches}")
+        with plain_sorter():
+            exp = fn()
+        check_same(f"{name} vs the same call over the plain versions", got,
+                   exp)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        rows.append({"call": name, "n": N_MAIN, "nan": N_MAIN >> NAN_SHARE,
+                     "ms": time_ms(fn), "library_ms": time_ms(lib),
+                     "launches": launches})
+    print(json.dumps({"e2e_nan": rows}), flush=True)
+    return total
 
 
 # --------------------------------------------------------------------------
@@ -4442,6 +4520,73 @@ def _params_vs_plain(k1, k2, k3, k4, k56, k8, k9, gen):
     return errs
 
 
+WIDE_SOURCE = "wide_merge.cu"
+
+
+def _wide_param_cases(xr, k2, k3, k4, k8, k9):
+    """The wide rows of ``phase_params`` over the keys ``xr``: (name,
+    wrapper, source, replaces, args, kwargs, the keys of its one
+    ``torch.sort``, its operations, the engine path counting its launches,
+    the wrapper's name, the merged layout's reference)."""
+    dev = "cuda"
+    n = xr.numel()
+    half = n // 2
+    a, b = _desc(xr[:half]), _desc(xr[half:])
+    cat = torch.cat([a, b])
+    pair = [torch.tensor([v], dtype=torch.int32, device=dev)
+            for v in (0, half, half, half)]
+    rl = lambda L: torch.sort(xr.view(-1, L), dim=-1,
+                              descending=True).values.reshape(-1)
+    runs16, runs_l = rl(n >> 4), rl(n >> 5)
+    st = lambda L: torch.arange(0, n, L, dtype=torch.int32, device=dev)
+    ln = lambda L: torch.full((n // L,), L, dtype=torch.int32, device=dev)
+    runs4 = rl(n >> 2)
+    mops = lambda w, lv=1: n * lv * (1 + math.log2(w) / 2)
+    whole = _desc(xr)
+    pairs = torch.sort(runs_l.view(-1, n >> 4), dim=-1,
+                       descending=True).values.reshape(-1)
+    W = WIDE_SOURCE
+    return [
+        ("flims_merge w=2048", k2.flims_merge, W, "flims_merge.py:202",
+         (a, b), dict(w=2048, block_out=4096), cat, mops(2048),
+         "merge w=2048", "flims_merge", whole),
+        ("segmented_merge_runs w=2048", k3.segmented_merge_runs, W,
+         "segmented_merge.py:208", (cat, cat, *pair),
+         dict(n_out=n, w=2048, block_out=4096), cat, mops(2048),
+         "merge_runs w=2048", "segmented_merge_runs", whole),
+        ("merge_tree_runs L=4", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs16, st(n >> 4), ln(n >> 4)),
+         dict(group=16, n_out=n, w=32, block_out=1024), runs16, mops(32, 4),
+         "merge_runs L=4", "merge_tree_runs", whole),
+        ("merge_tree_runs L=5", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs_l, st(n >> 5), ln(n >> 5)),
+         dict(group=32, n_out=n, w=32, block_out=1024), runs_l,
+         mops(32, 5), "merge_runs L=5", "merge_tree_runs", whole),
+        ("merge_tree_runs w=4", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs4, st(n >> 2), ln(n >> 2)),
+         dict(group=4, n_out=n, w=4, block_out=1024), runs4, mops(4, 2),
+         "merge_runs w=4", "merge_tree_runs", whole),
+        ("merge_tree_runs w=256", k4.merge_tree_runs, W, "merge_tree.py:393",
+         (runs4, st(n >> 2), ln(n >> 2)),
+         dict(group=4, n_out=n, w=256, block_out=1024), runs4,
+         mops(256, 2), "merge_runs w=256", "merge_tree_runs", whole),
+        ("stream_merge_runs fan_in=32", k8.stream_merge_runs, W,
+         "stream_merge.py:225", (runs_l,),
+         dict(runs=32, run_len=n >> 5, fan_in=32, w=32, block_out=4096),
+         runs_l, mops(32, 5), "external_sort fan_in=32",
+         "stream_merge_runs", whole),
+        ("stream_merge_runs fan_in=32 w=256", k8.stream_merge_runs, W,
+         "stream_merge.py:225", (runs_l,),
+         dict(runs=32, run_len=n >> 5, fan_in=32, w=256, block_out=4096),
+         runs_l, mops(256, 5), "external_sort fan_in=32 w=256",
+         "stream_merge_runs", whole),
+        ("lane_merge w=256", k9.lane_merge_level, W,
+         "core/lanes.py:165 (merge_lanes under jax.vmap; no pallas_call)",
+         (runs_l, None, n >> 5), dict(w=256), runs_l, mops(256),
+         "merge_runs tree_vmapped w=256", "lane_merge", pairs),
+    ]
+
+
 def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
     """The parameters the kernels refused before, every one the JAX
     kernels take: (a) each driven through the engine op that reaches it
@@ -4453,7 +4598,9 @@ def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
     its reference (``torch.sort`` values, the ``torch`` variant); (b)
     each kernel against its plain version at those parameters on NaN /
     +-0 keys; (c) each timed at ``N_PARAM_ROW`` keys beside its plain
-    version, one ``torch.sort`` and its bound. Returns the rows of (c)."""
+    version, one ``torch.sort`` and its bound, and the wide rows again at
+    ``N_PARAM`` keys (held to ``torch.sort``, no plain version). Returns
+    the rows of (c)."""
     from repro_torch.launch.roofline import stream_bytes
     k1, k2, k3, k4 = mods
     k56, k8, k9 = slice2[4], slice3[3], slice4[0]
@@ -4502,57 +4649,8 @@ def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
     n = N_PARAM_ROW
     xr = tie_keys(n, gen)
     half = n // 2
-    a, b = _desc(xr[:half]), _desc(xr[half:])
-    cat = torch.cat([a, b])
-    pair = [torch.tensor([v], dtype=torch.int32, device=dev)
-            for v in (0, half, half, half)]
-    rl = lambda L: torch.sort(xr.view(-1, L), dim=-1,
-                              descending=True).values.reshape(-1)
-    runs16, runs_l = rl(n >> 4), rl(n >> 5)
-    st = lambda L: torch.arange(0, n, L, dtype=torch.int32, device=dev)
-    ln = lambda L: torch.full((n // L,), L, dtype=torch.int32, device=dev)
-    runs4 = rl(n >> 2)
     mops = lambda w, lv=1: n * lv * (1 + math.log2(w) / 2)
-    W = "wide_merge.cu"
-    cases = [
-        ("flims_merge w=2048", k2.flims_merge, W, "flims_merge.py:202",
-         (a, b), dict(w=2048, block_out=4096), cat, mops(2048),
-         "merge w=2048", "flims_merge"),
-        ("segmented_merge_runs w=2048", k3.segmented_merge_runs, W,
-         "segmented_merge.py:208", (cat, cat, *pair),
-         dict(n_out=n, w=2048, block_out=4096), cat, mops(2048),
-         "merge_runs w=2048", "segmented_merge_runs"),
-        ("merge_tree_runs L=4", k4.merge_tree_runs, W, "merge_tree.py:393",
-         (runs16, st(n >> 4), ln(n >> 4)),
-         dict(group=16, n_out=n, w=32, block_out=1024), runs16, mops(32, 4),
-         "merge_runs L=4", "merge_tree_runs"),
-        ("merge_tree_runs L=5", k4.merge_tree_runs, W, "merge_tree.py:393",
-         (runs_l, st(n >> 5), ln(n >> 5)),
-         dict(group=32, n_out=n, w=32, block_out=1024), runs_l,
-         mops(32, 5), "merge_runs L=5", "merge_tree_runs"),
-        ("merge_tree_runs w=4", k4.merge_tree_runs, W, "merge_tree.py:393",
-         (runs4, st(n >> 2), ln(n >> 2)),
-         dict(group=4, n_out=n, w=4, block_out=1024), runs4, mops(4, 2),
-         "merge_runs w=4", "merge_tree_runs"),
-        ("merge_tree_runs w=256", k4.merge_tree_runs, W, "merge_tree.py:393",
-         (runs4, st(n >> 2), ln(n >> 2)),
-         dict(group=4, n_out=n, w=256, block_out=1024), runs4,
-         mops(256, 2), "merge_runs w=256", "merge_tree_runs"),
-        ("stream_merge_runs fan_in=32", k8.stream_merge_runs, W,
-         "stream_merge.py:225", (runs_l,),
-         dict(runs=32, run_len=n >> 5, fan_in=32, w=32, block_out=4096),
-         runs_l, mops(32, 5), "external_sort fan_in=32",
-         "stream_merge_runs"),
-        ("stream_merge_runs fan_in=32 w=256", k8.stream_merge_runs, W,
-         "stream_merge.py:225", (runs_l,),
-         dict(runs=32, run_len=n >> 5, fan_in=32, w=256, block_out=4096),
-         runs_l, mops(256, 5), "external_sort fan_in=32 w=256",
-         "stream_merge_runs"),
-        ("lane_merge w=256", k9.lane_merge_level, W,
-         "core/lanes.py:165 (merge_lanes under jax.vmap; no pallas_call)",
-         (runs_l, None, n >> 5), dict(w=256), runs_l, mops(256),
-         "merge_runs tree_vmapped w=256", "lane_merge"),
-    ]
+    cases = _wide_param_cases(xr, k2, k3, k4, k8, k9)
     for dt in PARAM_DTYPES:
         nm = str(dt).replace("torch.", "")
         xd = as_dtype(xr, dt)
@@ -4561,14 +4659,14 @@ def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
         cases += [
             (f"sort_chunks {nm}", k1.sort_chunks, "bitonic_sort.cu",
              "bitonic_sort.py:93", (xd.view(-1, 256),), {}, xd,
-             n / 2 * lgc * (lgc + 1) / 2, nm, "sort_chunks"),
+             n / 2 * lgc * (lgc + 1) / 2, nm, "sort_chunks", None),
             (f"flims_merge {nm}", k2.flims_merge, "flims_merge.cu",
              "flims_merge.py:202", (da, db), dict(w=128, block_out=4096),
-             xd, mops(128), nm, "flims_merge")]
+             xd, mops(128), nm, "flims_merge", None)]
     table = []
     t0 = time.perf_counter()
     for (name, fn, source, replaces, args, kw, lib_x, ops, path,
-         wrapper) in cases:
+         wrapper, _) in cases:
         plain = plain_of(fn)
         got = fn(*args, **kw)
         # the plain version's one call, timed and checked
@@ -4595,6 +4693,27 @@ def phase_params(engine, kernels, mods, slice2, slice3, slice4, gen):
                "launches_counted_in": path}
         table.append(row)
         print(f"time {name}: " + json.dumps(row), flush=True)
+    # the wide rows again at N_PARAM, each held bit for bit to torch.sort of
+    # its merged layout (keys 0..999: no NaN, no -0, every merge order
+    # gives the same bits); their plain versions take minutes there
+    xb = tie_keys(N_PARAM, torch.Generator(device="cuda").manual_seed(
+        SEED + 22))
+    big = {c[0]: c for c in _wide_param_cases(xb, k2, k3, k4, k8, k9)}
+    for row in table:
+        if row["name"] not in big:
+            continue
+        _, fn, _, _, args, kw, lib_x, ops, _, _, ref = big[row["name"]]
+        err = check_same(f"{row['name']} at {N_PARAM} keys", fn(*args, **kw),
+                         ref)
+        bound_ms, bound_by = _bound(stream_bytes(N_PARAM,
+                                                 lib_x.element_size()), ops)
+        row[f"keys_{N_PARAM}"] = {
+            "ms": time_ms(lambda: fn(*args, **kw)), "bound_ms": bound_ms,
+            "bound_by": bound_by, "max_abs_err": err,
+            "library_ms": time_ms(lambda: torch.sort(lib_x,
+                                                     descending=True))}
+        print(f"time {row['name']} at {N_PARAM} keys: "
+              + json.dumps(row[f"keys_{N_PARAM}"]), flush=True)
     print(f"params: rows in {time.perf_counter() - t0:.1f} s", flush=True)
     return table
 
@@ -4728,6 +4847,7 @@ def main() -> int:
     table += timed("slice 3 times", phase_slice3_times, slice3,
                    ext_launches, errs3, ext)
     timed("e2e times", phase_e2e_times, engine, data)
+    nan_launches = timed("e2e nan", phase_nan_e2e, engine, kernels)
     timed("slice 2 e2e times", phase_slice2_e2e, engine, seg)
     timed("sorter split", phase_sorter_split, engine, data)
     timed("slice 3 e2e times", phase_slice3_e2e, engine, slice3, ext)
@@ -4765,7 +4885,8 @@ def main() -> int:
         # the mesh phase's launches, summed over its 4 ranks; the wide
         # shapes' path, and the kernels' times there
         row["launches"] += mesh_launches.get(row["name"], 0) + \
-            wide_launches.get(row["name"], 0)
+            wide_launches.get(row["name"], 0) + \
+            nan_launches.get(row["name"], 0)
         if row["name"] in wide_rows:
             row["wide"] = wide_rows.pop(row["name"])
         if row["name"] == "moe_route":

@@ -32,7 +32,11 @@ times:
 - ``K7 mixtral`` / ``K7 sorted`` / ``K7 moonlight``: ``moe_route`` of
   (1, 2048, 8) k 2, (1, 4096, 8) k 2 and (1, 2048, 64) k 6 router logits
   at the layers' capacities;
-- ``K8``: ``stream_merge_runs``, one fan-8 pass over 128 runs of 2^20.
+- ``K8``: ``stream_merge_runs``, one fan-8 pass over 128 runs of 2^20;
+- ``sort`` / ``argsort``: ``engine.sort`` / ``engine.argsort`` of 2^24
+  ``randn`` keys, and ``sort nan`` / ``argsort nan`` of the same keys with
+  a quiet NaN at 2^-12 of them (K4's run check flags nearly every group
+  from the third pass on: the wide tree form merges them).
 
 With ``--split`` each case's time is also taken apart into host and card
 work (``"<case> split"``, ms a call): ``host``, the wall time of one call
@@ -145,6 +149,17 @@ def cases(torch, gen, wanted):
         out["K8"] = lambda: k8.stream_merge_runs(
             kbuf, runs=n8 // run_len, run_len=run_len, fan_in=8, w=128,
             block_out=4096)
+    if any(k.startswith(("sort", "argsort")) for k in wanted):
+        from repro_torch import engine
+        ns = 1 << 24
+        xs = torch.randn(ns, generator=gen, device=dev)
+        xn = xs.clone()
+        xn[torch.randperm(ns, generator=gen, device=dev)[:ns >> 12]] = \
+            float("nan")
+        out["sort"] = lambda: engine.sort(xs)
+        out["argsort"] = lambda: engine.argsort(xs)
+        out["sort nan"] = lambda: engine.sort(xn)
+        out["argsort nan"] = lambda: engine.argsort(xn)
     return {k: v for k, v in out.items() if k in wanted}
 
 
@@ -240,7 +255,8 @@ def same(name, got, ref) -> bool:
 
 
 ALL = ("K1,K1 nan,K2,K2kv,K3,K3kv,K3 ragged,K4,K4 first,K5,K6,K5 short,"
-       "K6 short,K7 mixtral,K7 sorted,K7 moonlight,K8")
+       "K6 short,K7 mixtral,K7 sorted,K7 moonlight,K8,sort,argsort,sort nan,"
+       "argsort nan")
 
 
 def main() -> int:

@@ -130,7 +130,7 @@ def main() -> int:
                 check = torch.empty(groups + 1 + 2 * n // run_len,
                                     dtype=torch.int32, device="cuda")
                 wctas = 2 * sms
-                wmeta = torch.empty(n // run_len + 1 + 2 * (groups + 1),
+                wmeta = torch.empty(n // run_len + 1 + 3 * (groups + 1),
                                     dtype=torch.int32, device="cuda")
                 tables = torch.empty((L - 1) * n * (2 if kv else 1),
                                      dtype=torch.int32, device="cuda")

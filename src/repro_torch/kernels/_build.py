@@ -65,6 +65,7 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _P, _P, _P, _LL, _P, _I, _P,
                              _P, _P]),
     "flims_wide_tree_scratch": (_LL, [_I, _I, _I, _I]),
+    "flims_wide_tree_occupancy": (_I, [_I, _I, _I, _I, _I]),
     "flims_lane_wide": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _I, _I, _P, _I, _P, _P, _P]),
     "flims_lane_wide_scratch": (_LL, [_I, _I]),

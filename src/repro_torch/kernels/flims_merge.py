@@ -352,21 +352,40 @@ def resident_ctas(code: int, kv: bool, descending: bool, w: int,
 #: the widest w of the fast K2 / K3 kernel (a warp's registers hold w / 32
 #: lanes a thread); wider merges run the wide form (csrc/wide_merge.cu)
 MAX_W = 1024
+# the most fused levels at which a group past the wide form's tables
+# searches without one (its children's searches, one level deeper each)
+FREE_LEVELS = 3
 
 
-def wide_buffers(name, dev, *, kv: bool, runs: int, L: int, w: int, C: int,
-                 G: int, ntot: int):
+def wide_buffers(name, dev, *, code: int, kv: bool, descending: bool,
+                 runs: int, L: int, w: int, C: int, G: int, ntot: int,
+                 ctas: int = 0):
     """Device scratch of one launch of the wide tree form
     (``csrc/wide_merge.cu``) and its CTA count: ``(meta, tables, scratch,
-    ctas)``, as ``flims_wide_tree`` takes them. ``ntot`` is the runs' total
-    length (0 at ``L == 1``, which has no inner tables)."""
-    per_cta = _build.library().flims_wide_tree_scratch(int(kv), L, w, C)
+    ctas)``, as ``flims_wide_tree`` takes them for keys of dtype ``code``
+    merged in the direction ``descending``. ``ntot`` is the lanes a level
+    of the inner tables holds (0 at ``L == 1``, which has none); a group
+    ending past it searches without a table. ``ctas`` (tests only) forces
+    the CTA count, else as many as the card holds at once, at most one a
+    block."""
+    lib = _build.library()
+    per_cta = lib.flims_wide_tree_scratch(int(kv), L, w, C)
     if per_cta < 0:
         raise _build.KernelError(f"{name}: no wide form at L={L}, w={w}, "
                                  f"C={C}")
-    ctas = max(1, min(G, 2 * torch.cuda.get_device_properties(
-        dev).multi_processor_count))
-    meta = torch.empty(runs + 1 + 2 * (runs // (1 << L) + 1),
+    if not ctas:
+        key = ("wide", code, kv, descending, L, w, torch.device(dev).index)
+        if key not in _per_sm:
+            per_sm = lib.flims_wide_tree_occupancy(code, int(kv),
+                                                   int(descending), L, w)
+            if per_sm <= 0:
+                raise _build.KernelError(
+                    f"{name}: wide form occupancy query failed ({per_sm}) "
+                    f"at L={L}, w={w}")
+            _per_sm[key] = per_sm * torch.cuda.get_device_properties(
+                dev).multi_processor_count
+        ctas = max(1, min(G, _per_sm[key]))
+    meta = torch.empty(runs + 1 + 3 * (runs // (1 << L) + 1),
                        dtype=torch.int32, device=dev)
     tables = torch.empty((L - 1) * ntot * (2 if kv else 1),
                          dtype=torch.int32, device=dev)
@@ -376,15 +395,18 @@ def wide_buffers(name, dev, *, kv: bool, runs: int, L: int, w: int, C: int,
 
 def wide_tree(name, ka, ra, kb, rb, starts, lens, *, L: int, n_out: int,
               C: int, w: int, steps: int, descending: bool, sel_max: bool,
-              pairs: bool, G: int, ntot=None):
+              pairs: bool, G: int, disjoint: bool = False, ctas: int = 0):
     """One launch of the wide tree form (``csrc/wide_merge.cu``): every
     group of ``2^L`` runs (run r is ``k[starts[r] :+ lens[r]]``, ``k`` the
     buffer ``kb`` for odd runs where ``pairs``, else ``ka``) merged through
     ``L`` levels in C-wide output blocks, the JAX kernels' nested co-ranks
-    and FLiMS dataflow at any ``w`` and ``L``. ``G`` bounds the blocks;
-    ``ntot`` is the runs' total length (read from ``lens`` when not given;
-    only ``L > 1`` needs it, for the inner levels' tables). Returns
-    ``(keys,)`` or ``(keys, ranks)`` of ``n_out``."""
+    and FLiMS dataflow at any ``w`` and ``L``. ``G`` bounds the blocks; the
+    inner levels' tables hold max(n_out, len(ka)) lanes a level, the runs'
+    total where they do not overlap (``disjoint``). Runs that may overlap
+    may end past them: up to ``FREE_LEVELS`` a group past them searches
+    without a table, and past it the runs' total is read back to size the
+    tables. ``ctas`` (tests only) forces the CTA count. Returns ``(keys,)``
+    or ``(keys, ranks)`` of ``n_out``."""
     kv = ra is not None
     dev = ka.device
     starts = starts.to(device=dev, dtype=torch.int32).contiguous()
@@ -392,11 +414,13 @@ def wide_tree(name, ka, ra, kb, rb, starts, lens, *, L: int, n_out: int,
     _build.check_cuda(name, ka, ra, kb, rb, starts, lens)
     code = _build.dtype_code(name, ka.dtype)
     runs = starts.shape[0]
-    if L > 1 and ntot is None:
-        ntot = int(lens.sum())
-    ntot = ntot if L > 1 else 0
+    ntot = max(n_out, ka.shape[0]) if L > 1 else 0
+    if L > FREE_LEVELS and not disjoint:
+        # a search without a table costs about (2 steps + 2)^(L - 1) reads
+        ntot = max(ntot, int(lens.sum()))
     meta, tables, scratch, ctas = wide_buffers(
-        name, dev, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=ntot)
+        name, dev, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=ntot,
+        code=code, descending=descending, ctas=ctas)
     out = (torch.empty(n_out, dtype=ka.dtype, device=dev),) + ((
         torch.empty(n_out, dtype=torch.int32, device=dev),) if kv else ())
     P = _build.ptr
@@ -439,7 +463,7 @@ def merge_blocks_cuda(name, a, ra, b, rb, a_starts, a_lens, b_starts, b_lens,
             name, a, ra, b, rb, torch.stack([a_starts, b_starts], 1).view(-1),
             torch.stack([a_lens, b_lens], 1).view(-1), L=1, n_out=n_out, C=C,
             w=w, steps=search_steps(n_out), descending=descending,
-            sel_max=not kv, pairs=True, G=G)
+            sel_max=not kv, pairs=True, G=G, ctas=ctas)
     # out_off and blk0 of the pairs, written on the card
     meta = torch.empty(2 * (R + 1), dtype=torch.int32, device=dev) \
         if R > 1 else None

@@ -373,7 +373,7 @@ def _merge_tree_cuda(name, buf, rbuf, starts, lens, *, group, n_out, C, w, G,
         return wide_tree(name, buf, rbuf, buf, rbuf, starts, lens, L=L,
                          n_out=n_out, C=C, w=w, steps=steps,
                          descending=descending, sel_max=False, pairs=False,
-                         G=G)
+                         G=G, ctas=ctas)
     starts = starts.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     _build.check_cuda(name, buf, rbuf, starts, lens)
@@ -393,10 +393,12 @@ def _merge_tree_cuda(name, buf, rbuf, starts, lens, *, group, n_out, C, w, G,
     # by the wide form (the streamed partition and its restarts need
     # NaN-free runs in order), which returns at once where there are none.
     # Its tables hold max(n_out, len(buf)) lanes a level, the runs' total
-    # (read on the card) wherever they do not overlap
+    # (read on the card) wherever they do not overlap; a group of runs that
+    # overlap past it searches without a table
     wtot = max(n_out, buf.shape[0]) if L > 1 else 0
     wmeta, tables, wscratch, wctas = wide_buffers(
-        name, buf.device, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=wtot)
+        name, buf.device, kv=kv, runs=runs, L=L, w=w, C=C, G=G, ntot=wtot,
+        code=code, descending=descending, ctas=ctas)
     ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
     P = _build.ptr
     _build.launch(name, "flims_merge_tree", code, int(kv), int(descending),

@@ -190,7 +190,7 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
     if L > MAX_LEVELS or not W_MIN <= w <= W_MAX:
         return _stream_wide(name, buf, rbuf, runs=runs, run_len=run_len,
                             L=L, w=w, C=C, n_out=n_out,
-                            descending=descending)
+                            descending=descending, ctas=ctas)
     # leaf rows go by 16-byte bulk copies from the buffers' bases: a buffer
     # off 16 bytes goes through an aligned copy
     buf = buf if buf.data_ptr() % 16 == 0 else buf.clone()
@@ -200,8 +200,6 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
     out_r = torch.empty(n_out, dtype=torch.int32, device=buf.device) \
         if kv else None
     groups, bpg = runs // fan_in, fan_in * run_len // C
-    ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
-    spg = stream_spans(groups, bpg, ctas)
     n_val = runs * run_len
     # the check's flags and the runs' starts and lens, written on the card:
     # groups holding a NaN or a run out of order are merged in the same
@@ -211,7 +209,10 @@ def _stream_cuda(name, buf, rbuf, *, runs, run_len, fan_in, w, C, n_out,
                         device=buf.device)
     wmeta, tables, wscratch, wctas = wide_buffers(
         name, buf.device, kv=kv, runs=runs, L=L, w=w, C=C, G=n_val // C,
-        ntot=n_val if L > 1 else 0)
+        ntot=n_val if L > 1 else 0, code=code, descending=descending,
+        ctas=ctas)
+    ctas = ctas or _resident_ctas(code, kv, descending, L, w, buf.device)
+    spg = stream_spans(groups, bpg, ctas)
     P = _build.ptr
     _build.launch(name, "flims_stream_merge", code, int(kv), int(descending),
                   L, P(buf), P(rbuf), P(out), P(out_r), n_val, n_out,
@@ -227,7 +228,7 @@ def _wide_steps(L, run_len):
 
 
 def _stream_wide(name, buf, rbuf, *, runs, run_len, L, w, C, n_out,
-                 descending):
+                 descending, ctas=0):
     """K8 past the fast kernel's fan-in or widths: the wide tree form over
     the uniform runs (``_stream_plain``'s partition and dataflow: every
     block's leaf windows lie inside their runs), then ``out_slack``
@@ -239,7 +240,7 @@ def _stream_wide(name, buf, rbuf, *, runs, run_len, L, w, C, n_out,
     res = wide_tree(name, buf, rbuf, buf, rbuf, starts, lens, L=L,
                     n_out=n_val, C=C, w=w, steps=_wide_steps(L, run_len),
                     descending=descending, sel_max=False, pairs=False,
-                    G=n_val // C, ntot=n_val)
+                    G=n_val // C, disjoint=True, ctas=ctas)
     if n_out == n_val:
         return res
     _, last_k = bound_keys(buf.dtype, descending)

@@ -406,6 +406,142 @@ def test_k4_k8_unsorted_runs_match_plain(card, kv):
                           _ctas=ctas, **kw)
 
 
+def wide_tree_runs(group, C, descending, rng):
+    """Two groups of ``group`` ragged runs (empty ones among them, about
+    3.5 blocks of ``C`` keys a group): NaN / +-0 runs sorted in the
+    direction, and in the second group every third run left unsorted."""
+    lens = rng.integers(0, max(2, int(7 * C / group)), 2 * group)
+    lens[::5] = 0
+    parts = []
+    for i, n in enumerate(lens):
+        x = nan_run(int(n), descending)
+        if i >= group and i % 3 == 0:
+            rng.shuffle(x)
+        parts.append(x)
+    off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int32)
+    return (np.concatenate(parts).astype(np.float32), off[:-1].copy(),
+            np.diff(off).astype(np.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [4, 8, 32, 64, 256, 2048])
+def test_wide_tree_matches_plain(card, w):
+    """The wide tree form (csrc/wide_merge.cu: pulled node cycles, a team
+    a block) bit for bit against the plain version at 1 to 5 fused levels,
+    key-only and KV in both directions, on ragged runs holding NaNs of two
+    payloads and +-0, some out of order, several blocks a group, ``n_out``
+    short of the total; under forced CTA counts (1, and 3: not a multiple
+    of the two groups) and the card's own. K4 reaches it directly past 3
+    levels or outside w 8-128, else through its run check, which flags
+    every group here; one launch a call."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    rng = np.random.default_rng(w)
+    for L in range(1, 6):
+        group = 1 << L
+        bo = max(w, 64)
+        for kv, desc in ((False, True), (True, True), (True, False)):
+            buf, st, ln = (T(v).to(card) for v in wide_tree_runs(
+                group, TF.block_size(1 << 20, w, bo), desc, rng))
+            n = int(ln.sum())
+            rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+            kw = dict(group=group, n_out=n - 5, w=w, block_out=bo)
+            if kv:
+                fn, args = TT.merge_tree_runs_kv, (buf, rk, st, ln)
+                kw["descending"] = desc
+            else:
+                fn, args = TT.merge_tree_runs, (buf, st, ln)
+            plain = getattr(TT, fn.__name__ + "_plain")(*args, **kw)
+            plain = plain if isinstance(plain, tuple) else (plain,)
+            for ctas in (1, 3, 0):
+                reset_launches()
+                got = fn(*args, _ctas=ctas, **kw)
+                assert sum(launch_counts().values()) == 1
+                got = got if isinstance(got, tuple) else (got,)
+                for g, e in zip(got, plain):
+                    assert torch.equal(_bits(g), _bits(e)), (L, kv, desc,
+                                                             ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [2, 3, 4, 5])
+def test_k4_overlapping_runs_in_a_flagged_group_match_plain(card, L):
+    """K4 on runs that overlap in the buffer, longer together than both
+    ``n_out`` and the buffer, in groups its run check flags (a NaN in
+    each): up to 3 levels the wide form's tables hold max(n_out, len(buf))
+    lanes a level, so the group ending past them searches without a table
+    (its children's searches instead); past 3 levels K4 runs the wide form
+    directly, its tables sized by the runs' total. Every output lane is
+    written and equals the plain version (which JAX K4 matches on the CPU
+    for the first geometry,
+    ``test_torch_params.test_k4_overlapping_runs_match_jax``), key-only and
+    KV, under forced CTA counts; at w 4 K4 runs the wide form directly;
+    then the same on 4096 keys in runs of up to 4000."""
+    starts = [0, 122, 114, 66, 0, 126, 126, 10, 0, 78, 36, 48, 0, 104, 75,
+              22, 0, 113, 28, 70, 0, 117, 7, 62, 0, 55, 18, 102, 0, 127, 120,
+              48]
+    rng = np.random.default_rng(L)
+    big = rng.integers(0, 3000, 32)
+    big[::4] = 0
+    for n, st, ln, n_out, w, bo in (
+            (160, starts, [30] * 32, 800, 8, 32),
+            (160, starts, [30] * 32, 800, 4, 32),
+            (4096, big, rng.integers(1000, 4000, 32), 40000, 32, 256)):
+        x = np.sort(RNG.choice(MERGE_NAN_POOL, n).astype(np.float32))[::-1]
+        x[:2] = np.nan
+        ln = np.minimum(np.asarray(ln), n - np.asarray(st))
+        buf, st, ln = (T(np.ascontiguousarray(v)).to(card) for v in (
+            x, np.asarray(st, np.int32), ln.astype(np.int32)))
+        rk = torch.arange(n, dtype=torch.int32, device=card)
+        for ctas in (1, 3, 0):
+            _same_on_card(TT.merge_tree_runs, buf, st, ln, group=1 << L,
+                          n_out=n_out, w=w, block_out=bo, _ctas=ctas)
+            _same_on_card(TT.merge_tree_runs_kv, buf, rk, st, ln,
+                          group=1 << L, n_out=n_out, w=w, block_out=bo,
+                          _ctas=ctas)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [16384, 32768])
+def test_wide_tree_past_register_width_matches_plain(card, w):
+    """The tree form past w 8192, where a team's lanes stay in its arena
+    (512 threads, a barrier a butterfly stage): K2 and K3 over NaN / +-0
+    run pairs, and K4 over two ragged groups at 1 and 2 levels (some runs
+    out of order), key-only and KV in both directions, bit for bit against
+    the plain versions, under forced CTA counts and the card's own; one
+    launch a call."""
+    from repro_torch.kernels import launch_counts, reset_launches
+    a = T(nan_run(3 * w + 17)).to(card)
+    b = T(nan_run(2 * w - 5)).to(card)
+    ra = torch.arange(a.numel(), dtype=torch.int32, device=card)
+    rb = a.numel() + torch.arange(b.numel(), dtype=torch.int32, device=card)
+    _same_on_card(TF.flims_merge, a, b, w=w, block_out=2 * w)
+    _same_on_card(TF.flims_merge_kv, a, ra, b, rb, w=w, block_out=w)
+    buf, st, ln = (T(v).to(card) for v in ragged([3 * w, 0, w + 7, 2 * w]))
+    n = int(ln.sum())
+    rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+    _same_on_card(TS.segmented_merge_runs, buf, buf, st[::2], ln[::2],
+                  st[1::2], ln[1::2], n_out=n - 3, w=w, block_out=w)
+    _same_on_card(TS.segmented_merge_runs_kv, buf, rk, buf, rk, st[::2],
+                  ln[::2], st[1::2], ln[1::2], n_out=n, w=w, block_out=w)
+    rng = np.random.default_rng(w)
+    for L in (1, 2):
+        for kv, desc in ((False, True), (True, True), (True, False)):
+            buf, st, ln = (T(v).to(card) for v in wide_tree_runs(
+                1 << L, w, desc, rng))
+            rk = torch.arange(buf.numel(), dtype=torch.int32, device=card)
+            kw = dict(group=1 << L, n_out=int(ln.sum()) - 5, w=w,
+                      block_out=w)
+            if kv:
+                fn, args = TT.merge_tree_runs_kv, (buf, rk, st, ln)
+                kw["descending"] = desc
+            else:
+                fn, args = TT.merge_tree_runs, (buf, st, ln)
+            for ctas in (1, 3, 0):
+                reset_launches()
+                _same_on_card(fn, *args, _ctas=ctas, **kw)
+                assert sum(launch_counts().values()) == 1
+
+
 @pytest.mark.cuda
 def test_k4_footprint_does_not_depend_on_block(card):
     """The streaming tree's shared memory (rings, mbarriers, partition

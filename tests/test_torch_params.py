@@ -138,6 +138,42 @@ def test_k4_levels_and_widths_match_jax(group, w):
     same(got[1], exp[1], "K4kv ranks")
 
 
+#: 32 runs of 30 keys over a 160-key buffer, each group's first at 0 (its
+#: NaNs): 960 keys in all, past n_out = 800, which JAX K4's bank (n_out / w
+#: + a few rows a run) still holds
+OVERLAP_STARTS = [0, 122, 114, 66, 0, 126, 126, 10, 0, 78, 36, 48, 0, 104,
+                  75, 22, 0, 113, 28, 70, 0, 117, 7, 62, 0, 55, 18, 102, 0,
+                  127, 120, 48]
+
+
+def test_k4_overlapping_runs_match_jax():
+    """Runs that overlap in the buffer, longer together than both ``n_out``
+    and the buffer, in groups holding a NaN: on the card K4's run check
+    hands such groups to the wide form, whose tables hold max(n_out,
+    len(buf)) lanes a level, so the group that ends past them searches
+    without a table (its children's searches instead); the card holds that
+    route to the plain version (``test_torch_cuda``), and the plain route
+    (key-only, and KV ascending) equals JAX K4 in interpret mode."""
+    n, w, bo, n_out = 160, 8, 32, 800
+    buf = run(n)
+    buf[:2] = np.nan
+    st = np.array(OVERLAP_STARTS, np.int32)
+    ln = np.full(st.size, 30, np.int32)
+    asc = np.sort(buf)
+    r = np.arange(n, dtype=np.int32)
+    for group in (4, 8):
+        kw = dict(group=group, n_out=n_out, w=w, block_out=bo)
+        same(TT.merge_tree_runs(T(buf), T(st), T(ln), **kw),
+             jk4(jnp.asarray(buf), jnp.asarray(st), jnp.asarray(ln), **kw),
+             f"K4 overlapping runs, group {group}")
+        got = TT.merge_tree_runs_kv(T(asc), T(r), T(st), T(ln),
+                                    descending=False, **kw)
+        exp = jk4kv(jnp.asarray(asc), jnp.asarray(r), jnp.asarray(st),
+                    jnp.asarray(ln), descending=False, **kw)
+        same(got[0], exp[0], f"K4kv overlapping runs keys, group {group}")
+        same(got[1], exp[1], f"K4kv overlapping runs ranks, group {group}")
+
+
 def test_k4_k8_unsorted_int16_runs_match_jax():
     """Runs not sorted in the call's order (int16 keys at the dtype's min
     and max): the card hands their groups to the wide form, whose
